@@ -1,0 +1,220 @@
+"""Antialias pieces of the forward render path (torch).
+
+Counterparts of parts of ``nvdiffrast_tpu/ops/antialias.py``: the
+shared per-pair math (``pair_ids``, ``pair_alpha`` and their sign and
+rational helpers), the per-triangle forward table, the flat pixel grid
+and the topology wrapper. The math is the same expressions in the same
+order; ``shade_cols_plain`` (ops/pipeline_cuda.py) and the CUDA kernel
+``csrc/shade_fwd.cu`` both follow it.
+"""
+
+import numpy as np
+import torch
+
+from .topology import build_opposite_table
+
+_F32_MAX = 3.402823466e38
+
+
+class TopologyHashWrapper:
+    """Opaque topology table: op[T, 3] int32 opposite vertices.
+
+    Accepts a tensor, or the JAX package's ``op_table`` as a numpy array
+    (the same table; see ``build_opposite_table``).
+    """
+
+    def __init__(self, op_table):
+        if isinstance(op_table, np.ndarray):
+            op_table = torch.from_numpy(np.array(op_table, dtype=np.int32))
+        self.op_table = torch.as_tensor(op_table, dtype=torch.int32)
+
+
+def antialias_construct_topology_hash(tri):
+    """Topology table for a triangle tensor [T, 3] int32."""
+    return TopologyHashWrapper(build_opposite_table(tri))
+
+
+# ---------------------------------------------------------------------------
+# Shared pointwise pair math (antialias.py:92-215).
+# ---------------------------------------------------------------------------
+
+def _same_sign(a, b):
+    # Sign-BIT comparison on the int32 bitcast: +0.0 and -0.0 differ.
+    return (a.view(torch.int32) ^ b.view(torch.int32)) >= 0
+
+
+def _rational_gt(n0, n1, d0, d1):
+    return (n0 * d1 > n1 * d0) == _same_sign(d0, d1)
+
+
+def _max_idx3(n0, n1, n2, d0, d1, d2):
+    g10 = _rational_gt(n1, n0, d1, d0)
+    g20 = _rational_gt(n2, n0, d2, d0)
+    g21 = _rational_gt(n2, n1, d2, d1)
+    return torch.where(g20 & g21, 2, torch.where(g10, 1, 0))
+
+
+def pair_ids(idf0, idf1, z0, z1, T):
+    """Triangle choice for a pixel pair.
+
+    `idf1`/`z1` are the neighbour's values with image borders folded to
+    the pixel's own (which disables the pair).
+
+    Returns (tid, is_t1, active): clamped table id, whether the
+    neighbour's triangle was selected, and the pair-active mask.
+    """
+    tri0 = idf0.to(torch.int32) - 1
+    tri1 = idf1.to(torch.int32) - 1
+    work = idf1 != idf0
+    tsel = torch.where(tri0 >= 0, tri0, tri1)
+    both = (tri0 >= 0) & (tri1 >= 0)
+    tsel = torch.where(both, torch.where(z0 < z1, tri0, tri1), tsel)
+    is_t1 = tsel == tri1
+    tri_ok = (tsel >= 0) & (tsel < T)
+    active = work & tri_ok
+    tid = torch.where(tri_ok, tsel, 0)
+    return tid, is_t1, active
+
+
+def pair_alpha(t7, fx, fy, is_t1, active, d):
+    """Edge crossing analysis for one pixel pair.
+
+    Args:
+      t7: 7 gathered per-pixel tensors (sx0, sx1, sx2, sy0, sy1, sy2,
+        sign bitmask) from the forward table.
+      fx, fy: image-centered pixel coordinates (unshifted).
+      is_t1, active: from `pair_ids`.
+      d: 0 = horizontal pair (right neighbour), 1 = vertical (down).
+
+    Returns (alpha, di): blend weight (0 when inactive) and the edge
+    index used.
+    """
+    sx0, sx1, sx2, sy0, sy1, sy2, sbits = t7
+    shift = is_t1.to(torch.float32)
+    fxs = fx + shift * (1 - d)
+    fys = fy + shift * d
+
+    x0 = sx0 - fxs
+    x1 = sx1 - fxs
+    x2 = sx2 - fxs
+    y0 = sy0 - fys
+    y1 = sy1 - fys
+    y2 = sy2 - fys
+
+    sb = sbits.to(torch.int32)
+    s0 = (sb & 1) != 0
+    s1 = (sb & 2) != 0
+    s2 = (sb & 4) != 0
+    any_sil = s0 | s1 | s2
+
+    if d == 1:  # XY flip for horizontal edges
+        x0, y0 = y0, x0
+        x1, y1 = y1, x1
+        x2, y2 = y2, x2
+
+    dx0 = x2 - x1
+    dx1 = x0 - x2
+    dx2 = x1 - x0
+    dy0 = y2 - y1
+    dy1 = y0 - y2
+    dy2 = y1 - y0
+
+    ds = torch.where(is_t1, -1.0, 1.0)
+    d0 = ds * (x1 * dy0 - y1 * dx0)
+    d1 = ds * (x2 * dy1 - y2 * dx1)
+    d2 = ds * (x0 * dy2 - y0 * dx2)
+
+    c0 = _same_sign(y1, y2)
+    c1 = _same_sign(y2, y0)
+    c2 = _same_sign(y0, y1)
+    d0 = torch.where(c0, -_F32_MAX, d0)
+    d1 = torch.where(c1, -_F32_MAX, d1)
+    d2 = torch.where(c2, -_F32_MAX, d2)
+    dy0 = torch.where(c0, 1.0, dy0)
+    dy1 = torch.where(c1, 1.0, dy1)
+    dy2 = torch.where(c2, 1.0, dy2)
+
+    di = _max_idx3(d0, d1, d2, dy0, dy1, dy2)
+
+    dc = torch.full_like(d0, -_F32_MAX)
+    use0 = (di == 0) & s0 & (dy0.abs() >= dx0.abs())
+    use1 = (di == 1) & s1 & (dy1.abs() >= dx1.abs())
+    use2 = (di == 2) & s2 & (dy2.abs() >= dx2.abs())
+    dc = torch.where(use0, d0 / dy0, dc)
+    dc = torch.where(use1, d1 / dy1, dc)
+    dc = torch.where(use2, d2 / dy2, dc)
+
+    eps = 0.0625  # 1/16 pixel inaccuracy bound
+    found = (dc > -eps) & (dc < 1.0 + eps)
+    active = active & any_sil & found
+    dcc = torch.clamp(dc, 0.0, 1.0)
+    alpha = torch.where(active, ds * (0.5 - dcc), 0.0)
+    alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
+    return alpha, di
+
+
+# ---------------------------------------------------------------------------
+# Tables (antialias.py:312-401).
+# ---------------------------------------------------------------------------
+
+def _build_tables(pos, tri, op_table, H, W):
+    """Per-triangle screen tables (channel-major) + a dummy zero column.
+
+    Instance mode: pos [B, V, 4], tri/op_table [T, 3].
+    Returns (ftable [7, B*T+1], btable [9, B*T+1], R = B*T, T). ftable
+    holds each triangle's screen vertices (SX*3, SY*3) and its wing-sign
+    bitmask: the silhouette test is pixel-independent, so it is
+    evaluated once per triangle. btable holds the raw clip (x, y, w).
+    """
+    T = tri.shape[0]
+    xh = 0.5 * W
+    yh = 0.5 * H
+    tri_l = tri.long()
+    ov = torch.where(op_table >= 0, op_table, tri).long()
+
+    tv = pos[:, tri_l]  # [B, T, 3, 4]
+    o = pos[:, ov]
+
+    def screen(q):
+        iw = 1.0 / q[..., 3]
+        return q[..., 0] * iw * xh, q[..., 1] * iw * yh
+
+    sx, sy = screen(tv)  # [B, T, 3]
+    ox, oy = screen(o)
+
+    bb = ((sx[..., 1] - sx[..., 0]) * (sy[..., 2] - sy[..., 0])
+          - (sx[..., 2] - sx[..., 0]) * (sy[..., 1] - sy[..., 0]))
+    a0 = ((sx[..., 1] - ox[..., 0]) * (sy[..., 2] - oy[..., 0])
+          - (sx[..., 2] - ox[..., 0]) * (sy[..., 1] - oy[..., 0]))
+    a1 = ((sx[..., 2] - ox[..., 1]) * (sy[..., 0] - oy[..., 1])
+          - (sx[..., 0] - ox[..., 1]) * (sy[..., 2] - oy[..., 1]))
+    a2 = ((sx[..., 0] - ox[..., 2]) * (sy[..., 1] - oy[..., 2])
+          - (sx[..., 1] - ox[..., 2]) * (sy[..., 0] - oy[..., 2]))
+    sbits = (_same_sign(a0, bb).to(torch.float32)
+             + 2.0 * _same_sign(a1, bb).to(torch.float32)
+             + 4.0 * _same_sign(a2, bb).to(torch.float32))
+
+    ftable = torch.cat([sx, sy, sbits[..., None]], dim=-1).reshape(-1, 7).T
+    btable = tv[..., [0, 1, 3]].reshape(-1, 9).T
+    R = ftable.shape[1]
+    zcol7 = torch.zeros((7, 1), dtype=torch.float32, device=pos.device)
+    zcol9 = torch.zeros((9, 1), dtype=torch.float32, device=pos.device)
+    ftable = torch.cat([ftable, zcol7], dim=1).contiguous()
+    btable = torch.cat([btable, zcol9], dim=1).contiguous()
+    return ftable, btable, R, T
+
+
+def _pixel_grid(B, H, W, T, device):
+    """(fx, fy, rofs, border_x, border_y) flat [N] tensors, instance mode.
+
+    fx, fy are image-centered pixel coordinates; rofs = b*T is the
+    table-row offset of each pixel's image.
+    """
+    N = B * H * W
+    pix = torch.arange(N, dtype=torch.int32, device=device)
+    colp = pix % W
+    rowp = (pix // W) % H
+    fx = colp.to(torch.float32) + (0.5 - 0.5 * W)
+    fy = rowp.to(torch.float32) + (0.5 - 0.5 * H)
+    rofs = (pix // (H * W)) * T
+    return fx, fy, rofs, colp >= W - 1, rowp >= H - 1

@@ -1,0 +1,113 @@
+"""The port's package boundary and kernel loader (no GPU needed).
+
+* importing nvdiffrast_tpu_torch pulls in no JAX and starts no nvcc;
+* the CUDA sources exist and export the entries the wrappers bind;
+* the loader names nvcc when it is missing, passes the documented
+  flags, caches by source hash and reports a failed compile.
+"""
+
+import os
+import pathlib
+import stat
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from nvdiffrast_tpu_torch import _build
+from nvdiffrast_tpu_torch.ops import pipeline_cuda, rasterize_cuda
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _fake_nvcc(bin_dir, log, exit_code=0):
+    """An nvcc stand-in that records its arguments and writes -o."""
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    script = bin_dir / "nvcc"
+    script.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys
+        with open({str(log)!r}, "a") as f:
+            f.write(" ".join(sys.argv[1:]) + "\\n")
+        if {exit_code}:
+            sys.stderr.write("fake compile error\\n")
+            sys.exit({exit_code})
+        out = sys.argv[sys.argv.index("-o") + 1]
+        open(out, "wb").close()
+        """))
+    script.chmod(script.stat().st_mode | stat.S_IXUSR)
+    return script
+
+
+def test_import_pulls_no_jax_and_starts_no_nvcc(tmp_path):
+    log = tmp_path / "nvcc.log"
+    _fake_nvcc(tmp_path / "bin", log)
+    code = textwrap.dedent("""\
+        import importlib, pkgutil, sys
+        import nvdiffrast_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "nvdiffrast_tpu"))
+        assert not bad, bad
+        print("ok", len(pkg.__all__))
+        """)
+    env = dict(os.environ, PATH=f"{tmp_path / 'bin'}{os.pathsep}{os.environ['PATH']}",
+               PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+    assert not log.exists(), "importing the package ran nvcc"
+
+
+def test_cuda_sources_exist():
+    names = {p.name for p in _build.sources()}
+    assert {"rasterize.cu", "shade_fwd.cu", "common.cu"} <= names
+    text = "".join(p.read_text() for p in _build.sources())
+    for kernel in (rasterize_cuda.KERNEL, pipeline_cuda.KERNEL):
+        assert f'extern "C" int {kernel.name}(' in text
+    assert 'extern "C" const char* nvdr_error_string(' in text
+    assert all(p.parent == _build.SRC_DIR for p in _build.sources())
+
+
+def test_missing_nvcc_raises_clear_error(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "_DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(_build.KernelBuildError, match="nvcc"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_flags_and_cache(tmp_path, monkeypatch):
+    log = tmp_path / "nvcc.log"
+    _fake_nvcc(tmp_path / "cuda" / "bin", log)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    out = _build.build()
+    assert out.parent == tmp_path / "build" and out.exists()
+    assert _build.source_hash() in out.name
+    args = log.read_text().split()
+    for flag in ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-fmad=false", "-shared", "-Xcompiler", "-fPIC"):
+        assert flag in args, flag
+    assert "--use_fast_math" not in args
+    assert sorted(a for a in args if a.endswith(".cu")) == sorted(
+        str(p) for p in _build.sources())
+    assert _build.build() == out
+    assert len(log.read_text().splitlines()) == 1, "rebuilt an unchanged source"
+
+
+def test_failed_compile_raises(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path / "cuda" / "bin", tmp_path / "nvcc.log", exit_code=2)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelBuildError, match="fake compile error"):
+        _build.build()
+    assert not _build.library_path().exists()
+    assert not list((tmp_path / "build").glob("*.so"))
