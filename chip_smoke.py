@@ -19,9 +19,21 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      B = 2 render, each finite, plausibly covered and bitwise
      repeatable, through both kernels (launch counts), plus a small
      render held against the CPU path; then the forward's time per
-     frame and Mpix/s, and the twins' at 512^2.
-It prints one JSON line of per-kernel results and, last, the device
-line. Any failed check raises, so the exit code is not 0. Without a
+     frame and Mpix/s, and the twins' at 512^2;
+  5. the backward kernels against their twins on the card, at 2048^2 on
+     the bench scene with dy from the forward's real loss mean(img**2):
+     pipeline_bwd bit for bit, grad_scatter within 1e-6 of each row's
+     largest entry; their times, and index_add_ over the expanded rows
+     as the scatter's library yardstick;
+  6. the training slice: gradients of mean(render_pipeline(...)**2) to
+     pos and the vertex colours at 2048^2, finite, non-zero, bitwise
+     repeatable, B = 2 equal to two B = 1 runs, at 256^2 within 1e-5 of
+     the largest gradient of the CPU path; all four kernels launched;
+     the fwd+bwd step's ms and Mpix/s; then 5 Adam steps fitting the
+     colours and a pose offset to a target render, the loss falling.
+It prints one JSON line of per-kernel results (with each kernel's
+bound: the larger of its bytes over 3.35 TB/s and its float32
+operations over 67 TFLOP/s) and, last, the device line. Any failed check raises, so the exit code is not 0. Without a
 CUDA device, or without the package beside it, it fails at once.
 """
 
@@ -39,6 +51,11 @@ ZFIGHT_FRAC = 2e-4   # tests/test_parity_sweep.py: mismatched ids on <= 2e-4 of 
 ZFIGHT_DEPTH = 1e-4  # ... with depths within 1e-4 there
 RASTER_ATOL = 1e-4   # u, v, z/w where ids agree
 SHADE_ATOL = 1e-5
+SCATTER_ROW_RTOL = 1e-6  # grad_scatter vs twin: float64 sums, order differs
+GRAD_CPU_RTOL = 1e-5     # GPU vs CPU gradients, of the largest gradient
+ADAM_STEPS = 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
+F32_OPS_PER_S = 67e12
 
 
 def log(*a):
@@ -126,6 +143,23 @@ def window_ms(torch, step, argsets):
     return max(t2 - t1, 1e-9) / 32 * 1e3
 
 
+def bound(nbytes, ops):
+    """(ms, "bytes" | "operations"): the least time for the work."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def rows_close(got, ref, rel):
+    """Each row of `got` within rel * max|row of ref| (zero rows exact).
+    Returns the largest error over that row scale."""
+    scale = ref.abs().amax(1, keepdim=True)
+    err = (got - ref).abs()
+    if not bool((err <= rel * scale).all()):
+        raise AssertionError(f"rows differ beyond {rel} of their scale")
+    return float((err / scale.clamp(min=1e-30)).max())
+
+
 def zfight_check(ref, got, what):
     """Rasterizer outputs (u, v, zw, idf) held to the z-fight bar.
     Returns (max |err| where ids agree, mismatched ids)."""
@@ -153,6 +187,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from nvdiffrast_tpu_torch import _build
     from nvdiffrast_tpu_torch.ops import pipeline as pl
+    from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
     from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
     from nvdiffrast_tpu_torch.ops.antialias import _build_tables
@@ -162,11 +197,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
 
     # -- 1. device and build ------------------------------------------------
     card = card_line()
-    log(f"[1] device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
+    log(f"[1] device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -308,21 +343,193 @@ def main():
     log(f"[4] forward with plain twins, {TWIN_RES}^2: {twin_ms:.3f} ms/frame, "
         f"{twin_mpix:.2f} Mpix/s ({card})")
 
+    # -- 5. backward kernels vs twins (2048^2, dy of mean(img**2)) ------------
+    A = a.shape[-1]
+    color, saved = pl._pipeline_fwd_core(p, a, t, c, build_opposite_table(t), res)
+    b0, b1, idf, c0, al0, ax0, al1, ax1, atbl_s, vtbl = saved
+    color = color.requires_grad_()
+    dimg = torch.autograd.grad((color ** 2).mean(), color)[0]
+    dy = dimg.reshape(N, A).T.contiguous()
+    bargs = (atbl_s, vtbl, idf, c0, dy, (al0, ax0, al1, ax1), res, T)
+    kb = pb.pipeline_bwd(*bargs)
+    tb = pb.pipeline_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    for x, y in zip(kb, tb):
+        if not torch.equal(x, y):
+            raise AssertionError("pipeline_bwd kernel differs from its twin")
+    bwd_err = 0.0
+    gs, dd2, rid2 = kb
+    n_dd = int((dd2 != 0).sum())
+    log(f"[5] pipeline_bwd {RES}^2: equal to its twin bit for bit; {n_dd} AA pairs "
+        f"with dd != 0, max|gs| {float(gs.abs().max()):.3g}")
+    bwd_ms = cuda_ms(torch, lambda: pb.pipeline_bwd(*bargs), 50)
+    bwd_plain_ms = cuda_ms(torch, lambda: pb.pipeline_bwd_plain(*bargs), 5)
+    log(f"[5] pipeline_bwd {RES}^2: kernel {bwd_ms:.3f} ms, twin {bwd_plain_ms:.3f} ms ({card})")
+
+    R = vtbl.shape[1] - 1
+    rid0 = pl.own_rows(idf, T, res)
+    sargs = (rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, res)
+    ks = pb.grad_scatter(*sargs)
+    ks2 = pb.grad_scatter(*sargs)
+    ts = pb.grad_scatter_plain(*sargs)
+    torch.cuda.synchronize()
+    scatter_err = 0.0
+    for x, y, z in zip(ks, ks2, ts):
+        if not torch.equal(x, y):
+            raise AssertionError("grad_scatter kernel not repeatable")
+        rows_close(x, z, SCATTER_ROW_RTOL)
+        scatter_err = max(scatter_err, float((x - z).abs().max()))
+    codes, off = pb._entries(rid0, gs, dd2, rid2, R)
+    flats = (b0, b1, ax0, ax1)
+    n_own = int((codes < N).sum())
+    n_aa = codes.shape[0] - n_own
+    log(f"[5] grad_scatter {RES}^2: {n_own} own-pixel and {n_aa} AA entries over "
+        f"{R} rows; max|err| vs twin {scatter_err:.3g} (bar {SCATTER_ROW_RTOL} x row max)")
+    scatter_ms = cuda_ms(torch, lambda: pb.scatter_entries(codes, off, gs, dd2, flats,
+                                                           vtbl, res), 50)
+    entries_ms = cuda_ms(torch, lambda: pb._entries(rid0, gs, dd2, rid2, R), 20)
+    scatter_plain_ms = cuda_ms(torch, lambda: pb.grad_scatter_plain(*sargs), 3)
+    (orow, own), (arow, aav) = pb.expand_rows(*sargs)
+    orow, arow = orow.long(), arow.long()
+    zgt = torch.zeros((R, own.shape[1]), dtype=torch.float32, device=dev)
+    zgaa = torch.zeros((R, 9), dtype=torch.float32, device=dev)
+    scatter_lib_ms = cuda_ms(torch, lambda: (zgt.index_add_(0, orow, own),
+                                             zgaa.index_add_(0, arow, aav)), 50)
+    log(f"[5] grad_scatter {RES}^2: kernel {scatter_ms:.3f} ms + index glue (sort) "
+        f"{entries_ms:.3f} ms, twin {scatter_plain_ms:.3f} ms, index_add_ over the "
+        f"expanded rows {scatter_lib_ms:.3f} ms ({card})")
+
+    # -- 6. the training slice: fwd + bwd at 2048^2 ----------------------------
+    def grads(view, colour, size):
+        pv = view.detach().clone().requires_grad_()
+        cv = colour.detach().clone().requires_grad_()
+        img = pl.render_pipeline(pv, t8, cv, size, attr_idx=c8)
+        # Per-image mean, summed over the batch (= mean(img**2) at B = 1).
+        loss = (img ** 2).mean(dim=(1, 2, 3)).sum()
+        return torch.autograd.grad(loss, (pv, cv))
+
+    for k in (rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+        k.launches = 0
+    g1 = [grads(reqs[i], a8, res) for i in range(2)]
+    again = grads(reqs[0], a8, res)
+    col2 = a8.expand(2, -1, -1).contiguous()  # per-image colours: per-image gradients
+    g2 = grads(pos2, col2, res)
+    torch.cuda.synchronize()
+    train_launches = {"rasterize": rc.KERNEL.launches, "shade_fwd": pc.KERNEL.launches,
+                      "pipeline_bwd": pb.BWD_KERNEL.launches,
+                      "grad_scatter": pb.SCATTER_KERNEL.launches}
+    log(f"[6] launches during the training slice: {train_launches}")
+    if min(train_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {train_launches}")
+    for i, (gp, gc) in enumerate(g1):
+        for name, g in (("pos", gp), ("col", gc)):
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                raise AssertionError(f"view {i}: {name} gradient not finite or all zero")
+    for x, y in zip(g1[0], again):
+        if not torch.equal(x, y):
+            raise AssertionError("gradients not bitwise repeatable")
+    for b in range(2):
+        if not (torch.equal(g2[0][b], g1[b][0][0]) and torch.equal(g2[1][b], g1[b][1])):
+            raise AssertionError(f"B=2 gradients of image {b} differ from its B=1 run")
+    log(f"[6] gradients finite, non-zero, bitwise repeatable; B=2 equal to two B=1 "
+        f"runs bit for bit; max|g_pos| {float(g1[0][0].abs().max()):.3g}, "
+        f"max|g_col| {float(g1[0][1].abs().max()):.3g}")
+
+    gpu_g = [g.cpu() for g in grads(reqs[3], a8, small)]
+    cpu_g = grads(reqs[3].cpu(), a8.cpu(), small)
+    for name, x, y in zip(("pos", "col"), gpu_g, cpu_g):
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        if not (scale > 0 and err <= GRAD_CPU_RTOL * scale):
+            raise AssertionError(f"{SMALL}^2 {name} gradient, GPU vs CPU: {err} of {scale}")
+        log(f"[6] {SMALL}^2 {name} gradient, GPU vs CPU path: max|err| {err:.3g} "
+            f"(max|g| {scale:.3g}, bar {GRAD_CPU_RTOL} x max|g|)")
+
+    step_ms = window_ms(torch, lambda view: grads(view, a8, res), [(v,) for v in reqs])
+    step_mpix = RES * RES / 1e6 / (step_ms / 1e3)
+    log(f"[6] render_pipeline fwd+bwd {RES}^2 (kernels): {step_ms:.3f} ms/step, "
+        f"{step_mpix:.2f} Mpix/s ({card})")
+
+    # A few Adam steps: colours and a pose offset fit a target render.
+    from nvdiffrast_tpu_torch.models import primitives
+    from nvdiffrast_tpu_torch.utils import camera
+    _, vtxp, _, _ = primitives.uv_sphere(32, 64)
+    vtx = torch.as_tensor(vtxp, dtype=torch.float32, device=dev)
+    mvp = torch.as_tensor(camera.projection(x=0.4) @ camera.translate(0, 0, -3.5),
+                          dtype=torch.float32, device=dev)
+
+    def clip(offset):
+        posw = torch.cat([vtx + offset, torch.ones_like(vtx[:, :1])], dim=1)
+        return (posw @ mvp.T)[None]
+
+    gen = torch.Generator().manual_seed(5)
+    zero = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        target = pl.render_pipeline(clip(zero), t8, a8, res, attr_idx=c8)
+    colour = (a8 + 0.2 * torch.randn(a8.shape, generator=gen).to(dev)).requires_grad_()
+    offset = (0.05 * torch.randn(3, generator=gen).to(dev)).requires_grad_()
+    opt = torch.optim.Adam([colour, offset], lr=0.02)
+    losses = []
+    kernels_of_path = (rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)
+    for k in kernels_of_path:
+        k.launches = 0
+    for _ in range(ADAM_STEPS):
+        img = pl.render_pipeline(clip(offset), t8, colour, res, attr_idx=c8)
+        loss = ((img - target) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    fit_launches = {k.name: k.launches for k in kernels_of_path}
+    log(f"[6] Adam fit, {ADAM_STEPS} steps at {RES}^2: loss {losses}; launches {fit_launches}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Adam fit: the loss did not fall: {losses}")
+    if min(fit_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {fit_launches}")
+
+    # Bounds: bytes each input read once and each output written once, over
+    # 3.35 TB/s; float32 operations counted from the kernels' sources, over
+    # 67 TFLOP/s. The larger is the bound.
+    f32 = 4
+    # Fragments: pixels of each triangle's screen AABB inside the image.
+    span_x = aabb[..., 2].clamp(max=RES - 1) - aabb[..., 0].clamp(min=0) + 1
+    span_y = aabb[..., 3].clamp(max=RES - 1) - aabb[..., 1].clamp(min=0) + 1
+    frag = float((span_x.clamp(min=0) * span_y.clamp(min=0)).sum())
+    raster_bound = bound(rec.numel() * f32 + aabb.numel() * f32 + 4 * N * f32, 34 * frag)
+    shade_bound = bound((atbl.numel() + ftable.numel() + 4 * N + (4 * A + 4) * N) * f32,
+                        (120 + 21 * A) * N)
+    bwd_bound = bound((atbl_s.numel() + vtbl.numel() + (5 + 2 * A) * N + (A + 13) * N) * f32,
+                      (80 + 20 * A) * N)
+    scatter_bound = bound((n_own * (A + 9 + 3) + n_aa * 3 + 9 * (R + 1) + (R + 1)
+                           + R * (3 * A + 18)) * f32,
+                          n_own * (6 * A + 11) + n_aa * 60)
+
+    def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib):
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+
     kernels = [
-        {"name": "rasterize", "route": "cuda",
-         "source": "nvdiffrast_tpu_torch/csrc/rasterize.cu",
-         "replaces": "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
-         "launches": launches["rasterize"], "max_abs_err": raster_err,
-         "ms": raster_ms, "plain_ms": raster_plain_ms},
-        {"name": "shade_fwd", "route": "cuda",
-         "source": "nvdiffrast_tpu_torch/csrc/shade_fwd.cu",
-         "replaces": "nvdiffrast_tpu/ops/pipeline_pallas.py:74",
-         "launches": launches["shade_fwd"], "max_abs_err": shade_err,
-         "ms": shade_ms, "plain_ms": shade_plain_ms},
+        entry("rasterize", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", fit_launches[rc.KERNEL.name],
+              raster_err, raster_ms, raster_plain_ms, raster_bound, None),
+        entry("shade_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/shade_fwd.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:74", fit_launches[pc.KERNEL.name],
+              shade_err, shade_ms, shade_plain_ms, shade_bound, None),
+        entry("pipeline_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/pipeline_bwd.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:254", fit_launches[pb.BWD_KERNEL.name],
+              bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None),
+        entry("grad_scatter", "cuda", "nvdiffrast_tpu_torch/csrc/grad_scatter.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:535", fit_launches[pb.SCATTER_KERNEL.name],
+              scatter_err, scatter_ms, scatter_plain_ms, scatter_bound, scatter_lib_ms),
     ]
+    for k in kernels:
+        log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "
+            f"{k['ms']:.4f} ms ({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")
     log(card)
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
 

@@ -5,11 +5,12 @@ the ported slices, with the same public layouts (``pos [B, V, 4]``,
 ``tri [T, 3]``, ``attr [B|1, V, A]``, images ``[B, H, W, A]``). It
 imports torch and numpy only.
 
-Ported so far: the forward of ``render_pipeline`` (rasterize +
-interpolate + antialias), with its two hand-written CUDA kernels for
-Hopper (``csrc/``, built with nvcc at first use on a GPU). CPU tensors
-run the kernels' plain PyTorch twins. Every call runs on the device of
-its input.
+Ported so far: ``render_pipeline`` (rasterize + interpolate +
+antialias), forward and backward, with its four hand-written CUDA
+kernels for Hopper (``csrc/``, built with nvcc at first use on a GPU):
+gradients flow to the clip-space positions and the vertex attributes.
+CPU tensors run the kernels' plain PyTorch twins. Every call runs on the
+device of its input.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
-"""Antialias pieces of the forward render path (torch).
+"""Antialias pieces of the render path (torch).
 
 Counterparts of parts of ``nvdiffrast_tpu/ops/antialias.py``: the
 shared per-pair math (``pair_ids``, ``pair_alpha`` and their sign and
-rational helpers), the per-triangle forward table, the flat pixel grid
-and the topology wrapper. The math is the same expressions in the same
-order; ``shade_cols_plain`` (ops/pipeline_cuda.py) and the CUDA kernel
-``csrc/shade_fwd.cu`` both follow it.
+rational helpers; the backward's ``pair_pos_grad`` and ``decode_aux``),
+the per-triangle tables, the flat pixel grid and the topology wrapper.
+The math is the same expressions in the same order; the plain twins in
+ops/pipeline_cuda.py and ops/pipeline_bwd_cuda.py and the CUDA kernels
+``csrc/shade_fwd.cu`` and ``csrc/grad_scatter.cu`` follow it.
 """
 
 import numpy as np
@@ -151,6 +152,90 @@ def pair_alpha(t7, fx, fy, is_t1, active, d):
     alpha = torch.where(active, ds * (0.5 - dcc), 0.0)
     alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
     return alpha, di
+
+
+def pair_pos_grad(t9, dd, ok, di, is_t1, fx, fy, d, W, H):
+    """Analytic d(alpha)/d(p1, p2) of one pixel pair, routed into the 9
+    per-triangle columns (antialias.py:218-298).
+
+    Args:
+      t9: 9 gathered clip-space values (x, y, w per vertex).
+      dd: colour-dot weight; ok: mask of pairs with real work (the
+        |alpha| >= 0.5 kill is the caller's).
+      di, is_t1: edge index and side (`decode_aux`).
+      fx, fy: image-centered pixel coordinates (unshifted).
+      d: 0 = horizontal pair, 1 = vertical; W, H: image size.
+
+    Returns a list of 9 tensors: column 3*vert + comp of the gradient
+    row, non-finite values zeroed.
+    """
+    # Edge vertices: i1 = di+1, i2 = di+2 (mod 3).
+    i1 = torch.where(di < 2, di + 1, 0)
+    i2 = torch.where(i1 < 2, i1 + 1, 0)
+
+    def vert(idx, comp):
+        r = t9[0 + comp]
+        r = torch.where(idx == 1, t9[3 + comp], r)
+        return torch.where(idx == 2, t9[6 + comp], r)
+
+    p1x, p1y, p1w = vert(i1, 0), vert(i1, 1), vert(i1, 2)
+    p2x, p2y, p2w = vert(i2, 0), vert(i2, 1), vert(i2, 2)
+
+    shift = is_t1.to(torch.float32)
+    pxh = 0.5 * W
+    pyh = 0.5 * H
+    fxs = fx + shift * (1 - d)
+    fys = fy + shift * d
+    if d == 1:
+        p1x, p1y = p1y, p1x
+        p2x, p2y = p2y, p2x
+        pxh, pyh = pyh, pxh
+        fxs, fys = fys, fxs
+
+    w1 = 1.0 / p1w
+    w2 = 1.0 / p2w
+    x1 = p1x * w1 * pxh - fxs
+    y1 = p1y * w1 * pyh - fys
+    x2 = p2x * w2 * pxh - fxs
+    y2 = p2y * w2 * pyh - fys
+    dxe = x2 - x1
+    dye = y2 - y1
+    db = x1 * dye - y1 * dxe
+
+    ep = torch.where(dye >= 0, 1e-3, -1e-3)  # copysign(1e-3, dy)
+    iy = 1.0 / (dye + ep)
+
+    dby = db * iy
+    iw1 = -w1 * iy * dd
+    iw2 = w2 * iy * dd
+    gp1x = iw1 * pxh * y2
+    gp2x = iw2 * pxh * y1
+    gp1y = iw1 * pyh * (dby - x2)
+    gp2y = iw2 * pyh * (dby - x1)
+    gp1w = -(p1x * gp1x + p1y * gp1y) * w1
+    gp2w = -(p2x * gp2x + p2y * gp2y) * w2
+    if d == 1:
+        gp1x, gp1y = gp1y, gp1x
+        gp2x, gp2y = gp2y, gp2x
+
+    g1 = (gp1x, gp1y, gp1w)
+    g2 = (gp2x, gp2y, gp2w)
+    cols = []
+    for vtx in range(3):
+        m1 = (i1 == vtx) & ok
+        m2 = (i2 == vtx) & ok
+        for comp in range(3):
+            val = (torch.where(m1, g1[comp], 0.0)
+                   + torch.where(m2, g2[comp], 0.0))
+            cols.append(torch.where(torch.isfinite(val), val, 0.0))
+    return cols
+
+
+def decode_aux(aux):
+    """AA residual aux value -> (di, is_t1); aux = di + 4 * is_t1."""
+    is_t1 = aux >= 3.5
+    di = (aux - 4.0 * is_t1.to(torch.float32)).to(torch.int32)
+    return di, is_t1
 
 
 # ---------------------------------------------------------------------------

@@ -1,29 +1,28 @@
-"""Fused rasterize -> interpolate -> antialias render, forward (torch).
+"""Fused rasterize -> interpolate -> antialias render (torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/pipeline.py``. ``render_pipeline``
 renders ``antialias(interpolate(attr, rast, attr_idx)[0], rast, pos,
-tri)`` with two kernels: the rasterizer (``rasterize_cuda``) and the
-fused interpolate + antialias shade (``pipeline_cuda.shade_fwd``), with
-plain tensor glue around them. It runs on the device of ``pos``: CPU
-tensors take the plain PyTorch twins, CUDA tensors the kernels.
-
-Forward only: gradients (the ``pipeline_bwd`` and
-``pipeline_grad_scatter`` kernels) are the next item of ROADMAP.md.
+tri)`` as a ``torch.autograd.Function``. The forward runs two kernels,
+the rasterizer (``rasterize_cuda``) and the fused interpolate +
+antialias shade (``pipeline_cuda.shade_fwd``); the backward runs two,
+the per-pixel backward and the per-triangle gradient scatter
+(``pipeline_bwd_cuda``), with plain tensor glue around them. Gradients
+flow to ``pos`` (rasterize and antialias paths, ``pos_gradient_boost``
+on the antialias part) and ``attr``. A call runs on the device of
+``pos``: CPU tensors take the plain PyTorch twins, CUDA tensors the
+kernels.
 """
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
+from . import coord
 from .antialias import TopologyHashWrapper, _build_tables
+from .pipeline_bwd_cuda import grad_scatter, pipeline_bwd
 from .pipeline_cuda import MAX_A, shade_fwd
 from .rasterize_cuda import rasterize_fused
 from .topology import build_opposite_table
-
-_NO_GRAD_MSG = (
-    "render_pipeline: gradients are not ported yet. The backward kernels "
-    "pipeline_bwd and pipeline_grad_scatter (ROADMAP.md, queue A item 1 "
-    "and queue B items 3-4) come next; call under torch.no_grad() or "
-    "pass tensors that do not require grad.")
 
 
 def _attr_table(attr, atri, B, T):
@@ -47,8 +46,10 @@ def _attr_table(attr, atri, B, T):
 
 
 def _pipeline_fwd_core(pos, attr, tri, atri, op_table, resolution):
-    """Forward core: (color [B, H, W, A], saved) where saved holds the
-    per-pixel buffers and residuals the backward will consume."""
+    """Forward core: (color [B, H, W, A], saved) where saved holds what
+    the backward consumes: the flat rasterizer buffers b0, b1, idf, the
+    pre-AA colour c0 [A, N], the AA residuals al0, ax0, al1, ax1 and the
+    attribute and clip-space vertex tables."""
     H, W = resolution
     B = pos.shape[0]
     T = tri.shape[0]
@@ -62,26 +63,130 @@ def _pipeline_fwd_core(pos, attr, tri, atri, op_table, resolution):
     idff = idf.reshape(N)
 
     atbl = _attr_table(attr, atri, B, T)
-    ftable, _btable, _R, _T = _build_tables(pos, tri, op_table, H, W)
+    ftable, btable, _R, _T = _build_tables(pos, tri, op_table, H, W)
     out_cols, c0, res = shade_fwd(atbl, ftable, b0f, b1f, zwf, idff,
                                   resolution, T)
     color = out_cols.T.reshape(B, H, W, A)
-    return color, (b0f, b1f, idff, c0, res)
+    return color, (b0f, b1f, idff, c0, *res, atbl, btable)
+
+
+def own_rows(idf, T, resolution):
+    """[N] int32 table row of each pixel's own triangle, b*T + id - 1;
+    pixels without a triangle (all-zero gradient columns) get row b*T."""
+    H, W = resolution
+    N = idf.shape[0]
+    tid0 = coord.float_to_triidx(idf) - 1
+    valid = (tid0 >= 0) & (tid0 < T)
+    rofs = torch.arange(N, dtype=torch.int32, device=idf.device) // (H * W) * T
+    return torch.where(valid, tid0, 0) + rofs
+
+
+def _corner_table(idx, V):
+    """[V, D] corner ids 3*t + k of each vertex, ascending, padded with
+    3T (a zero row of `_vertex_sum`); D is the largest vertex degree."""
+    flat = idx.reshape(-1).long()
+    n = flat.shape[0]
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=V)
+    D = int(counts.max()) if n else 0
+    slot = torch.arange(D, device=idx.device)
+    pos = (torch.cumsum(counts, 0) - counts)[:, None] + slot
+    has = slot < counts[:, None]
+    return torch.where(has, order[pos.clamp(max=max(n - 1, 0))], n)
+
+
+def _vertex_sum(rows, corners):
+    """Triangle-corner rows [B, 3T, F] -> vertex rows [B, V, F].
+
+    A gather and a dense sum over each vertex's corners: no scatter and
+    no atomics, so the result is the same on every run and device.
+    """
+    zero = rows.new_zeros((rows.shape[0], 1, rows.shape[2]))
+    return torch.cat([rows, zero], dim=1)[:, corners].sum(2)
+
+
+def _pipeline_bwd_core(tri, atri, saved, resolution, boost, pos_shape,
+                       attr_shape, dy):
+    """(g_pos [B, V, 4], g_attr shaped like attr) from the image gradient
+    dy [B, H, W, A] (ops/pipeline.py:98-167 of the JAX package)."""
+    b0f, b1f, idff, c0, al0, ax0, al1, ax1, atbl, vtbl = saved
+    H, W = resolution
+    B, V = pos_shape[0], pos_shape[1]
+    T = tri.shape[0]
+    A = attr_shape[-1]
+    N = B * H * W
+    K = 3 * A
+    dev = idff.device
+
+    dy_cols = dy.reshape(N, A).T.contiguous()
+    gs, dd2, rid2 = pipeline_bwd(atbl, vtbl, idff, c0, dy_cols,
+                                 (al0, ax0, al1, ax1), resolution, T)
+    gt, gaa = grad_scatter(own_rows(idff, T, resolution), gs, dd2, rid2, b0f,
+                           b1f, ax0, ax1, vtbl, resolution)
+
+    # Triangle rows -> vertex rows.
+    ga = gt[:, :K].reshape(B, 3 * T, A)
+    acorners = _corner_table(atri, attr_shape[-2])
+    if len(attr_shape) == 2 or attr_shape[0] == 1:  # broadcast attributes
+        g_attr = _vertex_sum(ga.sum(0, keepdim=True), acorners)
+        g_attr = g_attr.reshape(attr_shape)
+    else:
+        g_attr = _vertex_sum(ga, acorners)
+
+    gxyw = torch.cat([gt[:, K:].reshape(B, 3 * T, 3),
+                      gaa.reshape(B, 3 * T, 3)], dim=2)
+    gv = _vertex_sum(gxyw, _corner_table(tri, V))
+    g_aa = gv[..., 3:] * boost if boost != 1.0 else gv[..., 3:]
+    g_xyw = gv[..., :3] + g_aa
+    g_pos = torch.zeros((B, V, 4), dtype=torch.float32, device=dev)
+    g_pos[..., [0, 1, 3]] = g_xyw
+    return g_pos, g_attr
+
+
+class _PipelineFn(torch.autograd.Function):
+    """render_pipeline with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, pos, attr, tri, atri, op_table, resolution, boost):
+        color, saved = _pipeline_fwd_core(pos, attr, tri, atri, op_table,
+                                          resolution)
+        ctx.save_for_backward(tri, atri, *saved)
+        ctx.resolution = resolution
+        ctx.boost = boost
+        ctx.pos_shape = tuple(pos.shape)
+        ctx.attr_shape = tuple(attr.shape)
+        return color
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        tri, atri, *saved = ctx.saved_tensors
+        g_pos, g_attr = _pipeline_bwd_core(
+            tri, atri, saved, ctx.resolution, ctx.boost, ctx.pos_shape,
+            ctx.attr_shape, dy)
+        return (g_pos if ctx.needs_input_grad[0] else None,
+                g_attr if ctx.needs_input_grad[1] else None,
+                None, None, None, None, None)
 
 
 def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
-                    topology_hash=None):
+                    topology_hash=None, pos_gradient_boost=1.0):
     """Render the fused rasterize + interpolate + antialias pipeline.
 
     Equivalent to::
 
         rast, _ = rasterize(None, pos, tri, resolution, grad_db=False)
         color, _ = interpolate(attr, rast, attr_idx or tri)
-        out = antialias(color, rast, pos, tri, topology_hash)
+        out = antialias(color, rast, pos, tri, topology_hash,
+                        pos_gradient_boost)
+
+    Differentiable with respect to `pos` and `attr`.
 
     Args:
-        pos: [minibatch, num_vertices, 4] float32 clip-space positions
-            (a tensor; its device is where the render runs).
+        pos: [minibatch, num_vertices, 4] float32 clip-space positions.
+            A tensor runs on its device (CPU tensors on the plain
+            twins); anything else is put on the default CUDA device,
+            and raises RuntimeError where there is none.
         tri: [num_triangles, 3] int32.
         attr: [minibatch or 1, num_vertices_attr, A] or
             [num_vertices_attr, A] float32 vertex attributes, A <= 8.
@@ -89,12 +194,18 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
         attr_idx: triangle tensor for the attribute topology (defaults
             to `tri`; must have the same number of triangles).
         topology_hash: optional TopologyHashWrapper for `tri`.
+        pos_gradient_boost: multiplier for the antialias position
+            gradients.
 
     Returns:
         Antialiased color image [minibatch, height, width, A].
     """
     if not isinstance(pos, torch.Tensor):
-        pos = torch.as_tensor(np.asarray(pos, np.float32))
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "render_pipeline: a non-tensor pos runs on the GPU, and torch "
+                "sees no CUDA device; pass CPU tensors to run on the CPU")
+        pos = torch.as_tensor(np.asarray(pos, np.float32), device="cuda")
     dev = pos.device
     tri = torch.as_tensor(tri, dtype=torch.int32, device=dev)
     attr = torch.as_tensor(attr, dtype=torch.float32, device=dev)
@@ -102,8 +213,6 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
         attr_idx, dtype=torch.int32, device=dev)
     resolution = tuple(int(x) for x in resolution)
 
-    if torch.is_grad_enabled() and (pos.requires_grad or attr.requires_grad):
-        raise NotImplementedError(_NO_GRAD_MSG)
     if pos.ndim != 3:
         raise NotImplementedError(
             "render_pipeline: only instance mode ([minibatch, V, 4] pos) "
@@ -131,5 +240,5 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
     else:
         op_table = build_opposite_table(tri)
 
-    color, _ = _pipeline_fwd_core(pos, attr, tri, atri, op_table, resolution)
-    return color
+    return _PipelineFn.apply(pos, attr, tri, atri, op_table, resolution,
+                             float(pos_gradient_boost))

@@ -81,9 +81,10 @@ def shade_cols(atbl, ftable, b0, b1, zw, idf, resolution, T):
 
 
 def _folded(x, bx, by, W):
-    """Right and down neighbour copies, borders folded onto the pixel."""
-    xr = torch.cat([x[1:], x[-1:]])
-    xd = torch.cat([x[W:], x[-W:]])
+    """Right and down neighbour copies along the last (pixel) axis,
+    borders folded onto the pixel."""
+    xr = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
+    xd = torch.cat([x[..., W:], x[..., -W:]], dim=-1)
     return torch.where(bx, x, xr), torch.where(by, x, xd)
 
 

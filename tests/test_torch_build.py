@@ -16,7 +16,7 @@ import textwrap
 import pytest
 
 from nvdiffrast_tpu_torch import _build
-from nvdiffrast_tpu_torch.ops import pipeline_cuda, rasterize_cuda
+from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda, pipeline_cuda, rasterize_cuda
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -64,12 +64,27 @@ def test_import_pulls_no_jax_and_starts_no_nvcc(tmp_path):
 
 def test_cuda_sources_exist():
     names = {p.name for p in _build.sources()}
-    assert {"rasterize.cu", "shade_fwd.cu", "common.cu"} <= names
+    assert {"rasterize.cu", "shade_fwd.cu", "pipeline_bwd.cu", "grad_scatter.cu",
+            "common.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
-    for kernel in (rasterize_cuda.KERNEL, pipeline_cuda.KERNEL):
+    for kernel in (rasterize_cuda.KERNEL, pipeline_cuda.KERNEL,
+                   pipeline_bwd_cuda.BWD_KERNEL, pipeline_bwd_cuda.SCATTER_KERNEL):
         assert f'extern "C" int {kernel.name}(' in text
     assert 'extern "C" const char* nvdr_error_string(' in text
     assert all(p.parent == _build.SRC_DIR for p in _build.sources())
+
+
+@pytest.mark.parametrize("kernel", [
+    rasterize_cuda.KERNEL, pipeline_cuda.KERNEL, pipeline_bwd_cuda.BWD_KERNEL,
+    pipeline_bwd_cuda.SCATTER_KERNEL], ids=lambda k: k.name)
+def test_kernel_argtypes_match_c_entry(kernel):
+    """The ctypes binding passes as many arguments as the C entry takes
+    (the stream, added at launch, is the last)."""
+    text = "".join(p.read_text() for p in _build.sources())
+    start = text.index(f'extern "C" int {kernel.name}(')
+    params = text[start:text.index(")", start)].split("(", 1)[1].split(",")
+    assert params[-1].split() == ["void*", "stream"]
+    assert len(kernel.argtypes) == len(params) - 1
 
 
 def test_missing_nvcc_raises_clear_error(tmp_path, monkeypatch):

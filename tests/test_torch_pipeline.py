@@ -164,18 +164,6 @@ def test_render_pipeline_topology_and_broadcast(render_case):
                        dr.render_pipeline(p, t, a[..., :2], RES, attr_idx=c))
 
 
-def test_render_pipeline_requires_grad_raises():
-    pos, tri, attr, cidx = sphere_scene(B=1, seed=3)
-    p, t, a, c = inputs_from_numpy(pos, tri, attr, cidx)
-    with pytest.raises(NotImplementedError, match="pipeline_bwd"):
-        dr.render_pipeline(p.requires_grad_(), t, a, RES, attr_idx=c)
-    with pytest.raises(NotImplementedError, match="pipeline_bwd"):
-        dr.render_pipeline(p.detach(), t, a.requires_grad_(), RES, attr_idx=c)
-    with torch.no_grad():
-        out = dr.render_pipeline(p, t, a, RES, attr_idx=c)
-    assert torch.isfinite(out).all()
-
-
 def test_render_pipeline_argument_checks():
     pos, tri, attr, cidx = sphere_scene(B=2, seed=4, A=9)
     p, t, a, c = inputs_from_numpy(pos, tri, attr, cidx)
