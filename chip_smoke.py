@@ -30,11 +30,24 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      repeatable, B = 2 equal to two B = 1 runs, at 256^2 within 1e-5 of
      the largest gradient of the CPU path; all four kernels launched;
      the fwd+bwd step's ms and Mpix/s; then 5 Adam steps fitting the
-     colours and a pose offset to a target render, the loss falling.
+     colours and a pose offset to a target render, the loss falling;
+  7. the textured forward's kernels against their twins on the card, at
+     2048^2 on the bench textured scene (bench.py:90-119: a 512x512x3
+     texture from rand seed 0, spherical uvs, linear-mipmap-linear,
+     wrap): the rasterizer's db variant, interpolate, the texture sampler
+     and antialias, each bit for bit, with their times; F.grid_sample on
+     the base level (linear filter, clamp) as the sampler's library
+     yardstick;
+  8. the textured slice: render_pipeline_textured on 8 perturbed views
+     and one B = 2 render, finite, plausibly covered, bitwise repeatable,
+     B = 2 equal to two B = 1 renders, through all four kernels (launch
+     counts), a 256^2 render held against the CPU path; its ms/frame and
+     Mpix/s.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
-operations over 67 TFLOP/s) and, last, the device line. Any failed check raises, so the exit code is not 0. Without a
-CUDA device, or without the package beside it, it fails at once.
+operations over 67 TFLOP/s) and, last, the device line. Any failed
+check raises, so the exit code is not 0. Without a CUDA device, or
+without the package beside it, it fails at once.
 """
 
 import json
@@ -54,6 +67,10 @@ SHADE_ATOL = 1e-5
 SCATTER_ROW_RTOL = 1e-6  # grad_scatter vs twin: float64 sums, order differs
 GRAD_CPU_RTOL = 1e-5     # GPU vs CPU gradients, of the largest gradient
 ADAM_STEPS = 5
+TEX_SIZE = 512
+FILTER = "linear-mipmap-linear"  # bench.py's textured line
+BOUNDARY = "wrap"
+TEX_CPU_ATOL = 1e-5  # textured GPU vs CPU render, per pixel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -80,6 +97,24 @@ def sphere_scene(cams):
     pos = np.stack([(posw @ m.T).astype(np.float32) for m in cams])
     col = (vtxp * 0.5 + 0.5).astype(np.float32)
     return pos, pos_idx, col, col_idx
+
+
+def sphere_uv():
+    """bench.py:96-98: spherical uv of the bench sphere's vertices."""
+    import numpy as np
+    from nvdiffrast_tpu_torch.models import primitives
+
+    _, vtxp, _, _ = primitives.uv_sphere(32, 64)
+    return np.stack([np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
+                     np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi],
+                    axis=1).astype(np.float32)
+
+
+def bench_texture():
+    """bench.py:93-94: rand(1, 512, 512, 3), seed 0."""
+    import numpy as np
+
+    return np.random.RandomState(0).rand(1, TEX_SIZE, TEX_SIZE, 3).astype(np.float32)
 
 
 def cameras(n, seed):
@@ -143,6 +178,17 @@ def window_ms(torch, step, argsets):
     return max(t2 - t1, 1e-9) / 32 * 1e3
 
 
+def equal_or_raise(got, ref, what):
+    """Kernel outputs bit for bit with the twin's; returns the max |err|
+    (0.0)."""
+    import torch
+
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{what}: output {i} differs from its twin")
+    return 0.0
+
+
 def bound(nbytes, ops):
     """(ms, "bytes" | "operations"): the least time for the work."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -185,12 +231,18 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.nn.functional as F
     from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.ops import antialias_cuda as ac
+    from nvdiffrast_tpu_torch.ops import interpolate_cuda as ic
     from nvdiffrast_tpu_torch.ops import pipeline as pl
+    from nvdiffrast_tpu_torch.ops import pipeline_tex as ptx
+    from nvdiffrast_tpu_torch.ops import texture as tx
+    from nvdiffrast_tpu_torch.ops import texture_cuda as tc
     from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
     from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
-    from nvdiffrast_tpu_torch.ops.antialias import _build_tables
+    from nvdiffrast_tpu_torch.ops.antialias import _build_tables, pair_ids
     from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
     from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
@@ -488,6 +540,140 @@ def main():
     if min(fit_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {fit_launches}")
 
+    # -- 7. the textured forward's kernels vs twins (2048^2, bench scene) ----
+    uvs = sphere_uv()
+    tex_np = bench_texture()
+    tpos, ttri, _, tcidx = sphere_scene(cameras(1, seed=0))
+    p, t, tu, tuv, ttex = inputs_from_numpy(tpos, ttri, tcidx, uvs, tex_np, device=dev)
+    trec, taabb = rc.build_records(p, t, res)
+    got = rc.rasterize_records(trec, taabb, res, emit_db=True)
+    ref = rc.rasterize_records_plain(trec, taabb, res, emit_db=True)
+    torch.cuda.synchronize()
+    db_err = equal_or_raise(got, ref, "rasterize db")
+    equal_or_raise(got[:4], rc.rasterize_records(trec, taabb, res), "rasterize db vs no db")
+    log(f"[7] rasterize with db {RES}^2: equal to its twin bit for bit (8 outputs), "
+        f"u, v, zw, id equal to the kernel without db; max|dudx| "
+        f"{float(got[4].abs().max()):.3g}")
+    db_ms = cuda_ms(torch, lambda: rc.rasterize_records(trec, taabb, res, emit_db=True), 20)
+    db_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(trec, taabb, res,
+                                                                    emit_db=True), 3)
+    log(f"[7] rasterize with db {RES}^2: kernel {db_ms:.3f} ms, twin {db_plain_ms:.3f} ms "
+        f"({card})")
+
+    u, v, zw, idf, *db = (x.reshape(N) for x in got)
+    utbl = pl._attr_table(tuv, tu, 1, T)
+    iargs = (utbl, u, v, idf, tuple(db), (0, 1))
+    uv, da = ic.interp_forward(*iargs)
+    interp_err = equal_or_raise((uv, da), ic.interp_forward_plain(*iargs), "interp_fwd")
+    interp_ms = cuda_ms(torch, lambda: ic.interp_forward(*iargs), 50)
+    interp_plain_ms = cuda_ms(torch, lambda: ic.interp_forward_plain(*iargs), 5)
+    log(f"[7] interp_fwd {RES}^2: equal to its twin bit for bit; kernel {interp_ms:.3f} ms, "
+        f"twin {interp_plain_ms:.3f} ms ({card})")
+
+    levels = [ttex] + tx.build_mip_stack(ttex)
+    meta, n_texels = tx._static_meta(levels)
+    L = len(levels)
+    flat = tx._pack_pyramid(levels)
+    flevel = tx.mip_level(da, TEX_SIZE, TEX_SIZE, L)
+    sargs = (flat, uv[0], uv[1], flevel, meta, (1, RES, RES), False, BOUNDARY, FILTER)
+    color = tc.sample(*sargs)
+    tex_err = equal_or_raise((color,), (tc.sample_plain(*sargs),), "texture_fwd")
+    l0 = flevel.floor().clamp(0, L - 1)
+    n_two = int(((l0 < L - 1) & (flevel > l0)).sum())  # pixels that blend two levels
+    log(f"[7] texture_fwd {RES}^2 ({FILTER}, {BOUNDARY}, {L} levels, {n_texels} texels): "
+        f"equal to its twin bit for bit; {n_two} pixels blend two levels, flevel in "
+        f"[{float(flevel.min()):.3f}, {float(flevel.max()):.3f}]")
+    tex_ms = cuda_ms(torch, lambda: tc.sample(*sargs), 50)
+    tex_plain_ms = cuda_ms(torch, lambda: tc.sample_plain(*sargs), 5)
+    # Library yardstick: grid_sample computes the sampler's function for
+    # filter 'linear' with 'clamp' (border padding, align_corners=False).
+    largs = (flat[:TEX_SIZE * TEX_SIZE], uv[0], uv[1], flevel, meta[:1], (1, RES, RES),
+             False, "clamp", "linear")
+    lin = tc.sample(*largs)
+    base = ttex.permute(0, 3, 1, 2).contiguous()
+    grid = (uv.T.reshape(1, RES, RES, 2) * 2.0 - 1.0).contiguous()
+
+    def library_sample():
+        return F.grid_sample(base, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    gs_err = float((library_sample().reshape(3, N) - lin).abs().max())
+    lin_ms = cuda_ms(torch, lambda: tc.sample(*largs), 50)
+    tex_lib_ms = cuda_ms(torch, library_sample, 50)
+    log(f"[7] texture_fwd {RES}^2: kernel {tex_ms:.3f} ms, twin {tex_plain_ms:.3f} ms; "
+        f"linear+clamp: kernel {lin_ms:.3f} ms, F.grid_sample {tex_lib_ms:.3f} ms "
+        f"(max|diff| {gs_err:.3g}) ({card})")
+
+    ftable_t, _, _, _ = _build_tables(p, t, build_opposite_table(t), RES, RES)
+    aargs = (color, idf, zw, ftable_t, (1, RES, RES), T)
+    acols = ac.aa_cols(*aargs)
+    aa_err = equal_or_raise(acols, ac.aa_cols_plain(*aargs), "aa_fwd")
+    log(f"[7] aa_fwd {RES}^2: equal to its twin bit for bit; "
+        f"{int((acols[4] != 0).sum() + (acols[6] != 0).sum())} AA pairs with alpha != 0")
+    aa_ms = cuda_ms(torch, lambda: ac.aa_cols(*aargs), 50)
+    aa_plain_ms = cuda_ms(torch, lambda: ac.aa_cols_plain(*aargs), 5)
+    log(f"[7] aa_fwd {RES}^2: kernel {aa_ms:.3f} ms, twin {aa_plain_ms:.3f} ms ({card})")
+    # Pairs with work (a triangle and another id across): the pair analysis
+    # runs on these; borders fold onto the pixel itself.
+    img_id = idf.reshape(RES, RES)
+    n_active = 0
+    for q in (torch.cat([img_id[:, 1:], img_id[:, -1:]], 1),
+              torch.cat([img_id[1:], img_id[-1:]], 0)):
+        n_active += int(pair_ids(idf, q.reshape(N), zw, zw, T)[2].sum())
+
+    # -- 8. the textured slice: render_pipeline_textured forward -------------
+    tkernels = (rc.DB_KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL)
+
+    def render_tex(view, size=res, tex=ttex):
+        with torch.no_grad():
+            return ptx.render_pipeline_textured(view, t8, tuv, tex, size, uv_tri=c8,
+                                                filter_mode=FILTER, boundary_mode=BOUNDARY)
+
+    for k in tkernels:
+        k.launches = 0
+    timgs = [(render_tex(view), render_tex(view)) for view in reqs]
+    timg2 = render_tex(pos2)
+    torch.cuda.synchronize()
+    tex_launches = {k.name: k.launches for k in tkernels}
+    log(f"[8] launches during the textured slice: {tex_launches}")
+    if min(tex_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the textured path never launched: {tex_launches}")
+    for i, (img, again) in enumerate(timgs):
+        if img.shape != (1, RES, RES, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"textured request {i}: bad output {tuple(img.shape)}")
+        if not torch.equal(img, again):
+            raise AssertionError(f"textured request {i}: not bitwise repeatable")
+        # Background pixels sample the texture at uv = (0, 0): one colour,
+        # that of the corner pixel, which the sphere never covers.
+        cover = float((img != img[:, :1, :1]).any(-1).float().mean())
+        if not 0.2 <= cover <= 0.7:
+            raise AssertionError(f"textured request {i}: implausible coverage {cover}")
+        log(f"[8] textured request {i}: covered {cover:.4f}, mean colour "
+            f"{[round(float(x), 5) for x in img.mean((0, 1, 2))]}")
+    if timg2.shape != (2, RES, RES, 3) or not bool(torch.isfinite(timg2).all()):
+        raise AssertionError("textured B=2 render: bad output")
+    for b in range(2):
+        if not torch.equal(timg2[b:b + 1], timgs[b][0]):
+            raise AssertionError(f"textured B=2 render: image {b} differs from its B=1 render")
+    log("[8] textured B=2 render: both images equal their B=1 renders bitwise")
+
+    # The card's textured render against the CPU path on a small input.
+    gpu = render_tex(reqs[3], small).cpu()
+    with torch.no_grad():
+        cpu = ptx.render_pipeline_textured(reqs[3].cpu(), t8.cpu(), tuv.cpu(), ttex.cpu(),
+                                           small, uv_tri=c8.cpu(), filter_mode=FILTER,
+                                           boundary_mode=BOUNDARY)
+    bad = (gpu - cpu).abs().amax(-1) > TEX_CPU_ATOL
+    if int(bad.sum()) > ZFIGHT_FRAC * bad.numel():
+        raise AssertionError(f"textured GPU vs CPU render: {int(bad.sum())} pixels differ")
+    log(f"[8] {SMALL}^2 textured render, GPU vs CPU path: max|err| "
+        f"{float((gpu - cpu).abs().max()):.3g}, pixels over {TEX_CPU_ATOL}: {int(bad.sum())}")
+
+    tex_fwd_ms = window_ms(torch, render_tex, [(view,) for view in reqs])
+    tex_mpix = RES * RES / 1e6 / (tex_fwd_ms / 1e3)
+    log(f"[8] render_pipeline_textured fwd {RES}^2 (kernels): {tex_fwd_ms:.3f} ms/frame, "
+        f"{tex_mpix:.2f} Mpix/s ({card})")
+
     # Bounds: bytes each input read once and each output written once, over
     # 3.35 TB/s; float32 operations counted from the kernels' sources, over
     # 67 TFLOP/s. The larger is the bound.
@@ -504,6 +690,18 @@ def main():
     scatter_bound = bound((n_own * (A + 9 + 3) + n_aa * 3 + 9 * (R + 1) + (R + 1)
                            + R * (3 * A + 18)) * f32,
                           n_own * (6 * A + 11) + n_aa * 60)
+    # Textured forward (bench textured scene, one frame): the db variant
+    # writes 8 images; interpolate reads 7 flats and the uv table, writes
+    # uv and 4 derivatives; the sampler reads u, v, flevel and the
+    # pyramid once and writes C channels, ~(30 + 8C) operations per level
+    # read; antialias reads colour, id and depth and the AA table, writes
+    # out, negx, negy and 4 residuals, ~80 operations per active pair.
+    C = 3
+    db_bound = bound(trec.numel() * f32 + taabb.numel() * f32 + 8 * N * f32, 34 * frag)
+    interp_bound = bound((utbl.numel() + 7 * N + 6 * N) * f32, 30 * N)
+    tex_bound = bound((3 * N + n_texels * C + C * N) * f32, (N + n_two) * (30 + 8 * C))
+    aa_bound = bound((ftable_t.numel() + (C + 2) * N + (3 * C + 4) * N) * f32,
+                     20 * N + 80 * n_active)
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -523,6 +721,18 @@ def main():
         entry("grad_scatter", "cuda", "nvdiffrast_tpu_torch/csrc/grad_scatter.cu",
               "nvdiffrast_tpu/ops/pipeline_pallas.py:535", fit_launches[pb.SCATTER_KERNEL.name],
               scatter_err, scatter_ms, scatter_plain_ms, scatter_bound, scatter_lib_ms),
+        entry("rasterize_db", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", tex_launches[rc.DB_KERNEL.name],
+              db_err, db_ms, db_plain_ms, db_bound, None),
+        entry("interp_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/interpolate_fwd.cu",
+              "nvdiffrast_tpu/ops/interpolate_pallas.py:84", tex_launches[ic.KERNEL.name],
+              interp_err, interp_ms, interp_plain_ms, interp_bound, None),
+        entry("texture_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_fwd.cu",
+              "nvdiffrast_tpu/ops/texture_pallas.py:894", tex_launches[tc.KERNEL.name],
+              tex_err, tex_ms, tex_plain_ms, tex_bound, tex_lib_ms),
+        entry("aa_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/aa_fwd.cu",
+              "nvdiffrast_tpu/ops/antialias_pallas.py:149", tex_launches[ac.KERNEL.name],
+              aa_err, aa_ms, aa_plain_ms, aa_bound, None),
     ]
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "

@@ -9,8 +9,11 @@ Ported so far: ``render_pipeline`` (rasterize + interpolate +
 antialias), forward and backward, with its four hand-written CUDA
 kernels for Hopper (``csrc/``, built with nvcc at first use on a GPU):
 gradients flow to the clip-space positions and the vertex attributes.
-CPU tensors run the kernels' plain PyTorch twins. Every call runs on the
-device of its input.
+``render_pipeline_textured`` (rasterize with bary derivatives + uv
+interpolate + 2-D mip texture + antialias), forward only, with the
+rasterizer's db variant and three more kernels. CPU tensors run the
+kernels' plain PyTorch twins. Every call runs on the device of its
+input.
 """
 
 __version__ = "0.1.0"
@@ -18,6 +21,7 @@ __version__ = "0.1.0"
 from .ops.antialias import TopologyHashWrapper, antialias_construct_topology_hash
 from .ops.coord import float_to_triidx, triidx_to_float
 from .ops.pipeline import render_pipeline
+from .ops.pipeline_tex import render_pipeline_textured
 from .ops.rasterize import RasterizeCudaContext
 from .utils.log import get_log_level, set_log_level
 
@@ -27,6 +31,7 @@ __all__ = [
     "antialias_construct_topology_hash",
     "TopologyHashWrapper",
     "render_pipeline",
+    "render_pipeline_textured",
     "triidx_to_float",
     "float_to_triidx",
     "get_log_level",

@@ -5,8 +5,10 @@ ints, floats and a stream; each returns ``cudaGetLastError()``). They
 are compiled at first use, never at import, into ``_build/`` inside the
 package (git-ignored), under a name keyed by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is. The build log (``-Xptxas -v``: registers, shared memory,
-spills per kernel) is kept beside the library.
+as it is. Each source compiles to an object in its own nvcc process, all
+started together; one more nvcc links them. The build log (``-Xptxas
+-v``: registers, shared memory, spills per kernel) is kept beside the
+library.
 """
 
 import ctypes
@@ -26,8 +28,8 @@ BUILD_DIR = _PKG / "_build"
 # -fmad=false: no multiply-add contraction anywhere. Coverage, cut line
 # and depth order must round exactly as the plain PyTorch twins do.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -72,7 +74,7 @@ def source_hash():
     for p in sorted(SRC_DIR.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -91,16 +93,29 @@ def build():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]  # waits for every compile
+    results = [(c, p.returncode, o, e) for c, p, (o, e) in zip(cmds, procs, outs)]
+    link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+    if all(rc == 0 for _, rc, _, _ in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
+    out.with_suffix(".log").write_text("".join(
+        " ".join(c) + "\n" + o + e for c, _, o, e in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, rc, e) for c, rc, _, e in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
+        c, rc, e = failed[0]
         raise KernelBuildError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+            f"nvcc failed with exit code {rc}:\n{' '.join(c)}\n{e[-4000:]}")
     os.replace(tmp, out)
     return out
 

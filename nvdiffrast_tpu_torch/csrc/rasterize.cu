@@ -2,7 +2,10 @@
 // pass over per-triangle records.
 //
 // Replaces: nvdiffrast_tpu/ops/rasterize_pallas.py, rasterize_fused with
-// its kernel body _make_kernel (instance mode, emit_db=False, flat).
+// its kernel body _make_kernel (instance mode, flat), without and with
+// emit_db: the db variant also keeps the winner's six edge gradients
+// (cx0, cy0, cx1, cy1, cx2, cy2) in registers and writes the four bary
+// pixel derivatives (dudx, dudy, dvdx, dvdy) in the final step.
 //
 // Input per image b: records [T, 16] f32 built by the prepass in
 // ops/rasterize_cuda.py (3 winding-normalized affine edge functions
@@ -66,10 +69,13 @@ __device__ __forceinline__ bool inside_edge(float a, const float* s) {
     return (a > 0.0f) || ((a == 0.0f) && tie(s));
 }
 
+template <bool DB>
 __global__ void __launch_bounds__(NT)
 raster_kernel(const float* __restrict__ rec, const float4* __restrict__ aabb,
               float* __restrict__ u_out, float* __restrict__ v_out,
               float* __restrict__ zw_out, float* __restrict__ idf_out,
+              float* __restrict__ dudx_out, float* __restrict__ dudy_out,
+              float* __restrict__ dvdx_out, float* __restrict__ dvdy_out,
               int T, int H, int W, float xs, float xo, float ys, float yo) {
     __shared__ float s_rec[NT][SREC];
     __shared__ int s_count[NT / 32];
@@ -94,6 +100,8 @@ raster_kernel(const float* __restrict__ rec, const float4* __restrict__ aabb,
     // Running lexicographic (z/w, id) minimum and the winner's edges.
     float az = BIG, aw = 1.0f, aid = ID_INVALID;
     float pa0 = 0.0f, pa1 = 0.0f, pa2 = 0.0f;
+    // Winner's edge gradients (d/dfx, d/dfy of each edge), DB only.
+    float cx0 = 0.0f, cy0 = 0.0f, cx1 = 0.0f, cy1 = 0.0f, cx2 = 0.0f, cy2 = 0.0f;
 
     const float* rec_b = rec + static_cast<size_t>(b) * T * REC;
     const float4* aabb_b = aabb + static_cast<size_t>(b) * T;
@@ -163,6 +171,14 @@ raster_kernel(const float* __restrict__ rec, const float4* __restrict__ aabb,
                         pa0 = a0;
                         pa1 = a1;
                         pa2 = a2;
+                        if (DB) {
+                            cx0 = s[1];
+                            cy0 = s[2];
+                            cx1 = s[4];
+                            cy1 = s[5];
+                            cx2 = s[7];
+                            cy2 = s[8];
+                        }
                     }
                 }
             }
@@ -185,6 +201,23 @@ raster_kernel(const float* __restrict__ rec, const float4* __restrict__ aabb,
     v_out[o] = valid ? b1 : 0.0f;
     zw_out[o] = valid ? zwv : 0.0f;
     idf_out[o] = valid ? aid : 0.0f;
+    if (DB) {
+        // Bary pixel derivatives (rasterize_pallas.py final step, emit_db).
+        const float da0dx = -cx0, da1dx = -cx1, da2dx = -cx2;
+        const float da0dy = -cy0, da1dy = -cy1, da2dy = -cy2;
+        const float datdx = __fadd_rn(__fadd_rn(da0dx, da1dx), da2dx);
+        const float datdy = __fadd_rn(__fadd_rn(da0dy, da1dy), da2dy);
+        const float dfxdx = __fmul_rn(xs, iw);
+        const float dfydy = __fmul_rn(ys, iw);
+        const float dudx = __fmul_rn(dfxdx, __fsub_rn(__fmul_rn(b0, datdx), da0dx));
+        const float dudy = __fmul_rn(dfydy, __fsub_rn(__fmul_rn(b0, datdy), da0dy));
+        const float dvdx = __fmul_rn(dfxdx, __fsub_rn(__fmul_rn(b1, datdx), da1dx));
+        const float dvdy = __fmul_rn(dfydy, __fsub_rn(__fmul_rn(b1, datdy), da1dy));
+        dudx_out[o] = valid ? dudx : 0.0f;
+        dudy_out[o] = valid ? dudy : 0.0f;
+        dvdx_out[o] = valid ? dvdx : 0.0f;
+        dvdy_out[o] = valid ? dvdy : 0.0f;
+    }
 }
 
 }  // namespace
@@ -195,7 +228,21 @@ extern "C" int nvdr_rasterize_fwd(const float* rec, const float* aabb, float* u,
                                   float xs, float xo, float ys, float yo, void* stream) {
     if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
     const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-    raster_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-        rec, reinterpret_cast<const float4*>(aabb), u, v, zw, idf, T, H, W, xs, xo, ys, yo);
+    raster_kernel<false><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+        rec, reinterpret_cast<const float4*>(aabb), u, v, zw, idf, nullptr, nullptr, nullptr,
+        nullptr, T, H, W, xs, xo, ys, yo);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The emit_db variant: also writes dudx, dudy, dvdx, dvdy [B, H, W].
+extern "C" int nvdr_rasterize_fwd_db(const float* rec, const float* aabb, float* u, float* v,
+                                     float* zw, float* idf, float* dudx, float* dudy,
+                                     float* dvdx, float* dvdy, int B, int T, int H, int W,
+                                     float xs, float xo, float ys, float yo, void* stream) {
+    if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
+    const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
+    raster_kernel<true><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+        rec, reinterpret_cast<const float4*>(aabb), u, v, zw, idf, dudx, dudy, dvdx, dvdy, T, H,
+        W, xs, xo, ys, yo);
     return static_cast<int>(cudaGetLastError());
 }

@@ -11,13 +11,15 @@ Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
 * **Kernel** ``csrc/rasterize.cu`` (``rasterize_records``): coverage with
   the exclusive tie rule and near-clip cut, the lexicographic (z/w, id)
   minimum with the lowest id winning ties, and the final shading to
-  (u, v, z/w, id). ``rasterize_records_plain`` is its plain PyTorch
-  twin with the same arithmetic in the same merge order (ascending id
-  per pixel, candidates rejected per 16x16 tile by AABB), so the two
-  agree bit for bit.
+  (u, v, z/w, id), and with ``emit_db`` also the four bary pixel
+  derivatives (dudx, dudy, dvdx, dvdy) from the winner's edge
+  gradients. ``rasterize_records_plain`` is its plain PyTorch twin with
+  the same arithmetic in the same merge order (ascending id per pixel,
+  candidates rejected per 16x16 tile by AABB), so the two agree bit for
+  bit.
 
-Only instance mode without bary derivatives is ported: range mode,
-depth peeling, viewports and ``emit_db`` raise NotImplementedError.
+Only instance mode is ported: range mode, depth peeling and viewports
+raise NotImplementedError.
 """
 
 import ctypes
@@ -49,6 +51,10 @@ _SLOP_MARGIN = 1.25
 KERNEL = _build.Kernel(
     "nvdr_rasterize_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4)
+# The emit_db variant (4 more output pointers).
+DB_KERNEL = _build.Kernel(
+    "nvdr_rasterize_fwd_db",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4)
 
 
 def _f32(x, like):
@@ -240,14 +246,15 @@ def build_records(pos, tri, resolution):
 # Kernel wrapper and its plain twin.
 # ---------------------------------------------------------------------------
 
-def rasterize_records(rec, aabb, resolution):
-    """Rasterize prepass records: (u, v, zw, idf), each [B, H, W] f32.
+def rasterize_records(rec, aabb, resolution, emit_db=False):
+    """Rasterize prepass records: (u, v, zw, idf), each [B, H, W] f32,
+    followed by (dudx, dudy, dvdx, dvdy) when `emit_db`.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel
     (built at first use) or raise.
     """
     if rec.device.type == "cpu":
-        return rasterize_records_plain(rec, aabb, resolution)
+        return rasterize_records_plain(rec, aabb, resolution, emit_db)
     if rec.device.type != "cuda":
         raise ValueError(f"rasterize_records: unsupported device {rec.device}")
     H, W = resolution
@@ -261,9 +268,10 @@ def rasterize_records(rec, aabb, resolution):
     if rec.data_ptr() % 16 or aabb.data_ptr() % 16:
         raise ValueError("rasterize_records: inputs must be 16-byte aligned")
     outs = [torch.empty((B, H, W), dtype=torch.float32, device=rec.device)
-            for _ in range(4)]
+            for _ in range(8 if emit_db else 4)]
     xs, xo, ys, yo = coord.pixel_scale_offset(H, W)
-    KERNEL.launch(rec.device, _build.ptr(rec), _build.ptr(aabb),
+    kernel = DB_KERNEL if emit_db else KERNEL
+    kernel.launch(rec.device, _build.ptr(rec), _build.ptr(aabb),
                   *(_build.ptr(o) for o in outs), B, T, H, W, xs, xo, ys, yo)
     return tuple(outs)
 
@@ -316,8 +324,11 @@ def _merge_fragments(state, s, first, x0, y0, nx, cnt, T, resolution, scale):
     if keep.numel() == 0:
         return
     pix = (((first + own[keep]) // T) * H + py[keep]) * W + px[keep]
-    cand = torch.stack([pz[keep], pw[keep], idf[keep], a0[keep], a1[keep],
-                        a2[keep]])
+    # The winner's (pa0, pa1, pa2), plus its six edge gradients with db.
+    rows = [pz, pw, idf, a0, a1, a2]
+    if apa.shape[0] == 9:
+        rows += [s[:, i] for i in (1, 2, 4, 5, 7, 8)]
+    cand = torch.stack([r[keep] for r in rows])
 
     # Rank of each candidate among its pixel's, in id order; round r
     # merges every pixel's r-th candidate (pixels unique per round).
@@ -346,7 +357,7 @@ def _merge_fragments(state, s, first, x0, y0, nx, cnt, T, resolution, scale):
         start = end
 
 
-def rasterize_records_plain(rec, aabb, resolution):
+def rasterize_records_plain(rec, aabb, resolution, emit_db=False):
     """Plain PyTorch twin of the rasterizer kernel (same arithmetic).
 
     Fragments are enumerated per record over the pixels of the tiles its
@@ -361,11 +372,13 @@ def rasterize_records_plain(rec, aabb, resolution):
     N = B * H * W
     scale = tuple(_f32(v, rec) for v in coord.pixel_scale_offset(H, W))
 
-    # Running (z, w, id) and winner edges (a0, a1, a2) per pixel.
+    # Running (z, w, id) and winner edges (a0, a1, a2) per pixel, with db
+    # also the winner's (cx0, cy0, cx1, cy1, cx2, cy2).
     state = (torch.full((N,), _BIG, dtype=torch.float32, device=dev),
              torch.ones((N,), dtype=torch.float32, device=dev),
              torch.full((N,), _ID_INVALID, dtype=torch.float32, device=dev),
-             torch.zeros((3, N), dtype=torch.float32, device=dev))
+             torch.zeros((9 if emit_db else 3, N), dtype=torch.float32,
+                         device=dev))
 
     # Records plus their near-clip cut line s12+c - eps*((s_c + s3+c) + s6+c).
     r = rec.reshape(B * T, 16)
@@ -409,26 +422,38 @@ def rasterize_records_plain(rec, aabb, resolution):
     b0 = b0 * bs
     b1 = b1 * bs
     zwv = torch.clamp(az / aw, -1.0, 1.0)
-    outs = (torch.where(valid, b0, 0.0), torch.where(valid, b1, 0.0),
-            torch.where(valid, zwv, 0.0), torch.where(valid, aid, 0.0))
-    return tuple(o.reshape(B, H, W) for o in outs)
+    outs = [b0, b1, zwv, aid]
+    if emit_db:
+        # Bary pixel derivatives (rasterize_pallas.py final step, emit_db).
+        xs, _, ys, _ = scale
+        cx0, cy0, cx1, cy1, cx2, cy2 = apa[3:]
+        da0dx, da1dx, da2dx = -cx0, -cx1, -cx2
+        da0dy, da1dy, da2dy = -cy0, -cy1, -cy2
+        datdx = (da0dx + da1dx) + da2dx
+        datdy = (da0dy + da1dy) + da2dy
+        dfxdx = xs * iw
+        dfydy = ys * iw
+        outs += [dfxdx * (b0 * datdx - da0dx), dfydy * (b0 * datdy - da0dy),
+                 dfxdx * (b1 * datdx - da1dx), dfydy * (b1 * datdy - da1dy)]
+    return tuple(torch.where(valid, o, 0.0).reshape(B, H, W) for o in outs)
 
 
 def rasterize_fused(pos, tri, resolution, ranges=None, peel_depth=None,
                     viewport=None, emit_db=False):
-    """Rasterize forward: (u, v, zw, idf), each [B, H, W] float32.
+    """Rasterize forward: (u, v, zw, idf), each [B, H, W] float32,
+    followed by the bary pixel derivatives (dudx, dudy, dvdx, dvdy) when
+    `emit_db` (rasterize_pallas.rasterize_fused(flat=True) without zbuf).
 
     pos [B, V, 4] float32 clip-space positions, tri [T, 3] int32. Runs on
     pos's device: the plain twin on the CPU, the CUDA kernel on a GPU.
-    Range mode, depth peeling, viewports and bary derivatives are not
-    ported yet and raise NotImplementedError.
+    Range mode, depth peeling and viewports are not ported yet and raise
+    NotImplementedError.
     """
-    if (ranges is not None or peel_depth is not None or viewport is not None
-            or emit_db):
+    if ranges is not None or peel_depth is not None or viewport is not None:
         raise NotImplementedError(
-            "rasterize_fused: range mode, depth peeling, viewports and "
-            "emit_db are not ported yet (ROADMAP queue B, item 1)")
+            "rasterize_fused: range mode, depth peeling and viewports are "
+            "not ported yet (ROADMAP queue B, item 1)")
     resolution = tuple(int(x) for x in resolution)
     _check_rasterize_args(pos, tri, resolution)
     rec, aabb = build_records(pos, tri, resolution)
-    return rasterize_records(rec, aabb, resolution)
+    return rasterize_records(rec, aabb, resolution, emit_db)

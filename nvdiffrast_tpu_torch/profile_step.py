@@ -1,11 +1,14 @@
 """Where the time of one training step of render_pipeline goes, on a GPU.
 
-    python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16]
+    python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16] [--textured]
 
 The bench scene (uv-sphere 32x64, 3,968 triangles, vertex colours,
 A = 3, B = 1, camera projection(x=0.4) @ translate(0, 0, -3.5)). One
 step is render_pipeline's forward, mean(img**2) and the backward to pos
-and the colours. Prints:
+and the colours. With --textured a step is instead one forward of
+render_pipeline_textured on bench.py's textured line (a 512x512x3
+texture from rand seed 0, spherical uvs, linear-mipmap-linear, wrap).
+Prints:
   1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
   2. each stage of the step run alone and synchronised, mean of 20;
   3. torch.profiler over --steps steps: device kernels and device time
@@ -23,10 +26,15 @@ import numpy as np
 import torch
 
 from .models import primitives
+from .ops import antialias_cuda as ac
+from .ops import interpolate_cuda as ic
 from .ops import pipeline as pl
 from .ops import pipeline_bwd_cuda as pb
 from .ops import pipeline_cuda as pc
+from .ops import pipeline_tex as ptx
 from .ops import rasterize_cuda as rc
+from .ops import texture as tx
+from .ops import texture_cuda as tc
 from .ops.antialias import _build_tables
 from .ops.topology import build_opposite_table
 from .utils import camera
@@ -66,24 +74,9 @@ def _window_ms(step):
     return (window(48) - t1) / 32 * 1e3
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--res", type=int, default=2048)
-    ap.add_argument("--steps", type=int, default=16)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    card = _card()
-    res = (args.res, args.res)
-
-    pos_idx, vtxp, col_idx, _ = primitives.uv_sphere(32, 64)
-    posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
-    mvp = camera.projection(x=0.4) @ camera.translate(0, 0, -3.5)
-    pos = torch.as_tensor((posw @ mvp.T)[None], dtype=torch.float32, device=dev)
-    tri = torch.as_tensor(pos_idx, dtype=torch.int32, device=dev)
-    cidx = torch.as_tensor(col_idx, dtype=torch.int32, device=dev)
-    col = torch.as_tensor(vtxp * 0.5 + 0.5, dtype=torch.float32, device=dev)
+def _training(pos, tri, cidx, col, res):
+    """(step, stages) of a render_pipeline training step."""
+    dev = pos.device
 
     def step():
         p = pos.detach().requires_grad_()
@@ -91,11 +84,6 @@ def main(argv=None):
         img = pl.render_pipeline(p, tri, c, res, attr_idx=cidx)
         return torch.autograd.grad((img ** 2).mean(), (p, c))
 
-    step_ms = _window_ms(step)
-    print(f"[1] fwd+bwd {args.res}^2: {step_ms:.3f} ms/step, "
-          f"{args.res ** 2 / 1e3 / step_ms:.2f} Mpix/s ({card})", flush=True)
-
-    # -- 2. stages, each alone and synchronised ------------------------------
     H, W = res
     T = tri.shape[0]
     N = H * W
@@ -113,7 +101,7 @@ def main(argv=None):
     flats = (u, v, resid[1], resid[3])
     gt, gaa = pb.scatter_entries(codes, off, gs, dd2, flats, vtbl, res)
     rows = torch.cat([gt[:, 9:].reshape(1, 3 * T, 3), gaa.reshape(1, 3 * T, 3)], 2)
-    stages = [
+    return step, [
         ("fwd: topology table", lambda: build_opposite_table(tri)),
         ("fwd: raster prepass", lambda: rc.build_records(pos, tri, res)),
         ("fwd: rasterize kernel", lambda: rc.rasterize_records(rec, aabb, res)),
@@ -128,13 +116,100 @@ def main(argv=None):
         ("bwd: grad_scatter kernel",
          lambda: pb.scatter_entries(codes, off, gs, dd2, flats, vtbl, res)),
         ("bwd: vertex sums", lambda: pl._vertex_sum(rows, pl._corner_table(tri, pos.shape[1]))),
-        ("whole step", step),
     ]
+
+
+def _textured(pos, tri, cidx, vtxp, res):
+    """(step, stages) of a render_pipeline_textured forward."""
+    dev = pos.device
+    uv = torch.as_tensor(np.stack(
+        [np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
+         np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1),
+        dtype=torch.float32, device=dev)
+    tex = torch.as_tensor(np.random.RandomState(0).rand(1, 512, 512, 3),
+                          dtype=torch.float32, device=dev)
+    mode = ("linear-mipmap-linear", "wrap")
+
+    def step():
+        with torch.no_grad():
+            return ptx.render_pipeline_textured(pos, tri, uv, tex, res, uv_tri=cidx,
+                                                filter_mode=mode[0], boundary_mode=mode[1])
+
+    H, W = res
+    T = tri.shape[0]
+    N = H * W
+    op = build_opposite_table(tri)
+    rec, aabb = rc.build_records(pos, tri, res)
+    u, v, zw, idf, *db = (x.reshape(N) for x in
+                          rc.rasterize_records(rec, aabb, res, emit_db=True))
+    levels = [tex] + tx.build_mip_stack(tex)
+    meta, _ = tx._static_meta(levels)
+    flat = tx._pack_pyramid(levels)
+    utbl = pl._attr_table(uv, cidx, 1, T)
+    uvc, da = ic.interp_forward(utbl, u, v, idf, tuple(db), (0, 1))
+    fl = tx.mip_level(da, 512, 512, len(levels))
+    color = tc.sample(flat, uvc[0], uvc[1], fl, meta, (1, H, W), False, *mode[::-1])
+    ftable, _, _, _ = _build_tables(pos, tri, op, H, W)
+    cols = ac.aa_cols(color, idf, zw, ftable, (1, H, W), T)
+
+    def pyramid():
+        lv = [tex] + tx.build_mip_stack(tex)
+        return tx._static_meta(lv), tx._pack_pyramid(lv)
+
+    return step, [
+        ("topology table", lambda: build_opposite_table(tri)),
+        ("raster prepass", lambda: rc.build_records(pos, tri, res)),
+        ("rasterize kernel (db)", lambda: rc.rasterize_records(rec, aabb, res, emit_db=True)),
+        ("mip pyramid + packing", pyramid),
+        ("uv table", lambda: pl._attr_table(uv, cidx, 1, T)),
+        ("interp_fwd kernel", lambda: ic.interp_forward(utbl, u, v, idf, tuple(db), (0, 1))),
+        ("mip level", lambda: tx.mip_level(da, 512, 512, len(levels))),
+        ("texture_fwd kernel",
+         lambda: tc.sample(flat, uvc[0], uvc[1], fl, meta, (1, H, W), False, *mode[::-1])),
+        ("AA table", lambda: _build_tables(pos, tri, op, H, W)),
+        ("aa_fwd kernel", lambda: ac.aa_cols(color, idf, zw, ftable, (1, H, W), T)),
+        ("neighbour adds + NHWC", lambda: pc.finish_shade(cols, W)[0].T.reshape(1, H, W, 3)),
+    ]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--res", type=int, default=2048)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--textured", action="store_true",
+                    help="profile render_pipeline_textured's forward instead")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = _card()
+    res = (args.res, args.res)
+
+    pos_idx, vtxp, col_idx, _ = primitives.uv_sphere(32, 64)
+    posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
+    mvp = camera.projection(x=0.4) @ camera.translate(0, 0, -3.5)
+    pos = torch.as_tensor((posw @ mvp.T)[None], dtype=torch.float32, device=dev)
+    tri = torch.as_tensor(pos_idx, dtype=torch.int32, device=dev)
+    cidx = torch.as_tensor(col_idx, dtype=torch.int32, device=dev)
+    col = torch.as_tensor(vtxp * 0.5 + 0.5, dtype=torch.float32, device=dev)
+    if args.textured:
+        what = "textured fwd"
+        step, stages = _textured(pos, tri, cidx, vtxp, res)
+    else:
+        what = "fwd+bwd"
+        step, stages = _training(pos, tri, cidx, col, res)
+
+    step_ms = _window_ms(step)
+    print(f"[1] {what} {args.res}^2: {step_ms:.3f} ms/step, "
+          f"{args.res ** 2 / 1e3 / step_ms:.2f} Mpix/s ({card})", flush=True)
+
+    # -- 2. stages, each alone and synchronised ------------------------------
     total = 0.0
     for name, fn in stages:
         ms = _timed(fn, 20)
-        total += ms if name != "whole step" else 0.0
+        total += ms
         print(f"[2] {name}: {ms:.3f} ms", flush=True)
+    print(f"[2] whole step: {_timed(step, 20):.3f} ms", flush=True)
     print(f"[2] sum of the stages: {total:.3f} ms ({card})", flush=True)
 
     # -- 3. torch.profiler ---------------------------------------------------

@@ -16,9 +16,13 @@ import textwrap
 import pytest
 
 from nvdiffrast_tpu_torch import _build
-from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda, pipeline_cuda, rasterize_cuda
+from nvdiffrast_tpu_torch.ops import (antialias_cuda, interpolate_cuda, pipeline_bwd_cuda,
+                                      pipeline_cuda, rasterize_cuda, texture_cuda)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL,
+           pipeline_bwd_cuda.BWD_KERNEL, pipeline_bwd_cuda.SCATTER_KERNEL,
+           interpolate_cuda.KERNEL, texture_cuda.KERNEL, antialias_cuda.KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -65,18 +69,19 @@ def test_import_pulls_no_jax_and_starts_no_nvcc(tmp_path):
 def test_cuda_sources_exist():
     names = {p.name for p in _build.sources()}
     assert {"rasterize.cu", "shade_fwd.cu", "pipeline_bwd.cu", "grad_scatter.cu",
-            "common.cu"} <= names
+            "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
-    for kernel in (rasterize_cuda.KERNEL, pipeline_cuda.KERNEL,
-                   pipeline_bwd_cuda.BWD_KERNEL, pipeline_bwd_cuda.SCATTER_KERNEL):
+    for kernel in KERNELS:
         assert f'extern "C" int {kernel.name}(' in text
+    # The AA pair math lives in one header that both forward kernels use.
+    assert (_build.SRC_DIR / "aa_pair.cuh").exists()
+    for name in ("shade_fwd.cu", "aa_fwd.cu"):
+        assert '#include "aa_pair.cuh"' in (_build.SRC_DIR / name).read_text()
     assert 'extern "C" const char* nvdr_error_string(' in text
     assert all(p.parent == _build.SRC_DIR for p in _build.sources())
 
 
-@pytest.mark.parametrize("kernel", [
-    rasterize_cuda.KERNEL, pipeline_cuda.KERNEL, pipeline_bwd_cuda.BWD_KERNEL,
-    pipeline_bwd_cuda.SCATTER_KERNEL], ids=lambda k: k.name)
+@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
 def test_kernel_argtypes_match_c_entry(kernel):
     """The ctypes binding passes as many arguments as the C entry takes
     (the stream, added at launch, is the last)."""
@@ -107,15 +112,22 @@ def test_build_flags_and_cache(tmp_path, monkeypatch):
     out = _build.build()
     assert out.parent == tmp_path / "build" and out.exists()
     assert _build.source_hash() in out.name
-    args = log.read_text().split()
-    for flag in ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                 "-fmad=false", "-shared", "-Xcompiler", "-fPIC"):
-        assert flag in args, flag
-    assert "--use_fast_math" not in args
-    assert sorted(a for a in args if a.endswith(".cu")) == sorted(
+    # One compile per source (run side by side), then one link.
+    *compiles, link = [line.split() for line in log.read_text().splitlines()]
+    assert len(compiles) == len(_build.sources())
+    for args in compiles:
+        for flag in ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                     "-fmad=false", "-Xcompiler", "-fPIC", "-c"):
+            assert flag in args, flag
+        assert "--use_fast_math" not in args and "-shared" not in args
+    assert sorted(a for args in compiles for a in args if a.endswith(".cu")) == sorted(
         str(p) for p in _build.sources())
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert sum(a.endswith(".o") for a in link) == len(compiles)
+    assert not list((tmp_path / "build").glob("*.o")), "objects left behind"
     assert _build.build() == out
-    assert len(log.read_text().splitlines()) == 1, "rebuilt an unchanged source"
+    assert len(log.read_text().splitlines()) == len(compiles) + 1, (
+        "rebuilt an unchanged source")
 
 
 def test_failed_compile_raises(tmp_path, monkeypatch):

@@ -10,10 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+import nvdiffrast_tpu_torch as dr
+from nvdiffrast_tpu_torch.ops import antialias_cuda as ac
+from nvdiffrast_tpu_torch.ops import interpolate_cuda as ic
 from nvdiffrast_tpu_torch.ops import pipeline as pl
 from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
 from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
 from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
+from nvdiffrast_tpu_torch.ops import texture as tx
+from nvdiffrast_tpu_torch.ops import texture_cuda as tc
 from nvdiffrast_tpu_torch.ops.antialias import _build_tables
 from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
 from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
@@ -175,3 +180,122 @@ def test_render_pipeline_grads_gpu_repeatable_and_match_cpu(dev):
         # float64 sum order of the scatter and the vertex sums differ.
         assert float((g - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
         assert float(ref.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The textured forward's kernels: all bit for bit with their twins.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,make", SCENES, ids=[s[0] for s in SCENES])
+def test_rasterize_db_kernel_matches_twin(dev, name, make):
+    pos, tri, res = make()
+    p, t = inputs_from_numpy(pos, tri, device=dev)
+    rec, aabb = rc.build_records(p, t, res)
+    before = rc.DB_KERNEL.launches
+    got = rc.rasterize_records(rec, aabb, res, emit_db=True)
+    ref = rc.rasterize_records_plain(rec, aabb, res, emit_db=True)
+    plain = rc.rasterize_records(rec, aabb, res)
+    torch.cuda.synchronize()
+    assert rc.DB_KERNEL.launches == before + 1
+    assert len(got) == 8
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    for a, b in zip(got[:4], plain):  # the db variant shades identically
+        assert torch.equal(a, b)
+    assert float(got[4].abs().max()) > 0
+
+
+def _textured_scene(dev, B, seed):
+    """A sphere scene with spherical uvs: (pos, tri, uv) on `dev`."""
+    from nvdiffrast_tpu_torch.models import primitives
+    pos, tri, _, _ = sphere_scene(B=B, seed=seed)
+    _, vtxp, _, _ = primitives.uv_sphere(8, 12)
+    uv = np.stack([np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
+                   np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1)
+    return inputs_from_numpy(pos, tri, uv.astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("B,A,diff_list", [(1, 2, (0, 1)), (2, 5, (3, 1)),
+                                           (2, 3, ()), (1, 16, tuple(range(16)))])
+def test_interp_kernel_matches_twin(dev, B, A, diff_list):
+    p, t, _ = _textured_scene(dev, B, seed=B)
+    flat = [x.reshape(-1) for x in rc.rasterize_fused(p, t, (48, 64), emit_db=True)]
+    attr = torch.from_numpy(np.random.default_rng(A).standard_normal(
+        (int(t.max()) + 1, A)).astype(np.float32)).to(dev)
+    tbl = pl._attr_table(attr, t, 1, t.shape[0])
+    u, v, _, idf, *db = flat
+    args = (tbl, u, v, idf, tuple(db) if diff_list else None, diff_list)
+    before = ic.KERNEL.launches
+    got = ic.interp_forward(*args)
+    ref = ic.interp_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert ic.KERNEL.launches == before + 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("boundary_mode", ["wrap", "clamp", "zero"])
+@pytest.mark.parametrize("filter_mode", ["linear", "linear-mipmap-nearest",
+                                         "linear-mipmap-linear"])
+def test_texture_kernel_matches_twin(dev, filter_mode, boundary_mode, D):
+    B, H, W = 2, 40, 72
+    N = B * H * W
+    rng = np.random.RandomState(D)
+    tex = torch.from_numpy(rng.rand(D, 32, 64, 3).astype(np.float32)).to(dev)
+    levels = [tex] + (tx.build_mip_stack(tex) if "mipmap" in filter_mode else [])
+    meta, _ = tx._static_meta(levels)
+    flat = tx._pack_pyramid(levels)
+    u, v = (torch.from_numpy(rng.uniform(-0.2, 1.2, N).astype(np.float32)).to(dev)
+            for _ in range(2))
+    u[:4] = torch.tensor([0.0, 1.0, -1.0, 1.0 - 0.5 / 64])
+    fl = torch.from_numpy(rng.uniform(0, len(meta) - 1, N).astype(np.float32)).to(dev)
+    fl[4:12] = torch.arange(8.0).clamp(max=len(meta) - 1)
+    args = (flat, u, v, fl, meta, (B, H, W), D > 1, boundary_mode, filter_mode)
+    before = tc.KERNEL.launches
+    got = tc.sample(*args)
+    ref = tc.sample_plain(*args)
+    torch.cuda.synchronize()
+    assert tc.KERNEL.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("name,make,C", [
+    ("sphere_b1", SCENES[0][1], 3), ("sphere_b2", SCENES[1][1], 5),
+    ("random_b2", SCENES[2][1], 1)], ids=["sphere_b1_c3", "sphere_b2_c5", "random_b2_c1"])
+def test_aa_kernel_matches_twin(dev, name, make, C):
+    pos, tri, res = make()
+    p, t = inputs_from_numpy(pos, tri, device=dev)
+    B, T = pos.shape[0], tri.shape[0]
+    n = B * res[0] * res[1]
+    _, _, zw, idf = (x.reshape(n) for x in rc.rasterize_fused(p, t, res))
+    ct = torch.from_numpy(np.random.default_rng(C).random((C, n), dtype=np.float32)).to(dev)
+    ftable = _build_tables(p, t, build_opposite_table(t), *res)[0]
+    args = (ct, idf, zw, ftable, (B,) + res, T)
+    before = ac.KERNEL.launches
+    got = ac.aa_cols(*args)
+    ref = ac.aa_cols_plain(*args)
+    torch.cuda.synchronize()
+    assert ac.KERNEL.launches == before + 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert int((got[4] != 0).sum()) > 10
+
+
+@pytest.mark.parametrize("filter_mode", ["linear", "linear-mipmap-nearest",
+                                         "linear-mipmap-linear"])
+def test_render_pipeline_textured_gpu_matches_cpu(dev, filter_mode):
+    res = (64, 80)
+    p, t, a = _textured_scene("cpu", 2, seed=9)
+    tex = torch.from_numpy(np.random.RandomState(0).rand(2, 32, 64, 3).astype(np.float32))
+    cpu = dr.render_pipeline_textured(p, t, a, tex, res, filter_mode=filter_mode)
+    with torch.no_grad():
+        gpu = dr.render_pipeline_textured(p.to(dev), t.to(dev), a.to(dev), tex.to(dev),
+                                          res, filter_mode=filter_mode)
+        again = dr.render_pipeline_textured(p.to(dev), t.to(dev), a.to(dev), tex.to(dev),
+                                            res, filter_mode=filter_mode)
+    assert torch.equal(gpu, again)
+    # The card's log2 may differ from the CPU's by an ulp: a mip level can
+    # flip where flevel sits on an integer (linear-mipmap-nearest).
+    bad = ((gpu.cpu() - cpu).abs() > 1e-5).any(-1)
+    assert int(bad.sum()) <= max(1, 1e-4 * bad.numel())

@@ -3,7 +3,10 @@ rasterizer in interpret mode.
 
 Bars: edge record rows bitwise; ids equal except at z-fights (<= 2e-4
 of pixels, tests/test_parity_sweep.py); u, v, z/w within 1e-4 where ids
-agree, the JAX suite's own bar.
+agree, the JAX suite's own bar; the bary derivatives (emit_db) within
+rtol 1e-5 / atol 1e-6 there (XLA:CPU contracts the interpret kernel's
+edge evaluations into fma, the port never does, so u and v differ by a
+few ulps and the derivatives inherit that).
 """
 
 import numpy as np
@@ -35,10 +38,10 @@ def case(request):
     jpos, jtri = jnp.asarray(pos), jnp.asarray(tri)
     ranges = jnp.broadcast_to(jnp.array([[0, T]], jnp.int32), (B, 2))
     ref = rp.rasterize_fused(jpos, jtri, res, ranges, interpret=True,
-                             flat=True, emit_db=False)
+                             flat=True, emit_db=True)
     rec = rp._build_records_cm(jpos, jtri, jnp.arange(T, dtype=jnp.int32))[0]
     return {"pos": pos, "tri": tri, "res": res,
-            "ref": [np.asarray(r) for r in ref[:4]], "rec": np.asarray(rec)}
+            "ref": [np.asarray(r) for r in ref[:8]], "rec": np.asarray(rec)}
 
 
 def test_records_match_jax(case):
@@ -63,6 +66,24 @@ def test_rasterize_matches_jax(case):
     same = assert_ids_match_mod_zfights(ref[3], out[3], ref[2], out[2])
     for name, a, b in zip(("u", "v", "zw"), ref[:3], out[:3]):
         np.testing.assert_allclose(b[same], a[same], atol=1e-4, err_msg=name)
+
+
+def test_bary_derivatives_match_jax(case):
+    """emit_db: (u, v, zw, idf) as without db, bit for bit, and the four
+    bary pixel derivatives against the JAX kernel's."""
+    p, t = inputs_from_numpy(case["pos"], case["tri"])
+    out = [o.numpy() for o in rc.rasterize_fused(p, t, case["res"], emit_db=True)]
+    assert len(out) == 8
+    plain = rc.rasterize_fused(p, t, case["res"])
+    for a, b in zip(out[:4], plain):
+        np.testing.assert_array_equal(a.view(np.int32), b.numpy().view(np.int32))
+    ref = case["ref"]
+    same = assert_ids_match_mod_zfights(ref[3], out[3], ref[2], out[2])
+    for name, a, b in zip(("dudx", "dudy", "dvdx", "dvdy"), ref[4:], out[4:]):
+        assert np.abs(a[same]).max() > 0, name
+        np.testing.assert_allclose(b[same], a[same], rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+        assert (b[out[3] == 0] == 0).all(), name  # empty pixels: zero
 
 
 def _sequential_reference(rec, aabb, res):
@@ -117,14 +138,17 @@ def _sequential_reference(rec, aabb, res):
 @pytest.mark.parametrize("slice_fragments", [None, 300])
 def test_twin_merge_order_is_sequential(slice_fragments, monkeypatch):
     """The twin's per-pixel rounds reproduce a plain sequential merge,
-    also when its fragments are evaluated a slice of records at a time."""
+    also when its fragments are evaluated a slice of records at a time,
+    and carry the winner's edge gradients into the db outputs."""
     if slice_fragments:
         monkeypatch.setattr(rc, "_TWIN_FRAGMENTS", slice_fragments)
     pos, tri = random_scene(5, B=2, T=40)
     res = (37, 50)
     p, t = inputs_from_numpy(pos, tri)
     rec, aabb = rc.build_records(p, t, res)
-    u, v, zw, idf = rc.rasterize_records_plain(rec, aabb, res)
+    u, v, zw, idf, *db = rc.rasterize_records_plain(rec, aabb, res, emit_db=True)
+    xs, _, ys, _ = (torch.tensor(x, dtype=torch.float32)
+                    for x in pixel_scale_offset(*res))
     for b, (az, aw, aid, pa) in enumerate(_sequential_reference(rec, aabb, res)):
         valid = aid < 1e29
         assert valid.sum() > 100
@@ -137,6 +161,17 @@ def test_twin_merge_order_is_sequential(slice_fragments, monkeypatch):
         for got, want in ((u[b], b0 * bs), (v[b], b1 * bs), (zw[b], zv)):
             np.testing.assert_array_equal(got.numpy(),
                                           torch.where(valid, want, 0.0).numpy())
+        # The winner's edge gradients, gathered by id from the records.
+        rid = torch.where(valid, aid, 1.0).long() - 1
+        cx = [-rec[b, rid, i] for i in (1, 4, 7)]
+        cy = [-rec[b, rid, i] for i in (2, 5, 8)]
+        datx = (cx[0] + cx[1]) + cx[2]
+        daty = (cy[0] + cy[1]) + cy[2]
+        want = (xs * iw * ((b0 * bs) * datx - cx[0]), ys * iw * ((b0 * bs) * daty - cy[0]),
+                xs * iw * ((b1 * bs) * datx - cx[1]), ys * iw * ((b1 * bs) * daty - cy[1]))
+        for got, w in zip(db, want):
+            np.testing.assert_array_equal(got[b].numpy(),
+                                          torch.where(valid, w, 0.0).numpy())
 
 
 def test_dop_bitwise():
@@ -156,7 +191,7 @@ def test_unported_modes_raise():
     p, t = inputs_from_numpy(pos, tri)
     for kw in ({"ranges": torch.zeros((1, 2), dtype=torch.int32)},
                {"peel_depth": torch.zeros((1, 8, 8))},
-               {"viewport": (0, 8)}, {"emit_db": True}):
+               {"viewport": (0, 8)}):
         with pytest.raises(NotImplementedError):
             rc.rasterize_fused(p, t, (8, 8), **kw)
     with pytest.raises(NotImplementedError):
@@ -187,9 +222,11 @@ def test_kernel_wrapper_device_dispatch():
     p, t = inputs_from_numpy(pos, tri)
     rec, aabb = rc.build_records(p, t, (16, 24))
     before = rc.KERNEL.launches
-    got = rc.rasterize_records(rec, aabb, (16, 24))
-    ref = rc.rasterize_records_plain(rec, aabb, (16, 24))
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    for db in (False, True):
+        got = rc.rasterize_records(rec, aabb, (16, 24), emit_db=db)
+        ref = rc.rasterize_records_plain(rec, aabb, (16, 24), emit_db=db)
+        assert len(got) == (8 if db else 4)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert rc.KERNEL.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         rc.rasterize_records(rec.to("meta"), aabb.to("meta"), (16, 24))

@@ -54,3 +54,19 @@ def test_log_level_convention():
             dr.set_log_level(4)
     finally:
         dr.set_log_level(1)
+
+
+def test_inputs_from_numpy_carries_texture_and_uvs_exactly():
+    """The bench textured scene's inputs: a [1, 512, 512, 3] texture and
+    [V, 2] spherical uvs reach the port bit for bit."""
+    tex = np.random.RandomState(0).rand(1, 512, 512, 3).astype(np.float32)
+    _, vtxp, _, _ = tprim.uv_sphere(32, 64)
+    uv = np.stack([np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
+                   np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1)
+    t, u = inputs_from_numpy(jnp.asarray(tex), uv)  # a JAX array and float64
+    assert t.shape == (1, 512, 512, 3) and t.dtype == torch.float32
+    assert u.shape == (vtxp.shape[0], 2) and u.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy().view(np.int32), tex.view(np.int32))
+    np.testing.assert_array_equal(u.numpy().view(np.int32),
+                                  uv.astype(np.float32).view(np.int32))
+    assert t.is_contiguous() and u.is_contiguous()
