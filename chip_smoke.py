@@ -42,7 +42,19 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      and one B = 2 render, finite, plausibly covered, bitwise repeatable,
      B = 2 equal to two B = 1 renders, through all four kernels (launch
      counts), a 256^2 render held against the CPU path; its ms/frame and
-     Mpix/s.
+     Mpix/s;
+  9. the textured backward's kernels against their twins at 2048^2 on
+     the bench textured scene, with dy from mean(img**2): texture_bwd and
+     interp_raster_bwd_tex bit for bit, texture_grad within 1 ulp and
+     grad_scatter with da4 within 1e-6 of each row's largest entry; their
+     times, grid_sample's backward (to the grid, to the input) and
+     index_add_ as library yardsticks;
+ 10. the textured training slice: gradients of mean(img**2) to pos, uv
+     and the texture on the 8 views, finite, bitwise repeatable, B = 2
+     g_pos equal to two B = 1 runs, at 256^2 within the CPU tests' bars
+     of the CPU path; all eight textured kernels launched; the fwd+bwd
+     step's ms, Mpix/s and peak memory; 5 Adam steps fitting the texture
+     and a pose offset, the loss falling.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s) and, last, the device line. Any failed
@@ -71,6 +83,8 @@ TEX_SIZE = 512
 FILTER = "linear-mipmap-linear"  # bench.py's textured line
 BOUNDARY = "wrap"
 TEX_CPU_ATOL = 1e-5  # textured GPU vs CPU render, per pixel
+TEX_GRAD_RTOL = 5e-5  # textured GPU vs CPU gradients: the CPU tests' bars
+TEX_ROW_RTOL = 5e-4   # (tests/_torch_parity.py), of the largest / the row's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -225,6 +239,7 @@ def zfight_check(ref, got, what):
 
 
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -241,6 +256,8 @@ def main():
     from nvdiffrast_tpu_torch.ops import texture_cuda as tc
     from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
     from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
+    from nvdiffrast_tpu_torch.ops import pipeline_tex_bwd_cuda as ptb
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as txb
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
     from nvdiffrast_tpu_torch.ops.antialias import _build_tables, pair_ids
     from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
@@ -674,6 +691,212 @@ def main():
     log(f"[8] render_pipeline_textured fwd {RES}^2 (kernels): {tex_fwd_ms:.3f} ms/frame, "
         f"{tex_mpix:.2f} Mpix/s ({card})")
 
+    # -- 9. the textured backward's kernels vs twins (2048^2, bench scene) ---
+    shape1 = (1, RES, RES)
+    C = 3
+    timg, tsaved, tmeta = ptx._ptex_fwd_core(p, tuv, ttex, t, tu, build_opposite_table(t),
+                                             res, FILTER, BOUNDARY, -1)
+    u9, v9, idf9, *db9 = tsaved[:7]
+    uv9, da9, fl9, flat9, color9, al0, ax0, al1, ax1, vtbl9 = tsaved[7:]
+    timg = timg.requires_grad_()
+    dy9 = torch.autograd.grad((timg ** 2).mean(), timg)[0].reshape(N, C).T.contiguous()
+    gc9, dd9, rid9 = ptb.aa_bwd_slim(dy9, color9, idf9, (al0, ax0, al1, ax1), shape1, T)
+
+    bargs9 = (flat9, uv9[0], uv9[1], fl9, gc9, tmeta, shape1, False, BOUNDARY, FILTER)
+    gu9, gv9, gfl9 = txb.texture_bwd(*bargs9)
+    texbwd_err = equal_or_raise((gu9, gv9, gfl9), txb.texture_bwd_plain(*bargs9), "texture_bwd")
+    texbwd_ms = cuda_ms(torch, lambda: txb.texture_bwd(*bargs9), 50)
+    texbwd_plain_ms = cuda_ms(torch, lambda: txb.texture_bwd_plain(*bargs9), 5)
+    # Library yardstick: grid_sample's backward (bilinear, border, not
+    # align_corners) computes both gradients for filter 'linear' with
+    # 'clamp' on the base level: to the grid (here du = 2 dgrid_x) and to
+    # the input.
+    base = ttex.permute(0, 3, 1, 2).contiguous()
+    grid = (uv9.T.reshape(1, RES, RES, 2) * 2.0 - 1.0).contiguous()
+    gout = gc9.reshape(1, C, RES, RES).contiguous()
+
+    def library_bwd(mask):
+        return torch.ops.aten.grid_sampler_2d_backward(gout, base, grid, 0, 1, False, mask)
+
+    lbargs = (flat9[:TEX_SIZE * TEX_SIZE], uv9[0], uv9[1], fl9, gc9, tmeta[:1], shape1, False,
+              "clamp", "linear")
+    lgu = txb.texture_bwd(*lbargs)[0]
+    gs_bwd_diff = float((library_bwd([False, True])[1][..., 0].reshape(N) * 2.0 - lgu).abs().max())
+    lin_bwd_ms = cuda_ms(torch, lambda: txb.texture_bwd(*lbargs), 50)
+    texbwd_lib_ms = cuda_ms(torch, lambda: library_bwd([False, True]), 50)
+    log(f"[9] texture_bwd {RES}^2: equal to its twin bit for bit; max|gu| "
+        f"{float(gu9.abs().max()):.3g}, max|gfl| {float(gfl9.abs().max()):.3g}; kernel "
+        f"{texbwd_ms:.3f} ms, twin {texbwd_plain_ms:.3f} ms; linear+clamp: kernel "
+        f"{lin_bwd_ms:.3f} ms, grid_sample backward to the grid {texbwd_lib_ms:.3f} ms "
+        f"(max|du diff| {gs_bwd_diff:.3g}) ({card})")
+
+    n_tex9 = flat9.shape[0]
+    gargs9 = (uv9[0], uv9[1], fl9, gc9, tmeta, n_tex9, shape1, False, BOUNDARY, FILTER)
+    gtex9 = txb.texture_grad(*gargs9)
+    gtex9b = txb.texture_grad(*gargs9)
+    gtex_ref = txb.texture_grad_plain(*gargs9)
+    torch.cuda.synchronize()
+    if not torch.equal(gtex9, gtex9b):
+        raise AssertionError("texture_grad kernel not repeatable")
+    ulp = torch.from_numpy(np.spacing(gtex_ref.abs().cpu().numpy())).to(dev)
+    if not bool(((gtex9 - gtex_ref).abs() <= ulp).all()):
+        raise AssertionError("texture_grad kernel beyond 1 ulp of its twin")
+    texgrad_err = float((gtex9 - gtex_ref).abs().max())
+    ent9 = txb.grad_entries(uv9[0], uv9[1], fl9, tmeta, n_tex9, shape1, False, BOUNDARY, FILTER)
+    n_taps = int(ent9[0].shape[0])
+    hot = int((ent9[1][1:] - ent9[1][:-1]).max())
+    log(f"[9] texture_grad {RES}^2 ({n_tex9} texels): within 1 ulp of its twin (max|err| "
+        f"{texgrad_err:.3g}), bitwise repeatable; {n_taps} taps in {ent9[3]} pieces, the "
+        f"busiest texel {hot} taps")
+    texgrad_ms = cuda_ms(torch, lambda: txb.grad_from_entries(
+        *ent9, uv9[0], uv9[1], fl9, gc9, tmeta, shape1, False, BOUNDARY, FILTER), 20)
+    texgrad_glue_ms = cuda_ms(torch, lambda: txb.grad_entries(
+        uv9[0], uv9[1], fl9, tmeta, n_tex9, shape1, False, BOUNDARY, FILTER), 10)
+    texgrad_plain_ms = cuda_ms(torch, lambda: txb.texture_grad_plain(*gargs9), 3)
+    lgargs = (uv9[0], uv9[1], fl9, gc9, tmeta[:1], TEX_SIZE * TEX_SIZE, shape1, False,
+              "clamp", "linear")
+    lin_grad_ms = cuda_ms(torch, lambda: txb.texture_grad(*lgargs), 10)
+    texgrad_lib_ms = cuda_ms(torch, lambda: library_bwd([True, False]), 20)
+    log(f"[9] texture_grad {RES}^2: kernel {texgrad_ms:.3f} ms + index glue (keys, sort) "
+        f"{texgrad_glue_ms:.3f} ms, twin {texgrad_plain_ms:.3f} ms; linear+clamp: kernel with "
+        f"glue {lin_grad_ms:.3f} ms, grid_sample backward to the input {texgrad_lib_ms:.3f} ms "
+        f"({card})")
+
+    gda9 = tx.mip_level_vjp(da9, gfl9, TEX_SIZE, TEX_SIZE, len(tmeta))
+    iargs9 = (pl._attr_table(tuv, tu, 1, T), vtbl9, idf9, gu9, gv9, gda9, torch.stack(db9),
+              res, T)
+    out15 = ptb.interp_raster_bwd_tex(*iargs9)
+    b14_err = equal_or_raise((out15,), (ptb.interp_raster_bwd_tex_plain(*iargs9),),
+                             "interp_raster_bwd_tex")
+    n_valid9 = int((idf9 > 0).sum())
+    b14_ms = cuda_ms(torch, lambda: ptb.interp_raster_bwd_tex(*iargs9), 50)
+    b14_plain_ms = cuda_ms(torch, lambda: ptb.interp_raster_bwd_tex_plain(*iargs9), 5)
+    log(f"[9] interp_raster_bwd_tex {RES}^2: equal to its twin bit for bit; "
+        f"{n_valid9} covered pixels, max|pos col| {float(out15[2:11].abs().max()):.3g}; "
+        f"kernel {b14_ms:.3f} ms, twin {b14_plain_ms:.3f} ms ({card})")
+
+    R9 = vtbl9.shape[1] - 1
+    sargs9 = (pl.own_rows(idf9, T, res), out15[:11], dd9, rid9, u9, v9, ax0, ax1, vtbl9, res)
+    da4 = out15[11:]
+    ks9 = pb.grad_scatter(*sargs9, da4=da4)
+    ks9b = pb.grad_scatter(*sargs9, da4=da4)
+    ts9 = pb.grad_scatter_plain(*sargs9, da4=da4)
+    torch.cuda.synchronize()
+    da4_err = 0.0
+    for x, y, z in zip(ks9, ks9b, ts9):
+        if not torch.equal(x, y):
+            raise AssertionError("grad_scatter (da4) kernel not repeatable")
+        rows_close(x, z, SCATTER_ROW_RTOL)
+        da4_err = max(da4_err, float((x - z).abs().max()))
+    codes9, off9 = pb._entries(sargs9[0], out15[:11], dd9, rid9, R9, da4)
+    flats9 = (u9, v9, ax0, ax1)
+    n_own9 = int((codes9 < N).sum())
+    n_aa9 = codes9.shape[0] - n_own9
+    da4_ms = cuda_ms(torch, lambda: pb.scatter_entries(codes9, off9, out15[:11], dd9, flats9,
+                                                       vtbl9, res, da4), 50)
+    da4_plain_ms = cuda_ms(torch, lambda: pb.grad_scatter_plain(*sargs9, da4=da4), 3)
+    (orow, own), (arow, aav) = pb.expand_rows(*sargs9, da4=da4)
+    orow, arow = orow.long(), arow.long()
+    zgt = torch.zeros((R9, own.shape[1]), dtype=torch.float32, device=dev)
+    zgaa = torch.zeros((R9, 9), dtype=torch.float32, device=dev)
+    da4_lib_ms = cuda_ms(torch, lambda: (zgt.index_add_(0, orow, own),
+                                         zgaa.index_add_(0, arow, aav)), 50)
+    log(f"[9] grad_scatter with da4 {RES}^2: {n_own9} own-pixel and {n_aa9} AA entries; "
+        f"max|err| vs twin {da4_err:.3g} (bar {SCATTER_ROW_RTOL} x row max); kernel "
+        f"{da4_ms:.3f} ms, twin {da4_plain_ms:.3f} ms, index_add_ {da4_lib_ms:.3f} ms ({card})")
+
+    # -- 10. the textured training slice: fwd + bwd at 2048^2 -----------------
+    tbwd_kernels = (txb.BWD_KERNEL, txb.GRAD_KERNEL, ptb.KERNEL, pb.SCATTER_KERNEL)
+
+    def tgrads(view, size=res, uvs_=tuv, tex=ttex, boost=1.0):
+        xs = [x.detach().clone().requires_grad_() for x in (view, uvs_, tex)]
+        img = ptx.render_pipeline_textured(xs[0], t8.to(view.device), xs[1], xs[2], size,
+                                           uv_tri=c8.to(view.device),
+                                           filter_mode=FILTER, boundary_mode=BOUNDARY,
+                                           pos_gradient_boost=boost)
+        # Per-image mean, summed over the batch (= mean(img**2) at B = 1).
+        return torch.autograd.grad((img ** 2).mean(dim=(1, 2, 3)).sum(), xs)
+
+    for k in tkernels + tbwd_kernels:
+        k.launches = 0
+    tg = [tgrads(view) for view in reqs]
+    ttrain_launches = {k.name: k.launches for k in tkernels + tbwd_kernels}
+    log(f"[10] launches during the textured training slice (8 views): {ttrain_launches}")
+    if min(ttrain_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the textured path never launched: {ttrain_launches}")
+    tagain = tgrads(reqs[0])
+    tg2 = tgrads(pos2)
+    torch.cuda.synchronize()
+    for i, gs_ in enumerate(tg):
+        for name, g in zip(("pos", "uv", "tex"), gs_):
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                raise AssertionError(f"textured view {i}: {name} gradient not finite or zero")
+    for x, y in zip(tg[0], tagain):
+        if not torch.equal(x, y):
+            raise AssertionError("textured gradients not bitwise repeatable")
+    for b in range(2):
+        if not torch.equal(tg2[0][b], tg[b][0][0]):
+            raise AssertionError(f"textured B=2 g_pos of image {b} differs from its B=1 run")
+    log(f"[10] textured gradients finite, non-zero, bitwise repeatable (g_tex included); "
+        f"B=2 g_pos equal to two B=1 runs bit for bit; max|g_pos| "
+        f"{float(tg[0][0].abs().max()):.3g}, max|g_uv| {float(tg[0][1].abs().max()):.3g}, "
+        f"max|g_tex| {float(tg[0][2].abs().max()):.3g}")
+
+    # The card's gradients against the CPU path, at the CPU tests' bars.
+    gpu_g = [g.cpu() for g in tgrads(reqs[3], small, boost=2.0)]
+    cpu_g = tgrads(reqs[3].cpu(), small, tuv.cpu(), ttex.cpu(), boost=2.0)
+    for name, x, y in zip(("pos", "uv", "tex"), gpu_g, cpu_g):
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        xr, yr = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+        row_err = float(((xr - yr).abs() / yr.abs().amax(1, keepdim=True).clamp(
+            min=1e-30)).max())
+        if not (scale > 0 and err <= TEX_GRAD_RTOL * scale and row_err <= TEX_ROW_RTOL):
+            raise AssertionError(f"{SMALL}^2 textured {name} gradient, GPU vs CPU: {err} of "
+                                 f"{scale}, row {row_err}")
+        log(f"[10] {SMALL}^2 textured {name} gradient, GPU vs CPU path: max|err| {err:.3g} "
+            f"(max|g| {scale:.3g}, bar {TEX_GRAD_RTOL} x max|g|), worst row {row_err:.3g} "
+            f"of its max (bar {TEX_ROW_RTOL})")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tgrads(reqs[1])
+    torch.cuda.synchronize()
+    tex_step_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    tex_step_ms = window_ms(torch, tgrads, [(view,) for view in reqs])
+    tex_step_mpix = RES * RES / 1e6 / (tex_step_ms / 1e3)
+    log(f"[10] render_pipeline_textured fwd+bwd {RES}^2 (kernels): {tex_step_ms:.3f} ms/step, "
+        f"{tex_step_mpix:.2f} Mpix/s; peak memory of a step above its inputs "
+        f"{tex_step_mib:.1f} MiB ({card})")
+
+    # A few Adam steps: the texture and a pose offset fit a target render.
+    with torch.no_grad():
+        ttarget = ptx.render_pipeline_textured(clip(zero), t8, tuv, ttex, res, uv_tri=c8,
+                                               filter_mode=FILTER, boundary_mode=BOUNDARY)
+    tex_fit = (ttex + 0.2 * torch.randn(ttex.shape, generator=gen).to(dev)).requires_grad_()
+    offset = (0.05 * torch.randn(3, generator=gen).to(dev)).requires_grad_()
+    opt = torch.optim.Adam([tex_fit, offset], lr=0.02)
+    tlosses = []
+    for k in tkernels + tbwd_kernels:
+        k.launches = 0
+    for _ in range(ADAM_STEPS):
+        img = ptx.render_pipeline_textured(clip(offset), t8, tuv, tex_fit, res, uv_tri=c8,
+                                           filter_mode=FILTER, boundary_mode=BOUNDARY)
+        loss = ((img - ttarget) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        tlosses.append(loss.item())
+    torch.cuda.synchronize()
+    tfit_launches = {k.name: k.launches for k in tkernels + tbwd_kernels}
+    log(f"[10] textured Adam fit, {ADAM_STEPS} steps at {RES}^2: loss {tlosses}; launches "
+        f"{tfit_launches}")
+    if not tlosses[-1] < tlosses[0]:
+        raise AssertionError(f"textured Adam fit: the loss did not fall: {tlosses}")
+    if min(tfit_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the textured path never launched: {tfit_launches}")
+
     # Bounds: bytes each input read once and each output written once, over
     # 3.35 TB/s; float32 operations counted from the kernels' sources, over
     # 67 TFLOP/s. The larger is the bound.
@@ -696,12 +919,25 @@ def main():
     # pyramid once and writes C channels, ~(30 + 8C) operations per level
     # read; antialias reads colour, id and depth and the AA table, writes
     # out, negx, negy and 4 residuals, ~80 operations per active pair.
-    C = 3
     db_bound = bound(trec.numel() * f32 + taabb.numel() * f32 + 8 * N * f32, 34 * frag)
     interp_bound = bound((utbl.numel() + 7 * N + 6 * N) * f32, 30 * N)
     tex_bound = bound((3 * N + n_texels * C + C * N) * f32, (N + n_two) * (30 + 8 * C))
     aa_bound = bound((ftable_t.numel() + (C + 2) * N + (3 * C + 4) * N) * f32,
                      20 * N + 80 * n_active)
+    # Textured backward: texture_bwd reads u, v, flevel, C cotangents and
+    # the pyramid, writes 3 rows, both slots for every pixel, ~(40 + 14C)
+    # operations each; texture_grad reads the same pixel streams and
+    # writes the pyramid's gradient, ~(30 + 3C) operations a tap kept;
+    # interp_raster_bwd_tex reads the id of every pixel, 10 more rows of
+    # each covered one and the tables, writes 15 rows, ~220 operations a
+    # covered pixel; grad_scatter with da4 as phase 5's, with 4 more floats
+    # an own-pixel entry.
+    texbwd_bound = bound(((3 + C + 3) * N + n_tex9 * C) * f32, 2 * N * (40 + 14 * C))
+    texgrad_bound = bound(((3 + C) * N + n_tex9 * C) * f32, n_taps * (30 + 3 * C))
+    b14_bound = bound((iargs9[0].numel() + vtbl9.numel() + 16 * N + 10 * n_valid9) * f32,
+                      220 * n_valid9)
+    da4_bound = bound((n_own9 * (2 + 9 + 3 + 4) + n_aa9 * 3 + 9 * (R9 + 1) + (R9 + 1)
+                       + R9 * (6 + 18)) * f32, n_own9 * (6 * 2 + 11 + 8) + n_aa9 * 60)
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -733,6 +969,20 @@ def main():
         entry("aa_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/aa_fwd.cu",
               "nvdiffrast_tpu/ops/antialias_pallas.py:149", tex_launches[ac.KERNEL.name],
               aa_err, aa_ms, aa_plain_ms, aa_bound, None),
+        entry("texture_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_bwd.cu",
+              "nvdiffrast_tpu/ops/texture_pallas.py:894", ttrain_launches[txb.BWD_KERNEL.name],
+              texbwd_err, texbwd_ms, texbwd_plain_ms, texbwd_bound, texbwd_lib_ms),
+        entry("texture_grad", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
+              "nvdiffrast_tpu/ops/lattice_scatter.py:179", ttrain_launches[txb.GRAD_KERNEL.name],
+              texgrad_err, texgrad_ms, texgrad_plain_ms, texgrad_bound, texgrad_lib_ms),
+        entry("interp_raster_bwd_tex", "cuda",
+              "nvdiffrast_tpu_torch/csrc/interp_raster_bwd_tex.cu",
+              "nvdiffrast_tpu/ops/pipeline_tex_pallas.py:113", ttrain_launches[ptb.KERNEL.name],
+              b14_err, b14_ms, b14_plain_ms, b14_bound, None),
+        entry("grad_scatter_da4", "cuda", "nvdiffrast_tpu_torch/csrc/grad_scatter.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:535",
+              ttrain_launches[pb.SCATTER_KERNEL.name], da4_err, da4_ms, da4_plain_ms,
+              da4_bound, da4_lib_ms),
     ]
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "

@@ -10,10 +10,11 @@ antialias), forward and backward, with its four hand-written CUDA
 kernels for Hopper (``csrc/``, built with nvcc at first use on a GPU):
 gradients flow to the clip-space positions and the vertex attributes.
 ``render_pipeline_textured`` (rasterize with bary derivatives + uv
-interpolate + 2-D mip texture + antialias), forward only, with the
-rasterizer's db variant and three more kernels. CPU tensors run the
-kernels' plain PyTorch twins. Every call runs on the device of its
-input.
+interpolate + 2-D mip texture + antialias), forward with the
+rasterizer's db variant and three more kernels, and, in the mip filter
+modes, backward with four more: gradients flow to the positions, the
+uvs and the texture. CPU tensors run the kernels' plain PyTorch twins.
+Every call runs on the device of its input.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 // Gradient scatter of the render pipeline: per-pixel rows -> per-triangle
 // rows, deterministic.
 //
-// Replaces: nvdiffrast_tpu/ops/pipeline_pallas.py, pipeline_grad_scatter
-// (without the textured chain's da4 terms).
+// Replaces: nvdiffrast_tpu/ops/pipeline_pallas.py, pipeline_grad_scatter,
+// with and without the textured chain's da4 terms.
 //
 // The TPU kernel is a windowed one-hot bf16 hi/lo matmul on the MXU,
 // with a sequential grid carrying the accumulator. On this card blocks
@@ -10,7 +10,7 @@
 // from run to run, so the reduction is by segment instead. The wrapper
 // (pipeline_bwd_cuda._entries, index glue) lists the live entries:
 //   type 0, pixel p: the own-pixel row of a pixel with a non-zero gs
-//     column, keyed by its triangle row rid0[p];
+//     (or da4) column, keyed by its triangle row rid0[p];
 //   type 1 + d, pixel p: the AA pair of axis d where dd2[d, p] != 0,
 //     keyed by rid2[d, p];
 // as codes type*N + p, stable-sorted by key, with each row's segment
@@ -18,7 +18,10 @@
 // segment (lane l takes entries l, l+32, ...), expand each entry in
 // registers and sum in float64:
 //   type 0: the bary outer product bb_k * gc_a (k = 0..2) into columns
-//     k*A + a of gt, and the 9 raster columns of gs into 3A..3A+8;
+//     k*A + a of gt, and the 9 raster columns of gs into 3A..3A+8; with
+//     da4 (the textured chain, A = 2) its uv_da terms (c0_j, c1_j) ride
+//     along: bb0*g_j + c0_j, bb1*g_j + c1_j, (bb2*g_j - c0_j) - c1_j,
+//     each in float32 as the reference, then summed in float64;
 //   type 1/2: pair_pos_grad replayed from row r of vtbl (one load per
 //     warp, the TPU kernel's one-hot gather) and fx/fy recomputed from p,
 //     into the 9 columns of gaa.
@@ -106,13 +109,14 @@ __device__ __forceinline__ double warp_sum(double v) {
     return v;
 }
 
-template <int A>
+template <int A, bool DA>
 __global__ void __launch_bounds__(BLOCK)
 grad_scatter_kernel(const int* __restrict__ off, const int* __restrict__ codes,
                     const float* __restrict__ gs, const float* __restrict__ dd2,
                     const float* __restrict__ b0, const float* __restrict__ b1,
                     const float* __restrict__ ax0, const float* __restrict__ ax1,
-                    const float* __restrict__ vtbl, int cols, float* __restrict__ gt,
+                    const float* __restrict__ da4, const float* __restrict__ vtbl, int cols,
+                    float* __restrict__ gt,
                     float* __restrict__ gaa, int N, int R, int H, int W, float fxo, float fyo,
                     float pxh, float pyh) {
     constexpr int K = 3 * A + 9;
@@ -141,9 +145,17 @@ grad_scatter_kernel(const int* __restrict__ off, const int* __restrict__ codes,
 #pragma unroll
             for (int a = 0; a < A; ++a) {
                 const float g = gs[static_cast<size_t>(a) * N + p];
-                acc[a] += static_cast<double>(bb0 * g);
-                acc[A + a] += static_cast<double>(bb1 * g);
-                acc[2 * A + a] += static_cast<double>(bb2 * g);
+                if (DA) {  // A == 2: c0_a = da4[a], c1_a = da4[2 + a]
+                    const float c0 = da4[static_cast<size_t>(a) * N + p];
+                    const float c1 = da4[static_cast<size_t>(2 + a) * N + p];
+                    acc[a] += static_cast<double>(bb0 * g + c0);
+                    acc[A + a] += static_cast<double>(bb1 * g + c1);
+                    acc[2 * A + a] += static_cast<double>(bb2 * g - c0 - c1);
+                } else {
+                    acc[a] += static_cast<double>(bb0 * g);
+                    acc[A + a] += static_cast<double>(bb1 * g);
+                    acc[2 * A + a] += static_cast<double>(bb2 * g);
+                }
             }
 #pragma unroll
             for (int k = 0; k < 9; ++k)
@@ -177,21 +189,31 @@ grad_scatter_kernel(const int* __restrict__ off, const int* __restrict__ codes,
 }  // namespace
 
 // off [R+1], codes [M] int32 (sorted live entries, type*N + p); gs
-// [A+9, N], dd2 [2, N], b0, b1, ax0, ax1 [N], vtbl [9, cols] float32 ->
-// gt [R, 3A+9], gaa [R, 9] float32. 1 <= A <= 8.
+// [A+9, N], dd2 [2, N], b0, b1, ax0, ax1 [N], da4 [4, N] or null, vtbl
+// [9, cols] float32 -> gt [R, 3A+9], gaa [R, 9] float32. 1 <= A <= 8;
+// A == 2 with da4.
 extern "C" int nvdr_grad_scatter(const int* off, const int* codes, const float* gs,
                                  const float* dd2, const float* b0, const float* b1,
-                                 const float* ax0, const float* ax1, const float* vtbl, int cols,
+                                 const float* ax0, const float* ax1, const float* da4,
+                                 const float* vtbl, int cols,
                                  float* gt, float* gaa, int N, int R, int A, int H, int W,
                                  float fxo, float fyo, float pxh, float pyh, void* stream) {
     if (R <= 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int grid = (R + WARPS - 1) / WARPS;
+    if (da4 != nullptr) {
+        if (A != 2) return static_cast<int>(cudaErrorInvalidValue);
+        grad_scatter_kernel<2, true><<<grid, BLOCK, 0, s>>>(off, codes, gs, dd2, b0, b1, ax0,
+                                                            ax1, da4, vtbl, cols, gt, gaa, N, R,
+                                                            H, W, fxo, fyo, pxh, pyh);
+        return static_cast<int>(cudaGetLastError());
+    }
 #define NVDR_SCATTER_CASE(n)                                                                 \
     case n:                                                                                  \
-        grad_scatter_kernel<n><<<grid, BLOCK, 0, s>>>(off, codes, gs, dd2, b0, b1, ax0, ax1,  \
-                                                      vtbl, cols, gt, gaa, N, R, H, W, fxo,  \
-                                                      fyo, pxh, pyh);                        \
+        grad_scatter_kernel<n, false><<<grid, BLOCK, 0, s>>>(off, codes, gs, dd2, b0, b1,    \
+                                                             ax0, ax1, da4, vtbl, cols, gt,  \
+                                                             gaa, N, R, H, W, fxo, fyo, pxh, \
+                                                             pyh);                           \
         break;
     switch (A) {
         NVDR_SCATTER_CASE(1)

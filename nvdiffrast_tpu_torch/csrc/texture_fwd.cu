@@ -34,91 +34,29 @@
 // the last bit.
 #include <cuda_runtime.h>
 
+#include "texture_corner.cuh"
+
 namespace {
+
+using namespace nvdr_tex;
 
 constexpr int BX = 32;
 constexpr int BY = 8;
-constexpr int MAX_LEVELS = 17;  // texture.MAX_MIP_LEVEL + the base level
-
-enum Boundary { WRAP = 0, CLAMP = 1, ZERO = 2 };
-enum Filter { LINEAR = 0, MIP_NEAREST = 1, MIP_LINEAR = 2 };
-
-struct Levels {
-    int off[MAX_LEVELS];
-    int h[MAX_LEVELS];
-    int w[MAX_LEVELS];
-};
-
-__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
-    return x != x ? x : fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-    return x < lo ? lo : (x > hi ? hi : x);
-}
 
 // One level's bilinear value of every channel (corner_setup + gather).
 template <int C>
 __device__ __forceinline__ void level_value(const float* __restrict__ tex, int base, int hl,
                                             int wl, float u, float v, int boundary,
                                             float* val) {
-    const float w = static_cast<float>(wl);
-    const float h = static_cast<float>(hl);
-    if (boundary == WRAP) {
-        u = u - floorf(u);
-        v = v - floorf(v);
-    }
-    u = u * w - 0.5f;
-    v = v * h - 0.5f;
-    bool clamp_u = false, clamp_v = false;
-    if (boundary == CLAMP) {
-        u = clip_nan(u, 0.0f, w - 1.0f);
-        v = clip_nan(v, 0.0f, h - 1.0f);
-        clamp_u = (u == 0.0f) || (u == w - 1.0f);
-        clamp_v = (v == 0.0f) || (v == h - 1.0f);
-    }
-    int iu0 = static_cast<int>(floorf(u));
-    int iv0 = static_cast<int>(floorf(v));
-    int iu1 = iu0 + (clamp_u ? 0 : 1);
-    int iv1 = iv0 + (clamp_v ? 0 : 1);
-    const float fu = u - static_cast<float>(iu0);
-    const float fv = v - static_cast<float>(iv0);
-    if (boundary == WRAP) {
-        iu0 = iu0 < 0 ? iu0 + wl : iu0;
-        iv0 = iv0 < 0 ? iv0 + hl : iv0;
-        iu1 = iu1 >= wl ? iu1 - wl : iu1;
-        iv1 = iv1 >= hl ? iv1 - hl : iv1;
-    }
-    float ok00 = 1.0f, ok10 = 1.0f, ok01 = 1.0f, ok11 = 1.0f;
-    if (boundary == ZERO) {
-        // Validity rides in the weights; the indices are clamped below.
-        const float u0 = (iu0 >= 0 && iu0 < wl) ? 1.0f : 0.0f;
-        const float u1 = (iu1 >= 0 && iu1 < wl) ? 1.0f : 0.0f;
-        const float v0 = (iv0 >= 0 && iv0 < hl) ? 1.0f : 0.0f;
-        const float v1 = (iv1 >= 0 && iv1 < hl) ? 1.0f : 0.0f;
-        ok00 = u0 * v0;
-        ok10 = u1 * v0;
-        ok01 = u0 * v1;
-        ok11 = u1 * v1;
-    }
-    const float gu = 1.0f - fu;
-    const float gv = 1.0f - fv;
-    const float w00 = gu * gv * ok00;
-    const float w10 = fu * gv * ok10;
-    const float w01 = gu * fv * ok01;
-    const float w11 = fu * fv * ok11;
-    iu0 = clampi(iu0, 0, wl - 1);
-    iu1 = clampi(iu1, 0, wl - 1);
-    iv0 = clampi(iv0, 0, hl - 1);
-    iv1 = clampi(iv1, 0, hl - 1);
-    const float* q00 = tex + static_cast<size_t>(base + iv0 * wl + iu0) * C;
-    const float* q10 = tex + static_cast<size_t>(base + iv0 * wl + iu1) * C;
-    const float* q01 = tex + static_cast<size_t>(base + iv1 * wl + iu0) * C;
-    const float* q11 = tex + static_cast<size_t>(base + iv1 * wl + iu1) * C;
+    const Corners k = corner_setup(hl, wl, u, v, boundary);
+    const float* q00 = tex + static_cast<size_t>(base + k.idx[0]) * C;
+    const float* q10 = tex + static_cast<size_t>(base + k.idx[1]) * C;
+    const float* q01 = tex + static_cast<size_t>(base + k.idx[2]) * C;
+    const float* q11 = tex + static_cast<size_t>(base + k.idx[3]) * C;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-        val[c] = ((w00 * __ldg(q00 + c) + w10 * __ldg(q10 + c)) + w01 * __ldg(q01 + c)) +
-                 w11 * __ldg(q11 + c);
+        val[c] = ((k.w[0] * __ldg(q00 + c) + k.w[1] * __ldg(q10 + c)) + k.w[2] * __ldg(q01 + c)) +
+                 k.w[3] * __ldg(q11 + c);
 }
 
 template <int C>
@@ -135,17 +73,9 @@ tex_fwd_kernel(const float* __restrict__ tex, const float* __restrict__ u,
     const float up = u[p], vp = v[p];
 
     // Level pair and blend weight (texture_pallas.level_weights).
-    int l0 = 0, l1 = 0;
-    float frac = 0.0f;
-    if (filter != LINEAR) {
-        const float fl = flevel[p];
-        l0 = clampi(static_cast<int>(floorf(fl)), 0, L - 1);
-        l1 = l0;
-        if (filter == MIP_LINEAR) {
-            l1 = min(l0 + 1, L - 1);
-            frac = fl - static_cast<float>(l0);
-        }
-    }
+    int l0, l1;
+    float frac;
+    level_weights(filter != LINEAR ? flevel[p] : 0.0f, L, filter, l0, l1, frac);
     const int tz = per_image ? b : 0;
 
     float acc[C];
@@ -179,12 +109,7 @@ extern "C" int nvdr_texture_fwd(const float* tex, const float* u, const float* v
     if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
     if (L < 1 || L > MAX_LEVELS || boundary < 0 || boundary > 2 || filter < 0 || filter > 2)
         return static_cast<int>(cudaErrorInvalidValue);
-    Levels lv = {};
-    for (int l = 0; l < L; ++l) {
-        lv.off[l] = meta[3 * l];
-        lv.h[l] = meta[3 * l + 1];
-        lv.w[l] = meta[3 * l + 2];
-    }
+    const Levels lv = levels_from_meta(meta, L);
     const int N = B * H * W;
     const dim3 block(BX, BY);
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, B);

@@ -111,36 +111,45 @@ def _pipeline_bwd_core(tri, atri, saved, resolution, boost, pos_shape,
     dy [B, H, W, A] (ops/pipeline.py:98-167 of the JAX package)."""
     b0f, b1f, idff, c0, al0, ax0, al1, ax1, atbl, vtbl = saved
     H, W = resolution
-    B, V = pos_shape[0], pos_shape[1]
+    B = pos_shape[0]
     T = tri.shape[0]
     A = attr_shape[-1]
     N = B * H * W
     K = 3 * A
-    dev = idff.device
 
     dy_cols = dy.reshape(N, A).T.contiguous()
     gs, dd2, rid2 = pipeline_bwd(atbl, vtbl, idff, c0, dy_cols,
                                  (al0, ax0, al1, ax1), resolution, T)
     gt, gaa = grad_scatter(own_rows(idff, T, resolution), gs, dd2, rid2, b0f,
                            b1f, ax0, ax1, vtbl, resolution)
+    return (vertex_pos_grad(gt[:, K:], gaa, tri, pos_shape, boost),
+            vertex_attr_grad(gt[:, :K], atri, attr_shape, B))
 
-    # Triangle rows -> vertex rows.
-    ga = gt[:, :K].reshape(B, 3 * T, A)
+
+def vertex_attr_grad(ga, atri, attr_shape, B):
+    """Triangle-corner attribute rows [B*T, 3A] -> the gradient shaped
+    like attr; broadcast attributes sum the batch first."""
+    T = atri.shape[0]
+    A = attr_shape[-1]
+    ga = ga.reshape(B, 3 * T, A)
     acorners = _corner_table(atri, attr_shape[-2])
     if len(attr_shape) == 2 or attr_shape[0] == 1:  # broadcast attributes
-        g_attr = _vertex_sum(ga.sum(0, keepdim=True), acorners)
-        g_attr = g_attr.reshape(attr_shape)
-    else:
-        g_attr = _vertex_sum(ga, acorners)
+        return _vertex_sum(ga.sum(0, keepdim=True), acorners).reshape(attr_shape)
+    return _vertex_sum(ga, acorners)
 
-    gxyw = torch.cat([gt[:, K:].reshape(B, 3 * T, 3),
-                      gaa.reshape(B, 3 * T, 3)], dim=2)
+
+def vertex_pos_grad(g9, gaa, tri, pos_shape, boost):
+    """Triangle-corner clip-space rows (raster [B*T, 9], antialias
+    [B*T, 9]) -> g_pos [B, V, 4], the antialias part times boost."""
+    B, V = pos_shape[0], pos_shape[1]
+    T = tri.shape[0]
+    gxyw = torch.cat([g9.reshape(B, 3 * T, 3), gaa.reshape(B, 3 * T, 3)], dim=2)
     gv = _vertex_sum(gxyw, _corner_table(tri, V))
     g_aa = gv[..., 3:] * boost if boost != 1.0 else gv[..., 3:]
     g_xyw = gv[..., :3] + g_aa
-    g_pos = torch.zeros((B, V, 4), dtype=torch.float32, device=dev)
+    g_pos = torch.zeros((B, V, 4), dtype=torch.float32, device=g9.device)
     g_pos[..., [0, 1, 3]] = g_xyw
-    return g_pos, g_attr
+    return g_pos
 
 
 class _PipelineFn(torch.autograd.Function):

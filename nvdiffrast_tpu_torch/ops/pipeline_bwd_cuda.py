@@ -11,7 +11,8 @@ Counterparts of ``pipeline_bwd`` and ``pipeline_grad_scatter`` in
 * ``grad_scatter`` (kernel ``csrc/grad_scatter.cu``): reduces that
   stream to per-triangle rows, expanding the bary outer product and
   replaying the AA position gradients (``antialias.pair_pos_grad``) on
-  the way, with float64 sums in a fixed order. ``grad_scatter_plain``
+  the way (and, for the textured chain, the uv_da terms ``da4``), with
+  float64 sums in a fixed order. ``grad_scatter_plain``
   expands with tensor ops and sums with ``index_add_`` in float64; the
   two agree to float64 rounding (<= 1 float32 ulp).
 
@@ -34,7 +35,7 @@ BWD_KERNEL = _build.Kernel(
 
 SCATTER_KERNEL = _build.Kernel(
     "nvdr_grad_scatter",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 5 + [ctypes.c_float] * 4)
 
 
@@ -199,10 +200,15 @@ def pipeline_bwd_plain(atbl, vtbl, idf, c0, dy, residuals, resolution, T):
 # B4: per-triangle reduction.
 # ---------------------------------------------------------------------------
 
-def _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution):
+def _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution, da4=None):
     H, W = resolution
     N = rid0.shape[0]
     A = gs.shape[0] - 9
+    if da4 is not None:
+        if A != 2 or da4.shape != (4, N):
+            raise ValueError(f"grad_scatter: da4 must be [4, {N}] with A = 2 "
+                             f"(uv); got A = {A}, da4 {tuple(da4.shape)}")
+        _check_float32("grad_scatter", gs.device, da4)
     if not 1 <= A <= MAX_A or gs.shape != (A + 9, N):
         raise ValueError(f"grad_scatter: gs must be [A+9, {N}] with 1 <= A <= "
                          f"{MAX_A}; got {tuple(gs.shape)}")
@@ -222,15 +228,21 @@ def _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution):
     return A, N, vtbl.shape[1] - 1
 
 
-def _entries(rid0, gs, dd2, rid2, R):
+def _own_live(gs, da4):
+    live = (gs != 0.0).any(0)
+    return live if da4 is None else live | (da4 != 0.0).any(0)
+
+
+def _entries(rid0, gs, dd2, rid2, R, da4=None):
     """Live entries grouped by table row (index glue of the kernel).
 
     Returns (codes [M] int32, off [R+1] int32): codes type*N + p (type 0
-    own pixel, 1 + d AA axis d) stable-sorted by row, so each row's
-    entries are its own pixels, then its axis-0 pairs, then its axis-1
-    pairs, each in pixel order; row r holds codes[off[r]:off[r+1]].
+    own pixel, live where its gs or da4 column is non-zero; 1 + d AA
+    axis d) stable-sorted by row, so each row's entries are its own
+    pixels, then its axis-0 pairs, then its axis-1 pairs, each in pixel
+    order; row r holds codes[off[r]:off[r+1]].
     """
-    live = torch.stack([(gs != 0.0).any(0), dd2[0] != 0.0, dd2[1] != 0.0])
+    live = torch.stack([_own_live(gs, da4), dd2[0] != 0.0, dd2[1] != 0.0])
     codes = torch.nonzero(live.reshape(-1)).squeeze(1)
     keys = torch.stack([rid0, rid2[0], rid2[1]]).reshape(-1)[codes]
     keys, order = torch.sort(keys, stable=True)
@@ -251,32 +263,30 @@ def grad_scatter(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
       ax0, ax1: [N] AA aux residuals (di + 4*is_t1).
       vtbl: [9, R+1] clip-space vertex table.
       resolution: (H, W).
-      da4: the textured chain's diff-attr terms; not ported yet (raises
-        NotImplementedError).
+      da4: optional [4, N] uv_da terms (c0_u, c0_v, c1_u, c1_v) of the
+        textured chain (A = 2): vertex k's attribute row j takes
+        bb0*g_j + c0_j, bb1*g_j + c1_j, bb2*g_j - c0_j - c1_j.
 
     Returns (gt [R, 3A+9] attribute + raster rows, gaa [R, 9] AA
     position rows), float32.
     """
-    if da4 is not None:
-        raise NotImplementedError(
-            "grad_scatter: the da4 terms of the textured pipeline are not "
-            "ported yet (ROADMAP queue A item 8)")
     if _device_of(gs, "grad_scatter") == "cpu":
         return grad_scatter_plain(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl,
-                                  resolution)
+                                  resolution, da4)
     H, W = resolution
     rid0, gs, dd2, rid2, vtbl = (t.contiguous()
                                  for t in (rid0, gs, dd2, rid2, vtbl))
     flats = [t.contiguous() for t in (b0, b1, ax0, ax1)]
-    A, N, R = _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution)
+    da4 = None if da4 is None else da4.contiguous()
+    A, N, R = _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution, da4)
     if 3 * N >= 2 ** 31:
         raise ValueError(f"grad_scatter: {N} pixels exceed the int32 entry "
                          "codes (3*N < 2**31)")
-    codes, off = _entries(rid0, gs, dd2, rid2, R)
-    return scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution)
+    codes, off = _entries(rid0, gs, dd2, rid2, R, da4)
+    return scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution, da4)
 
 
-def scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution):
+def scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution, da4=None):
     """Launch the grad_scatter kernel on entries from `_entries`:
     (gt [R, 3A+9], gaa [R, 9]). `flats` = (b0, b1, ax0, ax1)."""
     H, W = resolution
@@ -288,13 +298,15 @@ def scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution):
     gaa = torch.empty((R, 9), dtype=torch.float32, device=dev)
     SCATTER_KERNEL.launch(dev, _build.ptr(off), _build.ptr(codes), _build.ptr(gs),
                           _build.ptr(dd2), *(_build.ptr(t) for t in flats),
+                          None if da4 is None else _build.ptr(da4),
                           _build.ptr(vtbl), vtbl.shape[1], _build.ptr(gt),
                           _build.ptr(gaa), N, R, A, H, W, 0.5 - 0.5 * W,
                           0.5 - 0.5 * H, 0.5 * W, 0.5 * H)
     return gt, gaa
 
 
-def expand_rows(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution):
+def expand_rows(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
+                da4=None):
     """The live entries expanded to rows, as the kernel expands them.
 
     Returns ((own rows [M0], own values [M0, 3A+9]),
@@ -304,12 +316,17 @@ def expand_rows(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution):
     H, W = resolution
     A = gs.shape[0] - 9
     N = rid0.shape[0]
-    live = (gs != 0.0).any(0)
+    live = _own_live(gs, da4)
     g = gs[:, live]
     bb0 = b0[live]
     bb1 = b1[live]
     bb2 = 1.0 - bb0 - bb1
-    own = torch.cat([bb0 * g[:A], bb1 * g[:A], bb2 * g[:A], g[A:]]).T
+    if da4 is None:
+        own = torch.cat([bb0 * g[:A], bb1 * g[:A], bb2 * g[:A], g[A:]]).T
+    else:
+        c0, c1 = da4[:2, live], da4[2:, live]
+        own = torch.cat([bb0 * g[:A] + c0, bb1 * g[:A] + c1,
+                         bb2 * g[:A] - c0 - c1, g[A:]]).T
 
     fx, fy, _, _, _ = _pixel_grid(N // (H * W), H, W, 0, gs.device)
     rows = []
@@ -327,13 +344,13 @@ def expand_rows(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution):
 
 
 def grad_scatter_plain(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl,
-                       resolution):
+                       resolution, da4=None):
     """Plain PyTorch twin of grad_scatter: expand, then index_add_ in
     float64, rounded to float32 once."""
     flats = (b0, b1, ax0, ax1)
-    A, _, R = _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution)
+    A, _, R = _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution, da4)
     (own_rows, own), (aa_rows, aa) = expand_rows(rid0, gs, dd2, rid2, *flats,
-                                                 vtbl, resolution)
+                                                 vtbl, resolution, da4)
     f64 = dict(dtype=torch.float64, device=gs.device)
     gt = torch.zeros((R, 3 * A + 9), **f64).index_add_(
         0, own_rows.long(), own.double())

@@ -1,4 +1,4 @@
-"""Textured render pipeline, forward (torch).
+"""Textured render pipeline, forward and backward (torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/pipeline_tex.py`` for 2-D textures:
 ``render_pipeline_textured`` renders
@@ -17,26 +17,41 @@ texture sampler (``texture_cuda``) and the antialias forward
 adds are plain tensor glue. A call runs on the device of ``pos``: CPU
 tensors take the plain PyTorch twins, CUDA tensors the kernels.
 
-Only the forward is ported: a call that would record gradients raises.
+In the mip filter modes the pipeline is a ``torch.autograd.Function``
+with gradients to ``pos``, ``uv_attr`` and ``tex``: its backward follows
+the JAX package's pipeline-level vjp (``_ptex_bwd_core``) with four more
+kernels: the texture's uv / level backward and its gradient
+(``texture_bwd_cuda``), the fused interpolate + rasterize backward
+(``pipeline_tex_bwd_cuda``) and the gradient scatter with the uv_da
+terms (``pipeline_bwd_cuda.grad_scatter``); the slim antialias backward,
+the mip level's and the pyramid's vjps and the vertex sums are tensor
+glue. ``filter_mode='linear'`` renders, but a call that would record
+gradients there raises: the JAX package takes the composed ops' own
+backwards for it, which are not ported yet.
 """
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import texture as tx
 from .antialias import TopologyHashWrapper, _build_tables
 from .antialias_cuda import MAX_C, aa_forward
 from .interpolate_cuda import interp_forward
-from .pipeline import _attr_table
+from .pipeline import _attr_table, own_rows, vertex_attr_grad, vertex_pos_grad
+from .pipeline_bwd_cuda import grad_scatter
+from .pipeline_tex_bwd_cuda import aa_bwd_slim, interp_raster_bwd_tex
 from .rasterize import _check_rasterize_args
 from .rasterize_cuda import rasterize_fused
+from .texture_bwd_cuda import texture_bwd, texture_grad
 from .texture_cuda import sample
 from .topology import build_opposite_table
 
 
 def _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
                    filter_mode, boundary_mode, max_mip_level):
-    """Forward of the textured pipeline: [B, H, W, C] image."""
+    """Forward of the textured pipeline: ([B, H, W, C] image, saved,
+    meta), with what the backward reads (``_ptex_bwd_core``)."""
     N = pos.shape[0] * resolution[0] * resolution[1]
     outs = rasterize_fused(pos, tri, resolution,
                            emit_db="mipmap" in filter_mode)
@@ -48,7 +63,13 @@ def _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
 def _shade_textured(pos, uv_attr, tex, tri, uv_tri, op_table, raster,
                     resolution, filter_mode, boundary_mode, max_mip_level):
     """The chain after the rasterizer. raster: flat [N] (u, v, zw, idf),
-    followed by (dudx, dudy, dvdx, dvdy) for the mip filter modes."""
+    followed by (dudx, dudy, dvdx, dvdy) for the mip filter modes.
+
+    Returns (image [B, H, W, C], saved, meta): saved = (u, v, idf, the 4
+    bary derivatives [N] (mip modes; else empty), uv [2, N], da [4, N],
+    flevel, the packed pyramid, the pre-AA colour [C, N], the AA
+    residuals al0, ax0, al1, ax1 and the clip-space vertex table), what
+    the backward reads; meta = the pyramid's level layout."""
     H, W = resolution
     B = pos.shape[0]
     T = tri.shape[0]
@@ -69,9 +90,81 @@ def _shade_textured(pos, uv_attr, tex, tri, uv_tri, op_table, raster,
     color = sample(flat, uv[0], uv[1], flevel, meta, (B, H, W), D > 1,
                    boundary_mode, filter_mode)
 
-    ftable, _, _, _ = _build_tables(pos, tri, op_table, H, W)
-    out, _ = aa_forward(color, idf, zw, ftable, (B, H, W), T)
-    return out.T.reshape(B, H, W, C)
+    ftable, vtbl, _, _ = _build_tables(pos, tri, op_table, H, W)
+    out, res = aa_forward(color, idf, zw, ftable, (B, H, W), T)
+    saved = (u, v, idf, *raster[4:8], uv, da, flevel, flat, color, *res, vtbl)
+    return out.T.reshape(B, H, W, C), saved, meta
+
+
+def _ptex_bwd_core(saved, uv_attr, tri, uv_tri, resolution, filter_mode,
+                   boundary_mode, meta, boost, pos_shape, tex_shape, needs,
+                   dy):
+    """(g_pos, g_uv, g_tex) from the image gradient dy [B, H, W, C]
+    (``nvdiffrast_tpu/ops/pipeline_tex.py:122-220``); a gradient not in
+    `needs` (pos, uv, tex) is None and its chain is skipped."""
+    u, v, idf, *db, uv, da, flevel, flat, color, al0, ax0, al1, ax1, vtbl = saved
+    H, W = resolution
+    B = pos_shape[0]
+    T = tri.shape[0]
+    D, th, tw, C = tex_shape
+    N = B * H * W
+    shape = (B, H, W)
+
+    # 1. Slim antialias backward: colour cotangent + pair streams.
+    gc, dd2, rid2 = aa_bwd_slim(dy.reshape(N, C).T.contiguous(), color, idf,
+                                (al0, ax0, al1, ax1), shape, T)
+    g_pos = g_uv = g_tex = None
+
+    # 2. Texture gradient, through the pyramid to the base texture.
+    if needs[2]:
+        g_flat = texture_grad(uv[0], uv[1], flevel, gc, meta, flat.shape[0],
+                              shape, D > 1, boundary_mode, filter_mode)
+        g_tex = tx.pyramid_vjp(g_flat, meta, D, C)
+    if not (needs[0] or needs[1]):
+        return g_pos, g_uv, g_tex
+
+    # 3. uv and mip level gradients, the level's chain to uv_da.
+    gu, gv, gfl = texture_bwd(flat, uv[0], uv[1], flevel, gc, meta, shape,
+                              D > 1, boundary_mode, filter_mode)
+    gda4 = tx.mip_level_vjp(da, gfl, th, tw, len(meta))
+
+    # 4. Fused interpolate + rasterize backward; 5. one scatter for the uv,
+    # raster and antialias pair gradients; then triangle -> vertex rows.
+    out15 = interp_raster_bwd_tex(_attr_table(uv_attr, uv_tri, B, T), vtbl,
+                                  idf, gu, gv, gda4, torch.stack(db), resolution,
+                                  T)
+    gt, gaa = grad_scatter(own_rows(idf, T, resolution), out15[:11], dd2, rid2,
+                           u, v, ax0, ax1, vtbl, resolution, da4=out15[11:])
+    if needs[0]:
+        g_pos = vertex_pos_grad(gt[:, 6:], gaa, tri, pos_shape, boost)
+    if needs[1]:
+        g_uv = vertex_attr_grad(gt[:, :6], uv_tri, tuple(uv_attr.shape), B)
+    return g_pos, g_uv, g_tex
+
+
+class _PipelineTexFn(torch.autograd.Function):
+    """render_pipeline_textured (mip filter modes) with its hand-written
+    backward."""
+
+    @staticmethod
+    def forward(ctx, pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
+                filter_mode, boundary_mode, max_mip_level, boost):
+        img, saved, meta = _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri,
+                                          op_table, resolution, filter_mode,
+                                          boundary_mode, max_mip_level)
+        ctx.save_for_backward(uv_attr, tri, uv_tri, *saved)
+        ctx.modes = (resolution, filter_mode, boundary_mode, meta, boost)
+        ctx.shapes = (tuple(pos.shape), tuple(tex.shape))
+        return img
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        uv_attr, tri, uv_tri, *saved = ctx.saved_tensors
+        grads = _ptex_bwd_core(saved, uv_attr, tri, uv_tri, *ctx.modes,
+                               *ctx.shapes, ctx.needs_input_grad[:3],
+                               dy.contiguous())
+        return grads + (None,) * 8
 
 
 def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
@@ -97,14 +190,14 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
         boundary_mode: 'wrap', 'clamp' or 'zero' ('cube' is not ported
             yet).
         max_mip_level: limit on the mip levels built; -1 = down to 1x1.
-        pos_gradient_boost: antialias position-gradient multiplier; kept
-            for the reference's signature (the backward is not ported).
+        pos_gradient_boost: antialias position-gradient multiplier.
         topology_hash: optional TopologyHashWrapper for `tri`.
 
     Returns:
-        Antialiased textured image [minibatch, height, width, C].
+        Antialiased textured image [minibatch, height, width, C];
+        differentiable with respect to `pos`, `uv_attr` and `tex` in the
+        mip filter modes.
     """
-    del pos_gradient_boost  # a backward parameter; only the forward is ported
     tx.check_modes(filter_mode, boundary_mode)
     if not isinstance(pos, torch.Tensor):
         if not torch.cuda.is_available():
@@ -114,12 +207,16 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
                 "the CPU")
         pos = torch.as_tensor(np.asarray(pos, np.float32), device="cuda")
     dev = pos.device
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (pos, uv_attr, tex)):
+    grad = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in (pos, uv_attr, tex))
+    if grad and "mipmap" not in filter_mode:
         raise NotImplementedError(
-            "backward of render_pipeline_textured is not ported yet; call "
-            "under torch.no_grad()")
+            "render_pipeline_textured: gradients with filter_mode='linear' "
+            "are not ported yet (ROADMAP A.4: the composed chain's "
+            "backwards, kernels B6 and B8 and the standalone rasterize "
+            "backward); use a mip filter mode, or call under "
+            "torch.no_grad()")
     tri = torch.as_tensor(tri, dtype=torch.int32, device=dev)
     uv_attr = torch.as_tensor(uv_attr, dtype=torch.float32, device=dev)
     tex = torch.as_tensor(tex, dtype=torch.float32, device=dev)
@@ -161,5 +258,8 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
         op_table = topology_hash.op_table.to(dev)
     else:
         op_table = build_opposite_table(tri)
-    return _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
-                          filter_mode, boundary_mode, int(max_mip_level))
+    args = (pos, uv_attr, tex, tri, uv_tri, op_table, resolution, filter_mode,
+            boundary_mode, int(max_mip_level))
+    if grad:
+        return _PipelineTexFn.apply(*args, float(pos_gradient_boost))
+    return _ptex_fwd_core(*args)[0]

@@ -134,3 +134,90 @@ def mip_level(da, tex_h, tex_w, L):
     fl = _mip_level_from_footprint_cols(da[0], da[1], da[2], da[3],
                                         float(tex_w), float(tex_h))
     return torch.clamp(fl, 0.0, float(L - 1))
+
+
+# float32 log(2), the divisor of jnp.log2.
+_LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32).item()
+
+
+def _tie(x, out, other):
+    """JAX's derivative of max/min(x, other) = out with respect to x:
+    1 where x is the result, 0.5 on a tie, 0 where `other` is."""
+    return torch.where(x == out, 1.0, 0.0) / torch.where(other == out, 2.0, 1.0)
+
+
+def mip_level_vjp(da, gfl, tex_h, tex_w, L):
+    """Gradient of ``mip_level`` with respect to da: [4, N] from gfl [N].
+
+    Written by hand in the order of JAX's reverse pass over
+    ``clip(_mip_level_from_footprint_cols(...), 0, L-1)``
+    (``pipeline_tex.py:166-175`` of the JAX package), with its rules:
+    the square root's derivative is 0 where its argument is 0
+    (``_sqrt_grad_safe``; torch's would be inf and turn every background
+    pixel into NaN), and max/min pass half the gradient on a tie (at
+    flevel = 0, at L-1 and at the 1e-38 floor), where torch.clamp would
+    pass all of it.
+    """
+    tw, th = float(tex_w), float(tex_h)
+    dsdx, dsdy = da[0] * tw, da[1] * tw
+    dtdx, dtdy = da[2] * th, da[3] * th
+    A = dsdx * dsdx + dtdx * dtdx
+    B = dsdy * dsdy + dtdy * dtdy
+    Cc = dsdx * dsdy + dtdx * dtdy
+    l2b = 0.5 * (A + B)
+    t7 = 0.25 * (A - B)
+    l2n = t7 * (A - B) + Cc * Cc
+    l2a = torch.sqrt(l2n)
+    s = l2b + l2a
+    floor = torch.full_like(s, 1e-38)
+    lms = torch.maximum(s, floor)
+    fl0 = 0.5 * torch.log2(lms)
+    nan = torch.isnan(fl0)
+    fl1 = torch.where(nan, 0.0, fl0)
+    zero = torch.zeros_like(fl1)
+    top = torch.full_like(fl1, float(L - 1))
+    y = torch.maximum(zero, fl1)       # jnp.clip: minimum(hi, maximum(lo, x))
+    z = torch.minimum(top, y)
+
+    g = gfl * _tie(y, z, top)
+    g = g * _tie(fl1, y, zero)
+    g = torch.where(nan, 0.0, g)
+    g = ((0.5 * g) / _LN2) / lms       # 0.5 * log(x) / log(2)
+    g_s = g * _tie(s, lms, floor)
+    coef = torch.where(l2n > 0, 0.5 / torch.clamp(l2a, min=1e-30), 0.0)
+    g_l2n = coef * g_s
+    g_C = g_l2n * Cc + g_l2n * Cc
+    g_D2 = t7 * g_l2n                   # the second (A - B)
+    g_D1 = 0.25 * (g_l2n * (A - B))     # the first, through t7
+    g_s1 = 0.5 * g_s                    # l2b = 0.5 * (A + B)
+    g_A = (g_D2 + g_D1) + g_s1
+    g_B = ((-g_D2) + (-g_D1)) + g_s1
+    g_dtdy = (dtdx * g_C + dtdy * g_B) + g_B * dtdy
+    g_dtdx = (g_C * dtdy + dtdx * g_A) + g_A * dtdx
+    g_dsdy = (dsdx * g_C + dsdy * g_B) + g_B * dsdy
+    g_dsdx = (g_C * dsdy + dsdx * g_A) + g_A * dsdx
+    return torch.stack([g_dsdx * tw, g_dsdy * tw, g_dtdx * th, g_dtdy * th])
+
+
+def pyramid_vjp(g_flat, meta, D, C):
+    """Gradient of the base texture [D, h0, w0, C] from the gradient of
+    the packed pyramid g_flat [n_texels, C] (the adjoint of
+    ``build_mip_stack`` + ``_pack_pyramid``).
+
+    Coarsest level first: each level's own gradient plus its parent's,
+    spread to the 2x2 children with weight 0.25 (2x1 / 1x2 children with
+    0.5 where an axis is 1); the same fixed order on every device.
+    """
+    levels = [g_flat[off:off + D * h * w].reshape(D, h, w, C)
+              for off, h, w in meta]
+    acc = levels[-1]
+    for lvl in reversed(levels[:-1]):
+        h, w = lvl.shape[1], lvl.shape[2]
+        if h > 1 and w > 1:
+            up = acc.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) * 0.25
+        elif h > 1:
+            up = acc.repeat_interleave(2, dim=1) * 0.5
+        else:
+            up = acc.repeat_interleave(2, dim=2) * 0.5
+        acc = lvl + up
+    return acc

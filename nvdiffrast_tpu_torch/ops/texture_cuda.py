@@ -87,6 +87,18 @@ def sample(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
     return out
 
 
+def level_tables(meta, shape, per_image, device):
+    """(offs, hs, ws) int64 [L] level tables and tz [N], the texture
+    each pixel samples (its image's for per_image, else texture 0)."""
+    B, H, W = shape
+    N = B * H * W
+    offs, hs, ws = (torch.tensor([m[i] for m in meta], dtype=torch.int64,
+                                 device=device) for i in range(3))
+    tz = (torch.arange(N, device=device) // (H * W) if per_image
+          else torch.zeros(N, dtype=torch.int64, device=device))
+    return offs, hs, ws, tz
+
+
 def level_weights(flevel, L, filter_mode):
     """Per-pixel (l0, l1, frac): the level pair and the blend weight."""
     if filter_mode == "linear":
@@ -102,6 +114,18 @@ def level_weights(flevel, L, filter_mode):
 def _level_value(flat, base, hl, wl, u, v, boundary_mode):
     """Bilinear value [C, N] at per-pixel level dims hl, wl (int64) and
     texel base (corner_setup and the corner gather)."""
+    q, _, _, w4, _ = level_corners(flat, base, hl, wl, u, v, boundary_mode)
+    return ((w4[0] * q[0] + w4[1] * q[1]) + w4[2] * q[2]) + w4[3] * q[3]
+
+
+def level_corners(flat, base, hl, wl, u, v, boundary_mode):
+    """corner_setup and the corner gather at one level per pixel.
+
+    Returns (q, fu, fv, w4, ok4): the four corner texels [C, N] in
+    (00, 10, 01, 11) order, the bilinear fractions, the weights with the
+    zero boundary's validity folded in, and that validity (0/1 floats,
+    all ones for wrap and clamp).
+    """
     w = wl.to(torch.float32)
     h = hl.to(torch.float32)
     if boundary_mode == "wrap":
@@ -147,7 +171,7 @@ def _level_value(flat, base, hl, wl, u, v, boundary_mode):
     iv0, iv1 = clip(iv0, hl), clip(iv1, hl)
     q = [flat[base + r * wl + c].T for r, c in
          ((iv0, iu0), (iv0, iu1), (iv1, iu0), (iv1, iu1))]
-    return ((w4[0] * q[0] + w4[1] * q[1]) + w4[2] * q[2]) + w4[3] * q[3]
+    return q, fu, fv, w4, ok4
 
 
 def sample_plain(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
@@ -155,12 +179,8 @@ def sample_plain(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
     """Plain PyTorch twin of the texture sampler kernel."""
     C, N, L = _check(flat, u, v, flevel, meta, shape, per_image,
                      boundary_mode, filter_mode)
-    B, H, W = shape
     dev = flat.device
-    offs, hs, ws = (torch.tensor([m[i] for m in meta], dtype=torch.int64,
-                                 device=dev) for i in range(3))
-    tz = (torch.arange(N, device=dev) // (H * W) if per_image
-          else torch.zeros(N, dtype=torch.int64, device=dev))
+    offs, hs, ws, tz = level_tables(meta, shape, per_image, dev)
     l0, l1, frac = level_weights(flevel, L, filter_mode)
 
     def term(lev):

@@ -5,9 +5,10 @@
 The bench scene (uv-sphere 32x64, 3,968 triangles, vertex colours,
 A = 3, B = 1, camera projection(x=0.4) @ translate(0, 0, -3.5)). One
 step is render_pipeline's forward, mean(img**2) and the backward to pos
-and the colours. With --textured a step is instead one forward of
-render_pipeline_textured on bench.py's textured line (a 512x512x3
-texture from rand seed 0, spherical uvs, linear-mipmap-linear, wrap).
+and the colours. With --textured a step is instead render_pipeline_textured
+on bench.py's textured line (a 512x512x3 texture from rand seed 0,
+spherical uvs, linear-mipmap-linear, wrap), forward, mean(img**2) and the
+backward to pos, the uvs and the texture.
 Prints:
   1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
   2. each stage of the step run alone and synchronised, mean of 20;
@@ -32,8 +33,10 @@ from .ops import pipeline as pl
 from .ops import pipeline_bwd_cuda as pb
 from .ops import pipeline_cuda as pc
 from .ops import pipeline_tex as ptx
+from .ops import pipeline_tex_bwd_cuda as ptb
 from .ops import rasterize_cuda as rc
 from .ops import texture as tx
+from .ops import texture_bwd_cuda as tb
 from .ops import texture_cuda as tc
 from .ops.antialias import _build_tables
 from .ops.topology import build_opposite_table
@@ -120,7 +123,7 @@ def _training(pos, tri, cidx, col, res):
 
 
 def _textured(pos, tri, cidx, vtxp, res):
-    """(step, stages) of a render_pipeline_textured forward."""
+    """(step, stages) of a render_pipeline_textured training step."""
     dev = pos.device
     uv = torch.as_tensor(np.stack(
         [np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
@@ -131,9 +134,10 @@ def _textured(pos, tri, cidx, vtxp, res):
     mode = ("linear-mipmap-linear", "wrap")
 
     def step():
-        with torch.no_grad():
-            return ptx.render_pipeline_textured(pos, tri, uv, tex, res, uv_tri=cidx,
-                                                filter_mode=mode[0], boundary_mode=mode[1])
+        xs = [x.detach().requires_grad_() for x in (pos, uv, tex)]
+        img = ptx.render_pipeline_textured(xs[0], tri, xs[1], xs[2], res, uv_tri=cidx,
+                                           filter_mode=mode[0], boundary_mode=mode[1])
+        return torch.autograd.grad((img ** 2).mean(), xs)
 
     H, W = res
     T = tri.shape[0]
@@ -156,6 +160,27 @@ def _textured(pos, tri, cidx, vtxp, res):
         lv = [tex] + tx.build_mip_stack(tex)
         return tx._static_meta(lv), tx._pack_pyramid(lv)
 
+    # The backward's inputs, from the saved forward state.
+    _, saved, _ = ptx._ptex_fwd_core(pos, uv, tex, tri, cidx, op, res, *mode, -1)
+    res4, vtbl = saved[12:16], saved[16]
+    shape = (1, H, W)
+    dy = torch.full((3, N), 1e-7, device=dev)
+    gc, dd2, rid2 = ptb.aa_bwd_slim(dy, color, idf, res4, shape, T)
+    bwd_args = (flat, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])
+    gu, gv, gfl = tb.texture_bwd(*bwd_args)
+    entries = tb.grad_entries(uvc[0], uvc[1], fl, meta, flat.shape[0], shape, False,
+                              *mode[::-1])
+    g_flat = tb.grad_from_entries(*entries, uvc[0], uvc[1], fl, gc, meta, shape, False,
+                                  *mode[::-1])
+    gda4 = tx.mip_level_vjp(da, gfl, 512, 512, len(levels))
+    atbl = pl._attr_table(uv, cidx, 1, T)
+    db4 = torch.stack(db)
+    out15 = ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)
+    rid0 = pl.own_rows(idf, T, res)
+    codes, off = pb._entries(rid0, out15[:11], dd2, rid2, T, out15[11:])
+    flats = (u, v, res4[1], res4[3])
+    gt, gaa = pb.scatter_entries(codes, off, out15[:11], dd2, flats, vtbl, res, out15[11:])
+
     return step, [
         ("topology table", lambda: build_opposite_table(tri)),
         ("raster prepass", lambda: rc.build_records(pos, tri, res)),
@@ -169,6 +194,23 @@ def _textured(pos, tri, cidx, vtxp, res):
         ("AA table", lambda: _build_tables(pos, tri, op, H, W)),
         ("aa_fwd kernel", lambda: ac.aa_cols(color, idf, zw, ftable, (1, H, W), T)),
         ("neighbour adds + NHWC", lambda: pc.finish_shade(cols, W)[0].T.reshape(1, H, W, 3)),
+        ("bwd: slim AA (glue)", lambda: ptb.aa_bwd_slim(dy, color, idf, res4, shape, T)),
+        ("bwd: texture_bwd kernel", lambda: tb.texture_bwd(*bwd_args)),
+        ("bwd: texture_grad index glue (keys, sort)", lambda: tb.grad_entries(
+            uvc[0], uvc[1], fl, meta, flat.shape[0], shape, False, *mode[::-1])),
+        ("bwd: texture_grad kernel", lambda: tb.grad_from_entries(
+            *entries, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])),
+        ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 1, 3)),
+        ("bwd: mip-level vjp", lambda: tx.mip_level_vjp(da, gfl, 512, 512, len(levels))),
+        ("bwd: interp_raster_bwd_tex kernel",
+         lambda: ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)),
+        ("bwd: entry sort (index glue)",
+         lambda: pb._entries(rid0, out15[:11], dd2, rid2, T, out15[11:])),
+        ("bwd: grad_scatter kernel (da4)", lambda: pb.scatter_entries(
+            codes, off, out15[:11], dd2, flats, vtbl, res, out15[11:])),
+        ("bwd: vertex sums", lambda: (
+            pl.vertex_pos_grad(gt[:, 6:], gaa, tri, tuple(pos.shape), 1.0),
+            pl.vertex_attr_grad(gt[:, :6], cidx, tuple(uv.shape), 1))),
     ]
 
 
@@ -177,7 +219,7 @@ def main(argv=None):
     ap.add_argument("--res", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--textured", action="store_true",
-                    help="profile render_pipeline_textured's forward instead")
+                    help="profile a render_pipeline_textured step instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -193,7 +235,7 @@ def main(argv=None):
     cidx = torch.as_tensor(col_idx, dtype=torch.int32, device=dev)
     col = torch.as_tensor(vtxp * 0.5 + 0.5, dtype=torch.float32, device=dev)
     if args.textured:
-        what = "textured fwd"
+        what = "textured fwd+bwd"
         step, stages = _textured(pos, tri, cidx, vtxp, res)
     else:
         what = "fwd+bwd"

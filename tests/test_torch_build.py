@@ -17,12 +17,15 @@ import pytest
 
 from nvdiffrast_tpu_torch import _build
 from nvdiffrast_tpu_torch.ops import (antialias_cuda, interpolate_cuda, pipeline_bwd_cuda,
-                                      pipeline_cuda, rasterize_cuda, texture_cuda)
+                                      pipeline_cuda, pipeline_tex_bwd_cuda, rasterize_cuda,
+                                      texture_bwd_cuda, texture_cuda)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL,
            pipeline_bwd_cuda.BWD_KERNEL, pipeline_bwd_cuda.SCATTER_KERNEL,
-           interpolate_cuda.KERNEL, texture_cuda.KERNEL, antialias_cuda.KERNEL]
+           interpolate_cuda.KERNEL, texture_cuda.KERNEL, antialias_cuda.KERNEL,
+           texture_bwd_cuda.BWD_KERNEL, texture_bwd_cuda.GRAD_KERNEL,
+           pipeline_tex_bwd_cuda.KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -69,7 +72,8 @@ def test_import_pulls_no_jax_and_starts_no_nvcc(tmp_path):
 def test_cuda_sources_exist():
     names = {p.name for p in _build.sources()}
     assert {"rasterize.cu", "shade_fwd.cu", "pipeline_bwd.cu", "grad_scatter.cu",
-            "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu"} <= names
+            "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu",
+            "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
         assert f'extern "C" int {kernel.name}(' in text
@@ -77,6 +81,9 @@ def test_cuda_sources_exist():
     assert (_build.SRC_DIR / "aa_pair.cuh").exists()
     for name in ("shade_fwd.cu", "aa_fwd.cu"):
         assert '#include "aa_pair.cuh"' in (_build.SRC_DIR / name).read_text()
+    # The sampler's corner setup: one header for the forward and backward.
+    for name in ("texture_fwd.cu", "texture_bwd.cu", "texture_grad.cu"):
+        assert '#include "texture_corner.cuh"' in (_build.SRC_DIR / name).read_text()
     assert 'extern "C" const char* nvdr_error_string(' in text
     assert all(p.parent == _build.SRC_DIR for p in _build.sources())
 

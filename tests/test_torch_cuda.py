@@ -299,3 +299,164 @@ def test_render_pipeline_textured_gpu_matches_cpu(dev, filter_mode):
     # flip where flevel sits on an integer (linear-mipmap-nearest).
     bad = ((gpu.cpu() - cpu).abs() > 1e-5).any(-1)
     assert int(bad.sum()) <= max(1, 1e-4 * bad.numel())
+
+
+# ---------------------------------------------------------------------------
+# The textured backward's kernels.
+# ---------------------------------------------------------------------------
+
+def _texture_case(dev, D, L_hot=0):
+    """A 32x64x3 pyramid (D textures), B = 2 images of 40x72 pixels with
+    uv in [-0.2, 1.2] and flevels over every level; the first L_hot
+    pixels of each image sample uv (0, 0) at level 0 (a hot spot)."""
+    B, H, W = 2, 40, 72
+    N = B * H * W
+    rng = np.random.RandomState(10 + D)
+    tex = torch.from_numpy(rng.rand(D, 32, 64, 3).astype(np.float32)).to(dev)
+    levels = [tex] + tx.build_mip_stack(tex)
+    meta, n_tex = tx._static_meta(levels)
+    flat = tx._pack_pyramid(levels)
+    u, v = (rng.uniform(-0.2, 1.2, N).astype(np.float32) for _ in range(2))
+    fl = rng.uniform(0, len(meta) - 1, N).astype(np.float32)
+    fl[4:12] = np.arange(8.0).clip(max=len(meta) - 1)
+    for b in range(B):
+        s = slice(b * H * W, b * H * W + L_hot)
+        u[s] = v[s] = fl[s] = 0.0
+    gc = rng.standard_normal((3, N)).astype(np.float32)
+    return (flat, *inputs_from_numpy(u, v, fl, gc, device=dev)), meta, n_tex, (B, H, W)
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("boundary_mode", ["wrap", "clamp", "zero"])
+@pytest.mark.parametrize("filter_mode", ["linear-mipmap-nearest", "linear-mipmap-linear"])
+def test_texture_bwd_kernel_matches_twin(dev, filter_mode, boundary_mode, D):
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
+    (flat, u, v, fl, gc), meta, _, shape = _texture_case(dev, D)
+    args = (flat, u, v, fl, gc, meta, shape, D > 1, boundary_mode, filter_mode)
+    before = tb.BWD_KERNEL.launches
+    got = tb.texture_bwd(*args)
+    ref = tb.texture_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert tb.BWD_KERNEL.launches == before + 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("D,boundary_mode,filter_mode,hot", [
+    (1, "wrap", "linear-mipmap-linear", 2000), (2, "zero", "linear-mipmap-linear", 0),
+    (1, "clamp", "linear-mipmap-nearest", 0), (2, "wrap", "linear-mipmap-nearest", 1500)])
+def test_texture_grad_kernel_matches_twin(dev, D, boundary_mode, filter_mode, hot):
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
+    (flat, u, v, fl, gc), meta, n_tex, shape = _texture_case(dev, D, hot)
+    args = (u, v, fl, gc, meta, n_tex, shape, D > 1, boundary_mode, filter_mode)
+    before = tb.GRAD_KERNEL.launches
+    got = tb.texture_grad(*args)
+    again = tb.texture_grad(*args)
+    ref = tb.texture_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert tb.GRAD_KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    # float64 sums in two orders, each rounded once: within 1 ulp.
+    ulp = torch.from_numpy(np.spacing(np.abs(ref.cpu().numpy()))).to(dev)
+    assert bool(((got - ref).abs() <= ulp).all())
+    if hot:  # the hot texels' segments span many pieces
+        _, off, _, _ = tb.grad_entries(u, v, fl, meta, n_tex, shape, D > 1,
+                                       boundary_mode, filter_mode)
+        assert int((off[1:] - off[:-1]).max()) > 4 * tb.PIECE
+
+
+def _textured_bwd_case(dev, B, seed):
+    """Forward saved state of render_pipeline_textured on a sphere scene
+    with spherical uvs, with seeded cotangents for the backward kernels."""
+    from nvdiffrast_tpu_torch.ops import pipeline_tex as ptx
+    p, t, a = _textured_scene(dev, B, seed)
+    tex = torch.from_numpy(np.random.RandomState(seed).rand(1, 32, 64, 3).astype(
+        np.float32)).to(dev)
+    res = (48, 64)
+    _, saved, meta = ptx._ptex_fwd_core(p, a, tex, t, t, build_opposite_table(t), res,
+                                        "linear-mipmap-linear", "wrap", -1)
+    return p, t, a, saved, res
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_interp_raster_bwd_tex_kernel_matches_twin(dev, B):
+    from nvdiffrast_tpu_torch.ops import pipeline_tex_bwd_cuda as ptb
+    p, t, a, saved, res = _textured_bwd_case(dev, B, seed=B)
+    T = t.shape[0]
+    idf, db, vtbl = saved[2], saved[3:7], saved[-1]
+    N = idf.shape[0]
+    rng = np.random.default_rng(B)
+    gu, gv = (torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+              for _ in range(2))
+    gda4 = torch.from_numpy(rng.standard_normal((4, N)).astype(np.float32)).to(dev)
+    args = (pl._attr_table(a, t, B, T), vtbl, idf, gu, gv, gda4, torch.stack(db), res, T)
+    before = ptb.KERNEL.launches
+    got = ptb.interp_raster_bwd_tex(*args)
+    ref = ptb.interp_raster_bwd_tex_plain(*args)
+    torch.cuda.synchronize()
+    assert ptb.KERNEL.launches == before + 1
+    assert torch.equal(got, ref)
+    assert float(got[2:11].abs().max()) > 0
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_grad_scatter_da4_kernel_matches_twin(dev, B):
+    from nvdiffrast_tpu_torch.ops import pipeline_tex_bwd_cuda as ptb
+    p, t, a, saved, res = _textured_bwd_case(dev, B, seed=4 + B)
+    T = t.shape[0]
+    u, v, idf = saved[:3]
+    color, al0, ax0, al1, ax1, vtbl = saved[-6:]
+    N = idf.shape[0]
+    rng = np.random.default_rng(B)
+    dy = torch.from_numpy(rng.standard_normal((3, N)).astype(np.float32) * 1e-3).to(dev)
+    _, dd2, rid2 = ptb.aa_bwd_slim(dy, color, idf, (al0, ax0, al1, ax1), (B,) + res, T)
+    gs = torch.from_numpy(rng.standard_normal((11, N)).astype(np.float32)).to(dev)
+    da4 = torch.from_numpy(rng.standard_normal((4, N)).astype(np.float32)).to(dev)
+    live = (idf > 0).float()
+    gs, da4 = gs * live, da4 * live
+    sargs = (pl.own_rows(idf, T, res), gs, dd2, rid2, u, v, ax0, ax1, vtbl, res)
+    before = pb.SCATTER_KERNEL.launches
+    got = pb.grad_scatter(*sargs, da4=da4)
+    again = pb.grad_scatter(*sargs, da4=da4)
+    ref = pb.grad_scatter_plain(*sargs, da4=da4)
+    torch.cuda.synchronize()
+    assert pb.SCATTER_KERNEL.launches == before + 2
+    assert int((dd2 != 0).sum()) > 10
+    for x, y, z in zip(got, again, ref):
+        assert torch.equal(x, y)
+        assert rows_close(x, z, 1e-6)
+        assert x.abs().max() > 0
+
+
+@pytest.mark.parametrize("filter_mode,boundary_mode,D", [
+    ("linear-mipmap-linear", "wrap", 1), ("linear-mipmap-nearest", "zero", 2)])
+def test_render_pipeline_textured_grads_gpu_repeatable_and_match_cpu(
+        dev, filter_mode, boundary_mode, D):
+    from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pbk
+    from nvdiffrast_tpu_torch.ops import pipeline_tex_bwd_cuda as ptb
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
+    res = (64, 80)
+    p, t, a = _textured_scene("cpu", 2, seed=9)
+    tex = torch.from_numpy(np.random.RandomState(0).rand(D, 32, 64, 3).astype(np.float32))
+
+    def grads(device):
+        xs = [x.to(device).requires_grad_() for x in (p, a, tex)]
+        img = dr.render_pipeline_textured(xs[0], t.to(device), xs[1], xs[2], res,
+                                          filter_mode=filter_mode,
+                                          boundary_mode=boundary_mode,
+                                          pos_gradient_boost=2.0)
+        return torch.autograd.grad(img.square().mean(), xs)
+
+    kernels = (tb.BWD_KERNEL, tb.GRAD_KERNEL, ptb.KERNEL, pbk.SCATTER_KERNEL)
+    before = [k.launches for k in kernels]
+    gpu = grads(dev)
+    again = grads(dev)
+    cpu = grads("cpu")
+    torch.cuda.synchronize()
+    assert all(k.launches == n + 2 for k, n in zip(kernels, before))
+    for g, h, ref in zip(gpu, again, cpu):
+        assert torch.equal(g, h)
+        # The kernels equal their twins but for float64 sum orders; a mip
+        # level may flip where the card's log2 differs by an ulp.
+        assert float((g.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+        assert float(ref.abs().max()) > 0

@@ -1,7 +1,10 @@
 """Port parity: render_pipeline_textured's forward (torch, plain twins)
 vs the JAX package's render_pipeline_textured(impl="pallas_interpret"),
 on the scene of tests/test_pipeline_tex.py:11 (B = 2, 48x64, a random
-32x64x3 texture, uvs in [-0.2, 1.2], near-plane crossers).
+32x64x3 texture, uvs in [-0.2, 1.2], near-plane crossers); and its
+gradients with per-image textures (the other end-to-end gradient case is
+in test_torch_pipeline_tex_bwd.py: the two JAX references run on two
+workers).
 
 Bars:
 * mip filter modes: atol 1e-5 / rtol 1e-5, the JAX suite's own
@@ -36,24 +39,16 @@ from nvdiffrast_tpu_torch.ops import pipeline_tex as tpt
 from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
 from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
+from _torch_parity import (check_textured_grads, textured_grads, textured_grads_jax,
+                           textured_scene)
+
 RES = (48, 64)
 FILTERS = ("linear", "linear-mipmap-nearest", "linear-mipmap-linear")
 BOUNDARIES = ("wrap", "clamp", "zero")
 _RASTERIZE = jrp.rasterize_fused  # the JAX kernel, before any memo patch
 
 
-def _scene(seed=0, B=2, V=50, T=40, D=1):
-    """tests/test_pipeline_tex.py _scene, as numpy arrays."""
-    rng = np.random.RandomState(seed)
-    pos = rng.uniform(-1, 1, (B, V, 4)).astype(np.float32)
-    pos[..., 3] = rng.uniform(0.6, 1.8, (B, V))
-    pos[0, :4, 3] = -0.2  # near-plane crossers
-    tri = rng.randint(0, V, (T, 3)).astype(np.int32)
-    uv = rng.uniform(-0.2, 1.2, (V, 2)).astype(np.float32)
-    tex = rng.rand(1, 32, 64, 3).astype(np.float32)
-    if D > 1:
-        tex = np.concatenate([tex, rng.rand(D - 1, 32, 64, 3).astype(np.float32)])
-    return pos, tri, uv, tex
+_scene = textured_scene  # tests/test_pipeline_tex.py _scene
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,7 +122,7 @@ def test_chain_on_jax_raster_matches_jax(filter_mode, boundary_mode):
     p, t, a, tx = inputs_from_numpy(pos, tri, uv, tex)
     got = tpt._shade_textured(p, a, tx, t, t, build_opposite_table(t),
                               inputs_from_numpy(*raster), RES, filter_mode,
-                              boundary_mode, -1).numpy()
+                              boundary_mode, -1)[0].numpy()
     np.testing.assert_allclose(got, _jax_image(filter_mode, boundary_mode),
                                atol=1e-5, rtol=1e-5)
 
@@ -155,16 +150,28 @@ def test_argument_forms_give_the_same_image():
                                                    uv_tri=t), base)
 
 
+def test_render_pipeline_textured_grads_per_image_textures_match_jax():
+    """linear-mipmap-nearest, clamp, D = B = 2 textures, boost 2.5."""
+    mode = ("linear-mipmap-nearest", "clamp", 2, 2.5)
+    check_textured_grads(textured_grads(*mode), textured_grads_jax(*mode))
+
+
 def test_error_paths(monkeypatch):
     pos, tri, uv, tex = _scene()
     p, t, a, tx = inputs_from_numpy(pos, tri, uv, tex)
     for grad_arg in range(3):
         args = [p, a, tx]
         args[grad_arg] = args[grad_arg].clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match="backward"):
-            dr.render_pipeline_textured(args[0], t, args[1], args[2], RES)
+        # Gradients of the 'linear' filter wait for the composed chain's
+        # backwards; the mip modes have them.
+        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+            dr.render_pipeline_textured(args[0], t, args[1], args[2], RES,
+                                        filter_mode="linear")
+        assert dr.render_pipeline_textured(args[0], t, args[1], args[2],
+                                           (8, 8)).requires_grad
         with torch.no_grad():
-            dr.render_pipeline_textured(args[0], t, args[1], args[2], (8, 8))
+            dr.render_pipeline_textured(args[0], t, args[1], args[2], (8, 8),
+                                        filter_mode="linear")
     with pytest.raises(NotImplementedError, match="A.10"):
         dr.render_pipeline_textured(p, t, a, tx, RES, boundary_mode="cube")
     with pytest.raises(NotImplementedError, match="A.7"):
