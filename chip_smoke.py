@@ -55,6 +55,22 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      of the CPU path; all eight textured kernels launched; the fwd+bwd
      step's ms, Mpix/s and peak memory; 5 Adam steps fitting the texture
      and a pose offset, the loss falling.
+ 11. the standalone ops' backward kernels against their twins at 2048^2
+     on the bench scene, each fed the cotangent of the stage after it
+     (dy of mean(img**2)): aa_bwd, interp_bwd and table_take bit for bit,
+     scatter_rows within 1 ulp of its float64 twin and bitwise repeatable
+     on the rasterize backward's rows and with a hot row of every other
+     covered pixel; their times, index_select and index_add_ as yardsticks;
+ 12. the composed ops' training slice, rasterize -> interpolate ->
+     antialias, gradients of mean(img**2) to pos and the colours on the 8
+     views: finite, non-zero, bitwise repeatable, B = 2 equal to two B = 1
+     runs, equal to render_pipeline's within the bars, at 256^2 within
+     1e-5 of the CPU path; all seven kernels launched; ms/step, peak
+     memory, launches per step; then render_pipeline_textured with
+     filter_mode='linear', fwd + bwd, the same checks;
+ 13. CubeFitModel(16) for 150 steps (error < 0.08) and
+     PoseFitModel(64).fit(300) (angle < 2 degrees) on the card, their
+     ms per step.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s) and, last, the device line. Any failed
@@ -85,6 +101,10 @@ BOUNDARY = "wrap"
 TEX_CPU_ATOL = 1e-5  # textured GPU vs CPU render, per pixel
 TEX_GRAD_RTOL = 5e-5  # textured GPU vs CPU gradients: the CPU tests' bars
 TEX_ROW_RTOL = 5e-4   # (tests/_torch_parity.py), of the largest / the row's
+CUBE_STEPS = 150    # tests/test_models.py: cube error < 0.08 after 150 steps
+CUBE_BAR = 0.08
+POSE_ITERS = 300    # pose angle < 2 degrees after 300 iterations
+POSE_BAR = 2.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -247,7 +267,10 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
+    import nvdiffrast_tpu_torch as dr
     from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.ops import gather, scatter
+    from nvdiffrast_tpu_torch.ops import rasterize as ra
     from nvdiffrast_tpu_torch.ops import antialias_cuda as ac
     from nvdiffrast_tpu_torch.ops import interpolate_cuda as ic
     from nvdiffrast_tpu_torch.ops import pipeline as pl
@@ -897,6 +920,239 @@ def main():
     if min(tfit_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the textured path never launched: {tfit_launches}")
 
+    # -- 11. the standalone ops' backward kernels vs twins (2048^2) -----------
+    # Real inputs: the composed ops' forward on the bench scene, dy of
+    # mean(img**2), and each stage's cotangent from the stage after it.
+    p, t, a, c = inputs_from_numpy(*sphere_scene(cameras(1, seed=0)), device=dev)
+    shape1 = (1, RES, RES)
+    routs = rc.rasterize_fused(p, t, res, emit_db=True)
+    u11, v11, zw11, idf11 = (x.reshape(N) for x in routs[:4])
+    atbl11 = pl._attr_table(a, c, 1, T)
+    ct11, _ = ic.interp_forward(atbl11, u11, v11, idf11, None, ())
+    ftable11, vtbl11, _, _ = _build_tables(p, t, build_opposite_table(t), RES, RES)
+    aimg, res11 = ac.aa_forward(ct11, idf11, zw11, ftable11, shape1, T)
+    aimg = aimg.requires_grad_()
+    dy11 = torch.autograd.grad((aimg ** 2).mean(), aimg)[0].contiguous()
+
+    aargs = (dy11, ct11, idf11, vtbl11, res11, shape1, T)
+    gcol11, rid2_11, gval2_11 = ac.aa_backward(*aargs)
+    aabwd_err = equal_or_raise((gcol11, rid2_11, gval2_11), ac.aa_backward_plain(*aargs),
+                               "aa_bwd")
+    n_kept = int((gval2_11 != 0).any(0).sum())
+    aabwd_ms = cuda_ms(torch, lambda: ac.aa_backward(*aargs), 50)
+    aabwd_plain_ms = cuda_ms(torch, lambda: ac.aa_backward_plain(*aargs), 5)
+    log(f"[11] aa_bwd {RES}^2: equal to its twin bit for bit; {n_kept} pairs kept with a "
+        f"position gradient; kernel {aabwd_ms:.3f} ms, twin {aabwd_plain_ms:.3f} ms ({card})")
+
+    iargs11 = (atbl11, u11, v11, idf11, None, gcol11, None, (), T, 0)
+    grast11, gval11, _ = ic.interp_backward(*iargs11)
+    ibwd_err = equal_or_raise(ic.interp_backward(*iargs11)[:2],
+                              ic.interp_backward_plain(*iargs11)[:2], "interp_bwd")
+    ibwd_ms = cuda_ms(torch, lambda: ic.interp_backward(*iargs11), 50)
+    ibwd_plain_ms = cuda_ms(torch, lambda: ic.interp_backward_plain(*iargs11), 5)
+    log(f"[11] interp_bwd {RES}^2 (A = {A}, no derivatives): equal to its twin bit for "
+        f"bit; kernel {ibwd_ms:.3f} ms, twin {ibwd_plain_ms:.3f} ms ({card})")
+
+    R11 = vtbl11.shape[1] - 1  # = T at B = 1
+    rid11 = ra.pixel_rows(idf11, T, RES * RES, T)
+    take = gather.table_take(vtbl11, rid11)
+    take_err = equal_or_raise((take,), (gather.table_take_plain(vtbl11, rid11),), "table_take")
+    rid11l = rid11.long()
+    take_ms = cuda_ms(torch, lambda: gather.table_take(vtbl11, rid11), 50)
+    take_plain_ms = cuda_ms(torch, lambda: gather.table_take_plain(vtbl11, rid11), 5)
+    take_lib_ms = cuda_ms(torch, lambda: torch.index_select(vtbl11, 1, rid11l), 50)
+    log(f"[11] table_take {RES}^2 (K = 9): equal to its twin bit for bit; kernel "
+        f"{take_ms:.3f} ms, twin {take_plain_ms:.3f} ms, index_select {take_lib_ms:.3f} ms "
+        f"({card})")
+
+    # B10 on the rasterize backward's rows (its main use), then a hot row.
+    g9, rid9 = ra.raster_grad_rows(vtbl11, idf11, grast11[0], grast11[1], None, res, T)
+
+    def ulp_check(got, ref, what):
+        ulp = torch.from_numpy(np.spacing(ref.abs().cpu().numpy())).to(dev)
+        if not bool(((got - ref).abs() <= ulp).all()):
+            raise AssertionError(f"{what}: beyond 1 ulp of its float64 twin")
+        return float((got - ref).abs().max())
+
+    srows = scatter.scatter_add_by_id(rid9, g9, R11)
+    if not torch.equal(srows, scatter.scatter_add_by_id(rid9, g9, R11)):
+        raise AssertionError("scatter_rows not bitwise repeatable")
+    scatter_rows_err = ulp_check(srows, scatter.scatter_add_by_id_plain(rid9, g9, R11),
+                                 "scatter_rows")
+    ent11 = scatter.entries(rid9, g9, R11)
+    n_live = int(ent11[0].shape[0])
+    # Every other covered pixel on row 0: one triangle with ~0.9 M entries.
+    even = torch.arange(N, device=dev) % 2 == 0
+    hot_ids = torch.where((rid9 < R11) & even, 0, rid9).to(torch.int32)
+    hot = scatter.scatter_add_by_id(hot_ids, g9, R11)
+    if not torch.equal(hot, scatter.scatter_add_by_id(hot_ids, g9, R11)):
+        raise AssertionError("scatter_rows (hot row) not bitwise repeatable")
+    hot_err = ulp_check(hot, scatter.scatter_add_by_id_plain(hot_ids, g9, R11),
+                        "scatter_rows (hot row)")
+    hot_n = int(scatter.entries(hot_ids, g9, R11)[1][1])
+    srows_ms = cuda_ms(torch, lambda: scatter.scatter_entries(*ent11, g9), 50)
+    sglue_ms = cuda_ms(torch, lambda: scatter.entries(rid9, g9, R11), 20)
+    srows_plain_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id_plain(rid9, g9, R11), 5)
+    live9 = rid9 < R11
+    lrow, lval = rid9[live9].long(), g9[:, live9].T.contiguous()
+    zrows = torch.zeros((R11, 9), dtype=torch.float32, device=dev)
+    srows_lib_ms = cuda_ms(torch, lambda: zrows.index_add_(0, lrow, lval), 50)
+    log(f"[11] scatter_rows {RES}^2 (rasterize backward rows, K = 9): {n_live} live "
+        f"entries over {R11} rows, within 1 ulp of its float64 twin (max|err| "
+        f"{scatter_rows_err:.3g}), bitwise repeatable; hot row of {hot_n} entries within "
+        f"1 ulp (max|err| {hot_err:.3g}); kernel {srows_ms:.3f} ms + index glue "
+        f"{sglue_ms:.3f} ms, twin {srows_plain_ms:.3f} ms, index_add_ {srows_lib_ms:.3f} ms "
+        f"({card})")
+
+    # -- 12. the composed ops' training step: fwd + bwd at 2048^2 -------------
+    op_kernels = (rc.DB_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
+                  gather.KERNEL, scatter.KERNEL)
+
+    def ops_grads(view, colour, size):
+        pv = view.detach().clone().requires_grad_()
+        cv = colour.detach().clone().requires_grad_()
+        rast, _ = dr.rasterize(None, pv, t8, size, grad_db=False)
+        col_img, _ = dr.interpolate(cv, rast, c8)
+        img = dr.antialias(col_img, rast, pv, t8)
+        loss = (img ** 2).mean(dim=(1, 2, 3)).sum()
+        return (img.detach(),) + torch.autograd.grad(loss, (pv, cv))
+
+    for k in op_kernels:
+        k.launches = 0
+    og = [ops_grads(view, a8, res) for view in reqs]
+    torch.cuda.synchronize()
+    ops_launches = {k.name: k.launches for k in op_kernels}
+    log(f"[12] launches during the composed ops' training slice (8 views): {ops_launches}")
+    if min(ops_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the ops' path never launched: {ops_launches}")
+    oagain = ops_grads(reqs[0], a8, res)
+    og2 = ops_grads(pos2, a8.expand(2, -1, -1).contiguous(), res)
+    for i, (_, gp, gc_) in enumerate(og):
+        for name, g in (("pos", gp), ("col", gc_)):
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                raise AssertionError(f"ops view {i}: {name} gradient not finite or all zero")
+    for x, y in zip(og[0], oagain):
+        if not torch.equal(x, y):
+            raise AssertionError("ops gradients not bitwise repeatable")
+    for b in range(2):
+        if not (torch.equal(og2[1][b], og[b][1][0]) and torch.equal(og2[2][b], og[b][2])):
+            raise AssertionError(f"ops B=2 gradients of image {b} differ from its B=1 run")
+    fused = grads(reqs[0], a8, res)
+    with torch.no_grad():
+        fimg = pl.render_pipeline(reqs[0], t8, a8, res, attr_idx=c8)
+    ops_vs_fused = [float((og[0][0] - fimg).abs().max())]
+    for x, y in zip(og[0][1:], fused):
+        ops_vs_fused.append(float((x - y).abs().max()) / float(y.abs().max()))
+    if not (ops_vs_fused[0] <= SHADE_ATOL and max(ops_vs_fused[1:]) <= GRAD_CPU_RTOL):
+        raise AssertionError(f"ops vs render_pipeline: {ops_vs_fused}")
+    log(f"[12] ops gradients finite, non-zero, bitwise repeatable; B=2 equal to two B=1 "
+        f"runs bit for bit; against render_pipeline on the same view: image max|err| "
+        f"{ops_vs_fused[0]:.3g}, g_pos and g_col max|err| {ops_vs_fused[1]:.3g} and "
+        f"{ops_vs_fused[2]:.3g} of their largest (bars {SHADE_ATOL}, {GRAD_CPU_RTOL})")
+    gpu_g = [g.cpu() for g in ops_grads(reqs[3], a8, small)[1:]]
+    cpu_g = ops_grads(reqs[3].cpu(), a8.cpu(), small)[1:]
+    for name, x, y in zip(("pos", "col"), gpu_g, cpu_g):
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        if not (scale > 0 and err <= GRAD_CPU_RTOL * scale):
+            raise AssertionError(f"{SMALL}^2 ops {name} gradient, GPU vs CPU: {err} of {scale}")
+        log(f"[12] {SMALL}^2 ops {name} gradient, GPU vs CPU path: max|err| {err:.3g} "
+            f"(max|g| {scale:.3g}, bar {GRAD_CPU_RTOL} x max|g|)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    for k in op_kernels:
+        k.launches = 0
+    ops_grads(reqs[1], a8, res)
+    torch.cuda.synchronize()
+    ops_step_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    per_step = {k.name: k.launches for k in op_kernels}
+    ops_step_ms = window_ms(torch, lambda view: ops_grads(view, a8, res), [(v,) for v in reqs])
+    log(f"[12] composed ops fwd+bwd {RES}^2 (kernels): {ops_step_ms:.3f} ms/step, "
+        f"{RES * RES / 1e3 / ops_step_ms:.2f} Mpix/s; peak memory of a step above its "
+        f"inputs {ops_step_mib:.1f} MiB; launches per step {per_step} ({card})")
+
+    # The same for render_pipeline_textured(filter_mode='linear').
+    lin_kernels = (rc.KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL, ac.BWD_KERNEL, txb.BWD_KERNEL,
+                   txb.GRAD_KERNEL, ic.BWD_KERNEL, gather.KERNEL, scatter.KERNEL)
+
+    def lgrads(view, size=res, uvs_=tuv, tex=ttex):
+        xs = [x.detach().clone().requires_grad_() for x in (view, uvs_, tex)]
+        img = ptx.render_pipeline_textured(xs[0], t8.to(view.device), xs[1], xs[2], size,
+                                           uv_tri=c8.to(view.device), filter_mode="linear",
+                                           boundary_mode=BOUNDARY)
+        return torch.autograd.grad((img ** 2).mean(dim=(1, 2, 3)).sum(), xs)
+
+    for k in lin_kernels:
+        k.launches = 0
+    lg = [lgrads(view) for view in reqs]
+    torch.cuda.synchronize()
+    lin_launches = {k.name: k.launches for k in lin_kernels}
+    log(f"[12] launches during the linear textured training slice (8 views): {lin_launches}")
+    if min(lin_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the linear path never launched: {lin_launches}")
+    lagain = lgrads(reqs[0])
+    for i, gs_ in enumerate(lg):
+        for name, g in zip(("pos", "uv", "tex"), gs_):
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                raise AssertionError(f"linear view {i}: {name} gradient not finite or zero")
+    for x, y in zip(lg[0], lagain):
+        if not torch.equal(x, y):
+            raise AssertionError("linear textured gradients not bitwise repeatable")
+    gpu_g = [g.cpu() for g in lgrads(reqs[3], small)]
+    cpu_g = lgrads(reqs[3].cpu(), small, tuv.cpu(), ttex.cpu())
+    for name, x, y in zip(("pos", "uv", "tex"), gpu_g, cpu_g):
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        if not (scale > 0 and err <= TEX_GRAD_RTOL * scale):
+            raise AssertionError(f"{SMALL}^2 linear {name} gradient, GPU vs CPU: {err} of "
+                                 f"{scale}")
+        log(f"[12] {SMALL}^2 linear textured {name} gradient, GPU vs CPU path: max|err| "
+            f"{err:.3g} (max|g| {scale:.3g}, bar {TEX_GRAD_RTOL} x max|g|)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    lgrads(reqs[1])
+    torch.cuda.synchronize()
+    lin_step_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    lin_step_ms = window_ms(torch, lgrads, [(view,) for view in reqs])
+    log(f"[12] render_pipeline_textured(linear) fwd+bwd {RES}^2 (kernels): "
+        f"{lin_step_ms:.3f} ms/step, {RES * RES / 1e3 / lin_step_ms:.2f} Mpix/s; peak "
+        f"memory of a step above its inputs {lin_step_mib:.1f} MiB ({card})")
+
+    # -- 13. the fitting models on the card -----------------------------------
+    from nvdiffrast_tpu_torch.models.fit_cube import CubeFitModel
+    from nvdiffrast_tpu_torch.models.fit_pose import PoseFitModel
+
+    for k in op_kernels:
+        k.launches = 0
+    cube = CubeFitModel(resolution=16, seed=0, device=dev)
+    e0 = cube.geometric_error()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CUBE_STEPS):
+        cube.step()
+    torch.cuda.synchronize()
+    cube_ms = (time.perf_counter() - t0) / CUBE_STEPS * 1e3
+    cube_err = cube.geometric_error()
+    cube_launches = {k.name: k.launches for k in op_kernels}
+    log(f"[13] CubeFitModel(16): geometric error {e0:.4f} -> {cube_err:.4f} after "
+        f"{CUBE_STEPS} steps (bar {CUBE_BAR}), {cube_ms:.3f} ms/step; launches "
+        f"{cube_launches} ({card})")
+    if not cube_err < CUBE_BAR or min(cube_launches.values()) <= 0:
+        raise AssertionError(f"cube fit: error {cube_err}, launches {cube_launches}")
+    pose = PoseFitModel(resolution=64, seed=0, device=dev)
+    a0 = pose.angle_error()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    angle = pose.fit(POSE_ITERS)
+    torch.cuda.synchronize()
+    pose_ms = (time.perf_counter() - t0) / POSE_ITERS * 1e3
+    log(f"[13] PoseFitModel(64): angle {a0:.3f} -> {angle:.4f} deg after {POSE_ITERS} "
+        f"iterations (bar {POSE_BAR}), {pose_ms:.3f} ms/iteration ({card})")
+    if not angle < POSE_BAR:
+        raise AssertionError(f"pose fit: {angle} deg")
+
     # Bounds: bytes each input read once and each output written once, over
     # 3.35 TB/s; float32 operations counted from the kernels' sources, over
     # 67 TFLOP/s. The larger is the bound.
@@ -938,6 +1194,19 @@ def main():
                       220 * n_valid9)
     da4_bound = bound((n_own9 * (2 + 9 + 3 + 4) + n_aa9 * 3 + 9 * (R9 + 1) + (R9 + 1)
                        + R9 * (6 + 18)) * f32, n_own9 * (6 * 2 + 11 + 8) + n_aa9 * 60)
+
+    # Standalone ops' backward: aa_bwd reads dy, colour (own and
+    # neighbours'), id and 4 residuals, writes g_color, 2 rows and the dense
+    # 18 pair columns, ~20 operations a pixel and ~60 a kept pair;
+    # interp_bwd reads u, v, id, A cotangents and the table, writes 2 + 3A
+    # rows, ~10A operations a pixel; table_take reads the ids and the table,
+    # writes 9 rows; scatter_rows reads each live entry's code and 9 values
+    # and the segment tables, writes [R, 9], 9 float64 adds an entry.
+    aabwd_bound = bound((vtbl11.numel() + (2 * A + 5) * N + (A + 20) * N) * f32,
+                        20 * N + 60 * n_kept)
+    ibwd_bound = bound((atbl11.numel() + (3 + A) * N + (2 + 3 * A) * N) * f32, 10 * A * N)
+    take_bound = bound((vtbl11.numel() + N + 9 * N) * f32, 0)
+    srows_bound = bound((n_live * 10 + 2 * (R11 + 1) + R11 * 9) * f32, 9 * n_live)
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -983,6 +1252,18 @@ def main():
               "nvdiffrast_tpu/ops/pipeline_pallas.py:535",
               ttrain_launches[pb.SCATTER_KERNEL.name], da4_err, da4_ms, da4_plain_ms,
               da4_bound, da4_lib_ms),
+        entry("interp_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/interpolate_bwd.cu",
+              "nvdiffrast_tpu/ops/interpolate_pallas.py:163", ops_launches[ic.BWD_KERNEL.name],
+              ibwd_err, ibwd_ms, ibwd_plain_ms, ibwd_bound, None),
+        entry("aa_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/aa_bwd.cu",
+              "nvdiffrast_tpu/ops/antialias_pallas.py:306", ops_launches[ac.BWD_KERNEL.name],
+              aabwd_err, aabwd_ms, aabwd_plain_ms, aabwd_bound, None),
+        entry("table_take", "cuda", "nvdiffrast_tpu_torch/csrc/table_take.cu",
+              "nvdiffrast_tpu/ops/gather.py:33", ops_launches[gather.KERNEL.name],
+              take_err, take_ms, take_plain_ms, take_bound, take_lib_ms),
+        entry("scatter_rows", "cuda", "nvdiffrast_tpu_torch/csrc/scatter_rows.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.KERNEL.name],
+              scatter_rows_err, srows_ms, srows_plain_ms, srows_bound, srows_lib_ms),
     ]
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "

@@ -1,8 +1,11 @@
-// Antialias pair math shared by the forward kernels (shade_fwd.cu,
-// aa_fwd.cu): the triangle choice of a pixel pair and its edge crossing
-// analysis, the device forms of ops/antialias.py pair_ids and pair_alpha
-// (nvdiffrast_tpu/ops/antialias.py:92-215). Built with -fmad=false; each
-// expression keeps the reference's operation order.
+// Antialias pair math shared by the kernels: the triangle choice of a
+// pixel pair and its edge crossing analysis (forward: shade_fwd.cu,
+// aa_fwd.cu), one axis of the colour backward and the pair's position
+// gradient (backward: pipeline_bwd.cu, aa_bwd.cu, grad_scatter.cu). The
+// device forms of ops/antialias.py pair_ids, pair_alpha and
+// pair_pos_grad (nvdiffrast_tpu/ops/antialias.py:92-298) and of one axis
+// of antialias_pallas.aa_backward_fused_cols. Built with -fmad=false;
+// each expression keeps the reference's operation order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +86,104 @@ __device__ __forceinline__ void pair_alpha(const float* t, float fx, float fy, b
     const bool found = (dc > -0.0625f) && (dc < 1.0625f);
     const float a = (active && any_sil && found) ? ds * (0.5f - clip_nan(dc, 0.0f, 1.0f)) : 0.0f;
     alpha = isfinite(a) ? a : 0.0f;
+}
+
+
+// One axis of the antialias backward at pixel p, whose pair partner is q
+// (borders folded onto p): subtracts the pixel's own pair blend
+// al * pdy from the colour gradient gc[C], and returns the pair's table
+// row (its triangle's b*T + t, or b*T where the pair has none) and its
+// colour-dot weight, kept where the pair's triangle is real, dd != 0
+// and |alpha| < 0.5, else 0 (antialias_pallas.py:391-404).
+template <int C>
+__device__ __forceinline__ void bwd_axis(int q, int N, int T, int ro, float id0, float al,
+                                         float ax, const float* __restrict__ idf,
+                                         const float* __restrict__ ct,
+                                         const float* __restrict__ dy, const float* dy0,
+                                         const float* c0p, float* gc, int& rid, float& kept) {
+    const bool apos = al > 0.0f;
+    float pdy[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        pdy[c] = apos ? dy0[c] : dy[static_cast<size_t>(c) * N + q];
+        gc[c] = gc[c] - al * pdy[c];
+    }
+    const bool is_t1 = ax >= 3.5f;
+    const bool active = al != 0.0f;
+    const float idfs = is_t1 ? idf[q] : id0;
+    const int tsel = static_cast<int>(idfs) - 1;
+    const bool ok = active && tsel >= 0 && tsel < T;
+    rid = (ok ? tsel : 0) + ro;
+    float dd = 0.0f;
+    if (active) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) dd = dd + pdy[c] * (ct[static_cast<size_t>(c) * N + q] - c0p[c]);
+    }
+    kept = (ok && dd != 0.0f && fabsf(al) < 0.5f) ? dd : 0.0f;
+}
+
+__device__ __forceinline__ float vert(const float* t9, int idx, int comp) {
+    return idx == 2 ? t9[6 + comp] : (idx == 1 ? t9[3 + comp] : t9[comp]);
+}
+
+// Analytic d(alpha)/d(p1, p2) of one pair, routed into 9 columns
+// (antialias.pair_pos_grad). D = 0 horizontal pair, 1 vertical.
+template <int D>
+__device__ __forceinline__ void pair_pos_grad(const float* t9, float dd, float aux, float fx,
+                                              float fy, float pxh, float pyh, float* out) {
+    const bool is_t1 = aux >= 3.5f;
+    const int di = static_cast<int>(aux - 4.0f * (is_t1 ? 1.0f : 0.0f));
+    const int i1 = di < 2 ? di + 1 : 0;
+    const int i2 = i1 < 2 ? i1 + 1 : 0;
+    float p1x = vert(t9, i1, 0), p1y = vert(t9, i1, 1);
+    const float p1w = vert(t9, i1, 2);
+    float p2x = vert(t9, i2, 0), p2y = vert(t9, i2, 1);
+    const float p2w = vert(t9, i2, 2);
+    const float shift = is_t1 ? 1.0f : 0.0f;
+    float fxs = fx + shift * static_cast<float>(1 - D);
+    float fys = fy + shift * static_cast<float>(D);
+    if (D == 1) {
+        float q;
+        q = p1x; p1x = p1y; p1y = q;
+        q = p2x; p2x = p2y; p2y = q;
+        q = pxh; pxh = pyh; pyh = q;
+        q = fxs; fxs = fys; fys = q;
+    }
+    const float w1 = 1.0f / p1w;
+    const float w2 = 1.0f / p2w;
+    const float x1 = p1x * w1 * pxh - fxs;
+    const float y1 = p1y * w1 * pyh - fys;
+    const float x2 = p2x * w2 * pxh - fxs;
+    const float y2 = p2y * w2 * pyh - fys;
+    const float dxe = x2 - x1;
+    const float dye = y2 - y1;
+    const float db = x1 * dye - y1 * dxe;
+    const float ep = dye >= 0.0f ? 1e-3f : -1e-3f;  // copysign(1e-3, dy)
+    const float iy = 1.0f / (dye + ep);
+    const float dby = db * iy;
+    const float iw1 = -w1 * iy * dd;
+    const float iw2 = w2 * iy * dd;
+    float gp1x = iw1 * pxh * y2;
+    float gp2x = iw2 * pxh * y1;
+    float gp1y = iw1 * pyh * (dby - x2);
+    float gp2y = iw2 * pyh * (dby - x1);
+    const float gp1w = -(p1x * gp1x + p1y * gp1y) * w1;
+    const float gp2w = -(p2x * gp2x + p2y * gp2y) * w2;
+    if (D == 1) {
+        float q;
+        q = gp1x; gp1x = gp1y; gp1y = q;
+        q = gp2x; gp2x = gp2y; gp2y = q;
+    }
+    const float g1[3] = {gp1x, gp1y, gp1w};
+    const float g2[3] = {gp2x, gp2y, gp2w};
+#pragma unroll
+    for (int vtx = 0; vtx < 3; ++vtx) {
+#pragma unroll
+        for (int comp = 0; comp < 3; ++comp) {
+            const float val = (i1 == vtx ? g1[comp] : 0.0f) + (i2 == vtx ? g2[comp] : 0.0f);
+            out[3 * vtx + comp] = isfinite(val) ? val : 0.0f;
+        }
+    }
 }
 
 }  // namespace nvdr_aa

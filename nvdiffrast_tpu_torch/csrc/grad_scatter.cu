@@ -34,80 +34,16 @@
 // entry, far below the card's float64 rate.
 #include <cuda_runtime.h>
 
+#include "aa_pair.cuh"
+#include "segment_sum.cuh"
+
 namespace {
+
+using nvdr_aa::pair_pos_grad;
+using nvdr_seg::warp_sum;
 
 constexpr int WARPS = 4;  // table rows per block
 constexpr int BLOCK = 32 * WARPS;
-
-__device__ __forceinline__ float vert(const float* t9, int idx, int comp) {
-    return idx == 2 ? t9[6 + comp] : (idx == 1 ? t9[3 + comp] : t9[comp]);
-}
-
-// Analytic d(alpha)/d(p1, p2) of one pair, routed into 9 columns
-// (antialias.pair_pos_grad). D = 0 horizontal pair, 1 vertical.
-template <int D>
-__device__ __forceinline__ void pair_pos_grad(const float* t9, float dd, float aux, float fx,
-                                              float fy, float pxh, float pyh, float* out) {
-    const bool is_t1 = aux >= 3.5f;
-    const int di = static_cast<int>(aux - 4.0f * (is_t1 ? 1.0f : 0.0f));
-    const int i1 = di < 2 ? di + 1 : 0;
-    const int i2 = i1 < 2 ? i1 + 1 : 0;
-    float p1x = vert(t9, i1, 0), p1y = vert(t9, i1, 1);
-    const float p1w = vert(t9, i1, 2);
-    float p2x = vert(t9, i2, 0), p2y = vert(t9, i2, 1);
-    const float p2w = vert(t9, i2, 2);
-    const float shift = is_t1 ? 1.0f : 0.0f;
-    float fxs = fx + shift * static_cast<float>(1 - D);
-    float fys = fy + shift * static_cast<float>(D);
-    if (D == 1) {
-        float q;
-        q = p1x; p1x = p1y; p1y = q;
-        q = p2x; p2x = p2y; p2y = q;
-        q = pxh; pxh = pyh; pyh = q;
-        q = fxs; fxs = fys; fys = q;
-    }
-    const float w1 = 1.0f / p1w;
-    const float w2 = 1.0f / p2w;
-    const float x1 = p1x * w1 * pxh - fxs;
-    const float y1 = p1y * w1 * pyh - fys;
-    const float x2 = p2x * w2 * pxh - fxs;
-    const float y2 = p2y * w2 * pyh - fys;
-    const float dxe = x2 - x1;
-    const float dye = y2 - y1;
-    const float db = x1 * dye - y1 * dxe;
-    const float ep = dye >= 0.0f ? 1e-3f : -1e-3f;  // copysign(1e-3, dy)
-    const float iy = 1.0f / (dye + ep);
-    const float dby = db * iy;
-    const float iw1 = -w1 * iy * dd;
-    const float iw2 = w2 * iy * dd;
-    float gp1x = iw1 * pxh * y2;
-    float gp2x = iw2 * pxh * y1;
-    float gp1y = iw1 * pyh * (dby - x2);
-    float gp2y = iw2 * pyh * (dby - x1);
-    const float gp1w = -(p1x * gp1x + p1y * gp1y) * w1;
-    const float gp2w = -(p2x * gp2x + p2y * gp2y) * w2;
-    if (D == 1) {
-        float q;
-        q = gp1x; gp1x = gp1y; gp1y = q;
-        q = gp2x; gp2x = gp2y; gp2y = q;
-    }
-    const float g1[3] = {gp1x, gp1y, gp1w};
-    const float g2[3] = {gp2x, gp2y, gp2w};
-#pragma unroll
-    for (int vtx = 0; vtx < 3; ++vtx) {
-#pragma unroll
-        for (int comp = 0; comp < 3; ++comp) {
-            const float val = (i1 == vtx ? g1[comp] : 0.0f) + (i2 == vtx ? g2[comp] : 0.0f);
-            out[3 * vtx + comp] = isfinite(val) ? val : 0.0f;
-        }
-    }
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
 
 template <int A, bool DA>
 __global__ void __launch_bounds__(BLOCK)

@@ -3,14 +3,16 @@
 //
 // Replaces: nvdiffrast_tpu/ops/interpolate_pallas.py, interp_forward_fused,
 // together with the masking glue in front of it (pipeline_tex.py:84-93,
-// interpolate._flat_ids): broadcast attributes, one table for all images.
+// interpolate._flat_ids, _pixel_ids): one table for all images
+// (broadcast attributes) or one per image.
 //
 // One thread per pixel. Each thread reads its (u, v, idf) and, with
 // derivatives, the four db flats (dudx, dudy, dvdx, dvdy); decodes the
 // triangle id (coord.float_to_triidx); masks invalid pixels to zero
 // barys and zero db; gathers its triangle's column of the attribute table
-// [3A, T+1] (row k*A + a = channel a of vertex k) with plain global loads
-// (the table stays in L1/L2); and writes
+// [3A, rows+1] (row k*A + a = channel a of vertex k; per-image tables
+// take row b*T + t, broadcast ones row t) with plain global loads (the
+// table stays in L1/L2); and writes
 //   out[a]      = (b0*g[a] + b1*g[A+a]) + b2*g[2A+a],   b2 = (1 - u) - v;
 //   da[2j]      = dudx*dsdu + dvdx*dsdv,  da[2j+1] = dudy*dsdu + dvdy*dsdv
 // for the j-th differentiated attribute d (dsdu = g[d] - g[2A+d],
@@ -44,17 +46,18 @@ interp_fwd_kernel(const float* __restrict__ tbl, int cols, const float* __restri
                   const float* __restrict__ v, const float* __restrict__ idf,
                   const float* __restrict__ dux, const float* __restrict__ duy,
                   const float* __restrict__ dvx, const float* __restrict__ dvy,
-                  float* __restrict__ out, float* __restrict__ da, int N, int T, int D,
-                  unsigned long long diff) {
+                  float* __restrict__ out, float* __restrict__ da, int N, int T, int HW,
+                  int D, unsigned long long diff) {
     const int p = blockIdx.x * BLOCK + threadIdx.x;
     if (p >= N) return;
     const int tid = float_to_triidx(idf[p]) - 1;
     const bool valid = (tid >= 0) && (tid < T);
+    const int row = tid + (HW > 0 ? (p / HW) * T : 0);
 
     float g[3 * A];
 #pragma unroll
     for (int k = 0; k < 3 * A; ++k)
-        g[k] = valid ? tbl[static_cast<size_t>(k) * cols + tid] : 0.0f;
+        g[k] = valid ? tbl[static_cast<size_t>(k) * cols + row] : 0.0f;
     const float up = u[p], vp = v[p];
     const float b0 = valid ? up : 0.0f;
     const float b1 = valid ? vp : 0.0f;
@@ -91,22 +94,24 @@ interp_fwd_kernel(const float* __restrict__ tbl, int cols, const float* __restri
 
 }  // namespace
 
-// tbl [3A, cols] (cols = T + 1, dummy zero column last); u, v, idf [N];
-// db flats [N] (unused when D = 0); out [A, N]; da [2D, N].
+// tbl [3A, cols] (cols = rows + 1, dummy zero column last); u, v, idf
+// [N]; db flats [N] (unused when D = 0); out [A, N]; da [2D, N].
+// HW = H*W for per-image tables (row b*T + t), 0 for one table.
 // 1 <= A <= 16, 0 <= D <= A; diff holds the D attribute indices, 4 bits
 // each, the first in the lowest bits.
 extern "C" int nvdr_interp_fwd(const float* tbl, int cols, const float* u, const float* v,
                                const float* idf, const float* dux, const float* duy,
                                const float* dvx, const float* dvy, float* out, float* da, int N,
-                               int A, int T, int D, unsigned long long diff, void* stream) {
+                               int A, int T, int HW, int D, unsigned long long diff,
+                               void* stream) {
     if (N <= 0) return static_cast<int>(cudaGetLastError());
-    if (D < 0 || D > A) return static_cast<int>(cudaErrorInvalidValue);
+    if (D < 0 || D > A || HW < 0) return static_cast<int>(cudaErrorInvalidValue);
     const int grid = (N + BLOCK - 1) / BLOCK;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NVDR_INTERP_CASE(n)                                                                  \
     case n:                                                                                  \
         interp_fwd_kernel<n><<<grid, BLOCK, 0, s>>>(tbl, cols, u, v, idf, dux, duy, dvx, dvy, \
-                                                    out, da, N, T, D, diff);                 \
+                                                    out, da, N, T, HW, D, diff);             \
         break;
     switch (A) {
         NVDR_INTERP_CASE(1)

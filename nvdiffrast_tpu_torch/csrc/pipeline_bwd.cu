@@ -33,6 +33,8 @@
 // agrees to the last bit.
 #include <cuda_runtime.h>
 
+#include "aa_pair.cuh"
+
 namespace {
 
 constexpr int BLOCK = 256;
@@ -45,26 +47,11 @@ __device__ __forceinline__ void aa_axis(int d, int p, int q, int N, int T, int r
                                         const float* __restrict__ dy, const float* dy0,
                                         const float* c0p, float* gc, float* __restrict__ dd2,
                                         int* __restrict__ rid2) {
-    const bool apos = al > 0.0f;
-    float pdy[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-        pdy[a] = apos ? dy0[a] : dy[static_cast<size_t>(a) * N + q];
-        gc[a] = gc[a] - al * pdy[a];
-    }
-    const bool is_t1 = ax >= 3.5f;
-    const bool active = al != 0.0f;
-    const float idfs = is_t1 ? idf[q] : id0;
-    const int tsel = static_cast<int>(idfs) - 1;
-    const bool ok = active && tsel >= 0 && tsel < T;
-    rid2[static_cast<size_t>(d) * N + p] = (ok ? tsel : 0) + ro;
-    float dd = 0.0f;
-    if (active) {
-#pragma unroll
-        for (int a = 0; a < A; ++a) dd = dd + pdy[a] * (c0[static_cast<size_t>(a) * N + q] - c0p[a]);
-    }
-    const bool keep = ok && dd != 0.0f && fabsf(al) < 0.5f;
-    dd2[static_cast<size_t>(d) * N + p] = keep ? dd : 0.0f;
+    int rid;
+    float kept;
+    nvdr_aa::bwd_axis<A>(q, N, T, ro, id0, al, ax, idf, c0, dy, dy0, c0p, gc, rid, kept);
+    rid2[static_cast<size_t>(d) * N + p] = rid;
+    dd2[static_cast<size_t>(d) * N + p] = kept;
 }
 
 template <int A>

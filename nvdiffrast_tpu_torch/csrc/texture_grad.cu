@@ -35,21 +35,17 @@
 // and the [n_texels, C] output; the float64 adds are C a tap.
 #include <cuda_runtime.h>
 
+#include "segment_sum.cuh"
 #include "texture_corner.cuh"
 
 namespace {
 
 using namespace nvdr_tex;
+using nvdr_seg::warp_sum;
 
 constexpr int PIECE = 256;  // taps a piece (texture_bwd_cuda.PIECE)
 constexpr int WARPS = 4;
 constexpr int BLOCK = 32 * WARPS;
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
 
 // Row (dv) and column (du) weight factors of one tap, lattice_setup_sep.
 __device__ __forceinline__ void tap_factors(float u, float v, int hl, int wl, int boundary,
@@ -89,12 +85,7 @@ tex_grad_pieces(const int* __restrict__ codes, const int* __restrict__ off,
     const int piece = blockIdx.x * WARPS + threadIdx.x / 32;  // uniform over the warp
     const int lane = threadIdx.x % 32;
     if (piece >= n_pieces) return;
-    // The texel owning this piece: the last t with first[t] <= piece.
-    int lo = 0, hi = n_texels;
-    while (hi - lo > 1) {
-        const int mid = (lo + hi) / 2;
-        if (first[mid] <= piece) lo = mid; else hi = mid;
-    }
+    const int lo = nvdr_seg::piece_owner(first, n_texels, piece);  // the texel
     const int e0 = off[lo] + (piece - first[lo]) * PIECE;
     const int e1 = min(e0 + PIECE, off[lo + 1]);
 

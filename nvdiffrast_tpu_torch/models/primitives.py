@@ -1,10 +1,53 @@
 """Procedural meshes (numpy only).
 
-Copy of ``nvdiffrast_tpu.models.primitives.uv_sphere``, the geometry of
-the forward render path's scene, kept free of any JAX import.
+Copies of ``nvdiffrast_tpu.models.primitives``' ``cube_continuous``,
+``cube_discontinuous`` and ``uv_sphere`` (the same arrays), kept free of
+any JAX import.
 """
 
 import numpy as np
+
+
+def cube_continuous():
+    """8-vertex cube with shared vertices (cube_c equivalent).
+
+    Returns (pos_idx [12,3] i32, vtx_pos [8,3] f32, col_idx, vtx_col [8,3]).
+    """
+    vtx = np.array([
+        [-0.5, -0.5, -0.5], [0.5, -0.5, -0.5], [-0.5, 0.5, -0.5], [0.5, 0.5, -0.5],
+        [-0.5, -0.5, 0.5], [0.5, -0.5, 0.5], [-0.5, 0.5, 0.5], [0.5, 0.5, 0.5],
+    ], np.float32)
+    # 12 triangles, two per face, consistent outward winding.
+    tri = np.array([
+        [0, 2, 1], [1, 2, 3],  # -z
+        [4, 5, 6], [5, 7, 6],  # +z
+        [0, 4, 2], [2, 4, 6],  # -x
+        [1, 3, 5], [3, 7, 5],  # +x
+        [0, 1, 4], [1, 5, 4],  # -y
+        [2, 6, 3], [3, 6, 7],  # +y
+    ], np.int32)
+    col = (vtx + 0.5).astype(np.float32)  # position-derived vertex colors
+    return tri, vtx, tri.copy(), col
+
+
+def cube_discontinuous():
+    """24-vertex cube with per-face split vertices (cube_d equivalent):
+    every face has its own 4 vertices, the topology that stresses the
+    antialias silhouette classification."""
+    tri_c, vtx_c, _, _ = cube_continuous()
+    vtx6 = vtx_c[tri_c.reshape(-1)].reshape(6, 6, 3)
+    out_v = []
+    out_t = []
+    rng = np.random.RandomState(0)
+    for f in range(6):
+        uniq, inv = np.unique(vtx6[f].round(6), axis=0, return_inverse=True)
+        base = len(np.concatenate(out_v)) if out_v else 0
+        out_v.append(uniq.astype(np.float32))
+        out_t.append((inv.reshape(2, 3) + base).astype(np.int32))
+    vtx_pos = np.concatenate(out_v)
+    pos_idx = np.concatenate(out_t)
+    col = rng.uniform(0.0, 1.0, size=vtx_pos.shape).astype(np.float32)
+    return pos_idx, vtx_pos, pos_idx.copy(), col
 
 
 def uv_sphere(n_lat=32, n_lon=64, radius=1.0):

@@ -1,16 +1,21 @@
-"""Antialias pieces of the render path (torch).
+"""Antialiasing (torch): the differentiable op and the pair math.
 
-Counterparts of parts of ``nvdiffrast_tpu/ops/antialias.py``: the
-shared per-pair math (``pair_ids``, ``pair_alpha`` and their sign and
-rational helpers; the backward's ``pair_pos_grad`` and ``decode_aux``),
-the per-triangle tables, the flat pixel grid and the topology wrapper.
-The math is the same expressions in the same order; the plain twins in
-ops/pipeline_cuda.py and ops/pipeline_bwd_cuda.py and the CUDA kernels
-``csrc/shade_fwd.cu`` and ``csrc/grad_scatter.cu`` follow it.
+Counterpart of ``nvdiffrast_tpu/ops/antialias.py``: the shared per-pair
+math (``pair_ids``, ``pair_alpha`` and their sign and rational helpers;
+the backward's ``pair_pos_grad`` and ``decode_aux``), the per-triangle
+tables, the flat pixel grid, the topology wrapper, and ``antialias``, a
+``torch.autograd.Function`` in instance mode. Its forward is kernel B7
+(``antialias_cuda.aa_forward``); its backward kernel B8
+(``antialias_cuda.aa_backward``), the reduction of the pairs' position
+gradients to triangle rows (kernel B10, ``scatter.scatter_add_by_id``)
+and the deterministic vertex sums, times ``pos_gradient_boost``; rast
+gets no gradient. The math is the same expressions in the same order;
+the plain twins and the CUDA kernels (``csrc/aa_pair.cuh``) follow it.
 """
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from .topology import build_opposite_table
 
@@ -303,3 +308,120 @@ def _pixel_grid(B, H, W, T, device):
     fy = rowp.to(torch.float32) + (0.5 - 0.5 * H)
     rofs = (pix // (H * W)) * T
     return fx, fy, rofs, colp >= W - 1, rowp >= H - 1
+
+
+# ---------------------------------------------------------------------------
+# The op (antialias.py:479-728).
+# ---------------------------------------------------------------------------
+
+def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
+                need_pos=True):
+    """(g_color [C, N], g_pos [B, V, 4] or None) from the cotangent
+    dy [C, N] of the antialiased image: kernel B8, then the pairs' rows
+    reduced by kernel B10 and summed into vertices, times boost."""
+    from .antialias_cuda import aa_backward
+    from .rasterize import xyw_rows_to_vertices
+    from .scatter import scatter_add_by_id
+
+    T = tri.shape[0]
+    g_color, rid2, gval2 = aa_backward(dy, ct, idf, vtbl, residuals, shape, T)
+    if not need_pos:
+        return g_color, None
+    gt = scatter_add_by_id(rid2.reshape(-1), gval2, vtbl.shape[1] - 1)
+    g_pos = xyw_rows_to_vertices(gt, tri, pos_shape)
+    return g_color, (g_pos * boost if boost != 1.0 else g_pos)
+
+
+class _AntialiasFn(torch.autograd.Function):
+    """antialias with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, color, rast, pos, tri, op_table, boost):
+        from .antialias_cuda import aa_forward
+
+        B, H, W, C = color.shape
+        N = B * H * W
+        T = tri.shape[0]
+        ct = color.reshape(N, C).T.contiguous()
+        idf = rast[..., 3].reshape(N).contiguous()
+        zw = rast[..., 2].reshape(N).contiguous()
+        ftable, vtbl, _, _ = _build_tables(pos, tri, op_table, H, W)
+        out, res = aa_forward(ct, idf, zw, ftable, (B, H, W), T)
+        ctx.save_for_backward(ct, idf, vtbl, tri, *res)
+        ctx.meta = (tuple(color.shape), tuple(pos.shape), boost)
+        return out.T.reshape(B, H, W, C)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        ct, idf, vtbl, tri, *res = ctx.saved_tensors
+        (B, H, W, C), pos_shape, boost = ctx.meta
+        N = B * H * W
+        g_color, g_pos = aa_bwd_flat(dy.reshape(N, C).T.contiguous(), ct, idf, vtbl, res,
+                                     (B, H, W), tri, pos_shape, boost,
+                                     need_pos=ctx.needs_input_grad[2])
+        g_color = g_color.T.reshape(B, H, W, C) if ctx.needs_input_grad[0] else None
+        return g_color, None, g_pos, None, None, None
+
+
+def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
+              viewport=None):
+    """Antialias silhouette edges (instance mode).
+
+    Args:
+        color: [minibatch, H, W, C] float32 image, C <= 8. A tensor runs on
+            its device (CPU tensors on the plain twins); anything else is
+            put on the default CUDA device, and raises RuntimeError where
+            there is none.
+        rast: [minibatch, H, W, 4] output of ``rasterize``.
+        pos: [minibatch, V, 4] clip-space positions used to rasterize.
+        tri: [T, 3] int32 triangles used to rasterize.
+        topology_hash: optional ``TopologyHashWrapper`` for `tri`.
+        pos_gradient_boost: multiplier of the gradients to `pos`.
+        viewport: row bands are not ported yet (ROADMAP A.9): must be None.
+
+    Returns:
+        The antialiased image, shaped like `color`; differentiable with
+        respect to `color` and `pos` (rast gets no gradient).
+    """
+    from .antialias_cuda import MAX_C
+    from .rasterize import as_device_tensor
+
+    if viewport is not None:
+        raise NotImplementedError("antialias: viewport bands are not ported yet "
+                                  "(ROADMAP A.9)")
+    color = as_device_tensor(color, "antialias")
+    dev = color.device
+    rast = torch.as_tensor(rast, dtype=torch.float32, device=dev)
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    tri = torch.as_tensor(tri, dtype=torch.int32, device=dev)
+    if color.ndim != 4 or rast.ndim != 4 or rast.shape[3] != 4:
+        raise ValueError("antialias: color must be [minibatch, H, W, C] and rast "
+                         f"[minibatch, H, W, 4]; got {tuple(color.shape)}, "
+                         f"{tuple(rast.shape)}")
+    if color.shape[:3] != rast.shape[:3]:
+        raise ValueError(f"antialias: color {tuple(color.shape)} and rast "
+                         f"{tuple(rast.shape)} minibatch/resolution mismatch")
+    if pos.ndim == 2:
+        raise NotImplementedError(
+            "antialias: range mode (2-D pos) is not ported yet (ROADMAP A.9); pass "
+            "[minibatch, V, 4] positions")
+    if pos.ndim != 3 or pos.shape[-1] != 4:
+        raise ValueError(f"antialias: pos must be [minibatch, V, 4]; got "
+                         f"{tuple(pos.shape)}")
+    if pos.shape[0] != color.shape[0]:
+        raise ValueError(f"antialias: instanced pos minibatch {pos.shape[0]} != "
+                         f"color minibatch {color.shape[0]}")
+    if tri.ndim != 2 or tri.shape[1] != 3:
+        raise ValueError(f"antialias: tri must be [num_triangles, 3]; got "
+                         f"{tuple(tri.shape)}")
+    if not 1 <= color.shape[-1] <= MAX_C:
+        raise NotImplementedError(
+            f"antialias: {color.shape[-1]} channels; the kernels serve 1 to {MAX_C}")
+    if topology_hash is not None:
+        if not isinstance(topology_hash, TopologyHashWrapper):
+            raise TypeError("antialias: topology_hash must be a TopologyHashWrapper")
+        op_table = topology_hash.op_table.to(dev)
+    else:
+        op_table = build_opposite_table(tri)
+    return _AntialiasFn.apply(color, rast, pos, tri, op_table, float(pos_gradient_boost))

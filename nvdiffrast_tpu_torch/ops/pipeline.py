@@ -13,7 +13,6 @@ on the antialias part) and ``attr``. A call runs on the device of
 kernels.
 """
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -21,6 +20,7 @@ from . import coord
 from .antialias import TopologyHashWrapper, _build_tables
 from .pipeline_bwd_cuda import grad_scatter, pipeline_bwd
 from .pipeline_cuda import MAX_A, shade_fwd
+from .rasterize import as_device_tensor
 from .rasterize_cuda import rasterize_fused
 from .topology import build_opposite_table
 
@@ -209,12 +209,7 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
     Returns:
         Antialiased color image [minibatch, height, width, A].
     """
-    if not isinstance(pos, torch.Tensor):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "render_pipeline: a non-tensor pos runs on the GPU, and torch "
-                "sees no CUDA device; pass CPU tensors to run on the CPU")
-        pos = torch.as_tensor(np.asarray(pos, np.float32), device="cuda")
+    pos = as_device_tensor(pos, "render_pipeline")
     dev = pos.device
     tri = torch.as_tensor(tri, dtype=torch.int32, device=dev)
     attr = torch.as_tensor(attr, dtype=torch.float32, device=dev)

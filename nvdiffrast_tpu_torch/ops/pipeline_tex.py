@@ -17,32 +17,34 @@ texture sampler (``texture_cuda``) and the antialias forward
 adds are plain tensor glue. A call runs on the device of ``pos``: CPU
 tensors take the plain PyTorch twins, CUDA tensors the kernels.
 
-In the mip filter modes the pipeline is a ``torch.autograd.Function``
-with gradients to ``pos``, ``uv_attr`` and ``tex``: its backward follows
+The pipeline is a ``torch.autograd.Function`` with gradients to ``pos``,
+``uv_attr`` and ``tex``. In the mip filter modes its backward follows
 the JAX package's pipeline-level vjp (``_ptex_bwd_core``) with four more
 kernels: the texture's uv / level backward and its gradient
 (``texture_bwd_cuda``), the fused interpolate + rasterize backward
 (``pipeline_tex_bwd_cuda``) and the gradient scatter with the uv_da
 terms (``pipeline_bwd_cuda.grad_scatter``); the slim antialias backward,
 the mip level's and the pyramid's vjps and the vertex sums are tensor
-glue. ``filter_mode='linear'`` renders, but a call that would record
-gradients there raises: the JAX package takes the composed ops' own
-backwards for it, which are not ported yet.
+glue. With ``filter_mode='linear'`` it composes the standalone ops'
+backwards, as the JAX package's flat chain does
+(``pipeline_tex.py:362-427``): antialias (kernels B8, B10), the texture
+(``texture_bwd_cuda``), interpolate (kernels B6, B10) and rasterize
+(kernels B9, B10).
 """
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import texture as tx
-from .antialias import TopologyHashWrapper, _build_tables
+from .antialias import TopologyHashWrapper, _build_tables, aa_bwd_flat
 from .antialias_cuda import MAX_C, aa_forward
-from .interpolate_cuda import interp_forward
+from .interpolate_cuda import interp_backward, interp_forward
 from .pipeline import _attr_table, own_rows, vertex_attr_grad, vertex_pos_grad
 from .pipeline_bwd_cuda import grad_scatter
 from .pipeline_tex_bwd_cuda import aa_bwd_slim, interp_raster_bwd_tex
-from .rasterize import _check_rasterize_args
+from .rasterize import _check_rasterize_args, as_device_tensor, pixel_rows, raster_pos_grad
 from .rasterize_cuda import rasterize_fused
+from .scatter import scatter_add_by_id
 from .texture_bwd_cuda import texture_bwd, texture_grad
 from .texture_cuda import sample
 from .topology import build_opposite_table
@@ -110,9 +112,16 @@ def _ptex_bwd_core(saved, uv_attr, tri, uv_tri, resolution, filter_mode,
     N = B * H * W
     shape = (B, H, W)
 
-    # 1. Slim antialias backward: colour cotangent + pair streams.
-    gc, dd2, rid2 = aa_bwd_slim(dy.reshape(N, C).T.contiguous(), color, idf,
-                                (al0, ax0, al1, ax1), shape, T)
+    use_mip = "mipmap" in filter_mode
+    dy = dy.reshape(N, C).T.contiguous()
+    res = (al0, ax0, al1, ax1)
+    # 1. Antialias backward: colour cotangent + pair streams (mip modes:
+    # the slim form; linear: the op's, with its position gradient).
+    if use_mip:
+        gc, dd2, rid2 = aa_bwd_slim(dy, color, idf, res, shape, T)
+    else:
+        gc, g_pos_aa = aa_bwd_flat(dy, color, idf, vtbl, res, shape, tri, pos_shape,
+                                   boost, need_pos=needs[0])
     g_pos = g_uv = g_tex = None
 
     # 2. Texture gradient, through the pyramid to the base texture.
@@ -126,6 +135,18 @@ def _ptex_bwd_core(saved, uv_attr, tri, uv_tri, resolution, filter_mode,
     # 3. uv and mip level gradients, the level's chain to uv_da.
     gu, gv, gfl = texture_bwd(flat, uv[0], uv[1], flevel, gc, meta, shape,
                               D > 1, boundary_mode, filter_mode)
+    if not use_mip:
+        # Linear: interpolate's backward (uv, no derivatives), then the
+        # rasterizer's without db.
+        grast, gval, _ = interp_backward(_attr_table(uv_attr, uv_tri, 1, T), u, v, idf,
+                                         None, torch.stack([gu, gv]), None, (), T, 0)
+        if needs[1]:
+            gt = scatter_add_by_id(pixel_rows(idf, T, 0, T), gval, T)
+            g_uv = vertex_attr_grad(gt, uv_tri, tuple(uv_attr.shape), 1)
+        if needs[0]:
+            g_pos = raster_pos_grad(vtbl, tri, pos_shape, idf, grast[0], grast[1], None,
+                                    resolution) + g_pos_aa
+        return g_pos, g_uv, g_tex
     gda4 = tx.mip_level_vjp(da, gfl, th, tw, len(meta))
 
     # 4. Fused interpolate + rasterize backward; 5. one scatter for the uv,
@@ -143,8 +164,7 @@ def _ptex_bwd_core(saved, uv_attr, tri, uv_tri, resolution, filter_mode,
 
 
 class _PipelineTexFn(torch.autograd.Function):
-    """render_pipeline_textured (mip filter modes) with its hand-written
-    backward."""
+    """render_pipeline_textured with its hand-written backward."""
 
     @staticmethod
     def forward(ctx, pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
@@ -195,28 +215,14 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
 
     Returns:
         Antialiased textured image [minibatch, height, width, C];
-        differentiable with respect to `pos`, `uv_attr` and `tex` in the
-        mip filter modes.
+        differentiable with respect to `pos`, `uv_attr` and `tex`.
     """
     tx.check_modes(filter_mode, boundary_mode)
-    if not isinstance(pos, torch.Tensor):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "render_pipeline_textured: a non-tensor pos runs on the GPU, "
-                "and torch sees no CUDA device; pass CPU tensors to run on "
-                "the CPU")
-        pos = torch.as_tensor(np.asarray(pos, np.float32), device="cuda")
+    pos = as_device_tensor(pos, "render_pipeline_textured")
     dev = pos.device
     grad = torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad
         for t in (pos, uv_attr, tex))
-    if grad and "mipmap" not in filter_mode:
-        raise NotImplementedError(
-            "render_pipeline_textured: gradients with filter_mode='linear' "
-            "are not ported yet (ROADMAP A.4: the composed chain's "
-            "backwards, kernels B6 and B8 and the standalone rasterize "
-            "backward); use a mip filter mode, or call under "
-            "torch.no_grad()")
     tri = torch.as_tensor(tri, dtype=torch.int32, device=dev)
     uv_attr = torch.as_tensor(uv_attr, dtype=torch.float32, device=dev)
     tex = torch.as_tensor(tex, dtype=torch.float32, device=dev)

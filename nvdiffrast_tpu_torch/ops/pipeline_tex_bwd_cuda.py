@@ -24,6 +24,7 @@ from .. import _build
 from . import coord
 from .antialias import _pixel_grid, decode_aux
 from .pipeline_cuda import _folded, _roll_next
+from .rasterize import pixel_centres, raster_grad_math
 
 KERNEL = _build.Kernel(
     "nvdr_interp_raster_bwd_tex",
@@ -141,9 +142,7 @@ def interp_raster_bwd_tex_plain(atbl, vtbl, idf, gu, gv, gda4, db4, resolution, 
     valid = (tid0 >= 0) & (tid0 < T)
     rid = torch.where(valid, tid0 + pix // (H * W) * T, R).long()
     a6 = atbl[:, rid]
-    xs, xo, ys, yo = coord.pixel_scale_offset(H, W)
-    fxv = (pix % W).to(torch.float32) * xs + xo
-    fyv = ((pix // W) % H).to(torch.float32) * ys + yo
+    fxv, fyv = pixel_centres(N, resolution, idf.device)
     zero = torch.zeros_like(idf)
 
     # Interpolate backward (uv and its pixel derivatives).
@@ -170,83 +169,8 @@ def interp_raster_bwd_tex_plain(atbl, vtbl, idf, gu, gv, gda4, db4, resolution, 
     dd0, dd1, dd2_, dd3 = (torch.where(valid, c, 0.0) for c in gdb)
 
     # Rasterize backward with bary derivatives.
-    x0, y0, w0, x1, y1, w1, x2, y2, w2 = vtbl[:, rid]
-    p0x = x0 - fxv * w0
-    p0y = y0 - fyv * w0
-    p1x = x1 - fxv * w1
-    p1y = y1 - fyv * w1
-    p2x = x2 - fxv * w2
-    p2y = y2 - fyv * w2
-    a0 = p1x * p2y - p1y * p2x
-    a1 = p2x * p0y - p2y * p0x
-    a2 = p0x * p1y - p0y * p1x
-    at = a0 + a1 + a2
-    ep = torch.where(at >= 0, 1e-6, -1e-6)
-    iw = 1.0 / (at + ep)
-    b0 = a0 * iw
-    b1 = a1 * iw
-    gB0 = gb0 * iw
-    gB1 = gb1 * iw
-    gbb = gB0 * b0 + gB1 * b1
-    gp0x = gbb * (p2y - p1y) - gB1 * p2y
-    gp1x = gbb * (p0y - p2y) + gB0 * p2y
-    gp2x = gbb * (p1y - p0y) - gB0 * p1y + gB1 * p0y
-    gp0y = gbb * (p1x - p2x) + gB1 * p2x
-    gp1y = gbb * (p2x - p0x) - gB0 * p2x
-    gp2y = gbb * (p0x - p1x) + gB0 * p1x - gB1 * p0x
-    gp0w = -fxv * gp0x - fyv * gp0y
-    gp1w = -fxv * gp1x - fyv * gp1y
-    gp2w = -fxv * gp2x - fyv * gp2y
-
-    dfxdX = (2.0 / W) * iw
-    dfydY = (2.0 / H) * iw
-    dd0 = dd0 * dfxdX
-    dd1 = dd1 * dfydY
-    dd2_ = dd2_ * dfxdX
-    dd3 = dd3 * dfydY
-    da0dX = y1 * w2 - y2 * w1
-    da1dX = y2 * w0 - y0 * w2
-    da2dX = y0 * w1 - y1 * w0
-    da0dY = x2 * w1 - x1 * w2
-    da1dY = x0 * w2 - x2 * w0
-    da2dY = x1 * w0 - x0 * w1
-    datdX = da0dX + da1dX + da2dX
-    datdY = da0dY + da1dY + da2dY
-    x01 = x0 - x1
-    x12 = x1 - x2
-    x20 = x2 - x0
-    y01 = y0 - y1
-    y12 = y1 - y2
-    y20 = y2 - y0
-    w01 = w0 - w1
-    w12 = w1 - w2
-    w20 = w2 - w0
-    a0p1 = fyv * x2 - fxv * y2
-    a0p2 = fxv * y1 - fyv * x1
-    a1p0 = fxv * y2 - fyv * x2
-    a1p2 = fyv * x0 - fxv * y0
-    wdudX = 2.0 * b0 * datdX - da0dX
-    wdudY = 2.0 * b0 * datdY - da0dY
-    wdvdX = 2.0 * b1 * datdX - da1dX
-    wdvdY = 2.0 * b1 * datdY - da1dY
-    c0r = iw * (dd0 * wdudX + dd1 * wdudY + dd2_ * wdvdX + dd3 * wdvdY)
-    cx = c0r * fxv - dd0 * b0 - dd2_ * b1
-    cy = c0r * fyv - dd1 * b0 - dd3 * b1
-    cxy = iw * (dd0 * datdX + dd1 * datdY)
-    czw = iw * (dd2_ * datdX + dd3 * datdY)
-    gp0x = gp0x + c0r * y12 - cy * w12 + czw * p2y + dd3 * w2
-    gp1x = gp1x + c0r * y20 - cy * w20 - cxy * p2y - dd1 * w2
-    gp2x = (gp2x + c0r * y01 - cy * w01 + cxy * p1y - czw * p0y
-            + dd1 * w1 - dd3 * w0)
-    gp0y = gp0y + cx * w12 - c0r * x12 - czw * p2x - dd2_ * w2
-    gp1y = gp1y + cx * w20 - c0r * x20 + cxy * p2x + dd0 * w2
-    gp2y = (gp2y + cx * w01 - c0r * x01 - cxy * p1x + czw * p0x
-            - dd0 * w1 + dd2_ * w0)
-    gp0w = gp0w + cy * x12 - cx * y12 - czw * a1p0 + dd2_ * y2 - dd3 * x2
-    gp1w = gp1w + cy * x20 - cx * y20 - cxy * a0p1 - dd0 * y2 + dd1 * x2
-    gp2w = (gp2w + cy * x01 - cx * y01 - cxy * a0p2 - czw * a1p2
-            + dd0 * y1 - dd1 * x1 - dd2_ * y0 + dd3 * x0)
-    g9 = torch.stack([gp0x, gp0y, gp0w, gp1x, gp1y, gp1w, gp2x, gp2y, gp2w])
+    g9 = torch.stack(raster_grad_math(list(vtbl[:, rid]), fxv, fyv, gb0, gb1,
+                                      (dd0, dd1, dd2_, dd3), W, H))
     g9 = torch.where(valid & torch.isfinite(g9), g9, 0.0)
     return torch.cat([gyu[None], gyv[None], g9,
                       torch.stack([cda[0], cda[2], cda[1], cda[3]])])

@@ -1,6 +1,6 @@
 """Where the time of one training step of render_pipeline goes, on a GPU.
 
-    python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16] [--textured]
+    python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16] [--textured | --ops]
 
 The bench scene (uv-sphere 32x64, 3,968 triangles, vertex colours,
 A = 3, B = 1, camera projection(x=0.4) @ translate(0, 0, -3.5)). One
@@ -8,7 +8,9 @@ step is render_pipeline's forward, mean(img**2) and the backward to pos
 and the colours. With --textured a step is instead render_pipeline_textured
 on bench.py's textured line (a 512x512x3 texture from rand seed 0,
 spherical uvs, linear-mipmap-linear, wrap), forward, mean(img**2) and the
-backward to pos, the uvs and the texture.
+backward to pos, the uvs and the texture. With --ops it is the composed
+standalone ops, rasterize -> interpolate -> antialias, on the bench scene,
+forward, mean(img**2) and the backward to pos and the colours.
 Prints:
   1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
   2. each stage of the step run alone and synchronised, mean of 20;
@@ -27,18 +29,23 @@ import numpy as np
 import torch
 
 from .models import primitives
+from .ops import antialias as aa
 from .ops import antialias_cuda as ac
+from .ops import gather
 from .ops import interpolate_cuda as ic
 from .ops import pipeline as pl
 from .ops import pipeline_bwd_cuda as pb
 from .ops import pipeline_cuda as pc
 from .ops import pipeline_tex as ptx
 from .ops import pipeline_tex_bwd_cuda as ptb
+from .ops import rasterize as ra
 from .ops import rasterize_cuda as rc
+from .ops import scatter
 from .ops import texture as tx
 from .ops import texture_bwd_cuda as tb
 from .ops import texture_cuda as tc
 from .ops.antialias import _build_tables
+from .ops.interpolate import interpolate
 from .ops.topology import build_opposite_table
 from .utils import camera
 
@@ -119,6 +126,73 @@ def _training(pos, tri, cidx, col, res):
         ("bwd: grad_scatter kernel",
          lambda: pb.scatter_entries(codes, off, gs, dd2, flats, vtbl, res)),
         ("bwd: vertex sums", lambda: pl._vertex_sum(rows, pl._corner_table(tri, pos.shape[1]))),
+    ]
+
+
+def _ops(pos, tri, cidx, col, res):
+    """(step, stages) of a training step of the composed standalone ops."""
+    dev = pos.device
+
+    def step():
+        p = pos.detach().requires_grad_()
+        c = col.detach().requires_grad_()
+        rast, _ = ra.rasterize(None, p, tri, res, grad_db=False)
+        color, _ = interpolate(c, rast, cidx)
+        img = aa.antialias(color, rast, p, tri)
+        return torch.autograd.grad((img ** 2).mean(), (p, c))
+
+    H, W = res
+    T = tri.shape[0]
+    N = H * W
+    op = build_opposite_table(tri)
+    rec, aabb = rc.build_records(pos, tri, res)
+    outs = rc.rasterize_records(rec, aabb, res, emit_db=True)
+    u, v, zw, idf = (x.reshape(N) for x in outs[:4])
+    atbl = pl._attr_table(col, cidx, 1, T)
+    ct, _ = ic.interp_forward(atbl, u, v, idf, None, ())
+    ftable, vtbl, _, _ = _build_tables(pos, tri, op, H, W)
+    cols = ac.aa_cols(ct, idf, zw, ftable, (1, H, W), T)
+    _, _, res4 = pc.finish_shade(cols, W)
+    dy = torch.full((3, N), 1e-7, device=dev)
+    gcol, rid2, gval2 = ac.aa_backward(dy, ct, idf, vtbl, res4, (1, H, W), T)
+    aa_ent = scatter.entries(rid2.reshape(-1), gval2, T)
+    grast, gval, _ = ic.interp_backward(atbl, u, v, idf, None, gcol, None, (), T, 0)
+    rid_a = ra.pixel_rows(idf, T, 0, T)
+    in_ent = scatter.entries(rid_a, gval, T)
+    g9, rid9 = ra.raster_grad_rows(vtbl, idf, grast[0], grast[1], None, res, T)
+    ra_ent = scatter.entries(rid9, g9, T)
+    gt9 = scatter.scatter_entries(*ra_ent, g9)
+    gt_aa = scatter.scatter_entries(*aa_ent, gval2)
+    gt_a = scatter.scatter_entries(*in_ent, gval)
+
+    return step, [
+        ("fwd: topology table", lambda: build_opposite_table(tri)),
+        ("fwd: raster prepass", lambda: rc.build_records(pos, tri, res)),
+        ("fwd: rasterize kernel (db)", lambda: rc.rasterize_records(rec, aabb, res,
+                                                                    emit_db=True)),
+        ("fwd: rast, rast_db images", lambda: (torch.stack(outs[:4], -1),
+                                               torch.stack(outs[4:], -1))),
+        ("fwd: attr table", lambda: pl._attr_table(col, cidx, 1, T)),
+        ("fwd: interp_fwd kernel", lambda: ic.interp_forward(atbl, u, v, idf, None, ())),
+        ("fwd: AA table", lambda: _build_tables(pos, tri, op, H, W)),
+        ("fwd: aa_fwd kernel", lambda: ac.aa_cols(ct, idf, zw, ftable, (1, H, W), T)),
+        ("fwd: neighbour adds", lambda: pc.finish_shade(cols, W)),
+        ("bwd: aa_bwd kernel", lambda: ac.aa_backward(dy, ct, idf, vtbl, res4, (1, H, W), T)),
+        ("bwd: AA pairs' entries (index glue)",
+         lambda: scatter.entries(rid2.reshape(-1), gval2, T)),
+        ("bwd: AA pairs' scatter_rows kernel", lambda: scatter.scatter_entries(*aa_ent, gval2)),
+        ("bwd: interp_bwd kernel",
+         lambda: ic.interp_backward(atbl, u, v, idf, None, gcol, None, (), T, 0)),
+        ("bwd: attribute entries (index glue)", lambda: scatter.entries(rid_a, gval, T)),
+        ("bwd: attribute scatter_rows kernel", lambda: scatter.scatter_entries(*in_ent, gval)),
+        ("bwd: table_take kernel", lambda: gather.table_take(vtbl, rid9)),
+        ("bwd: raster rows (glue, table_take included)",
+         lambda: ra.raster_grad_rows(vtbl, idf, grast[0], grast[1], None, res, T)),
+        ("bwd: raster entries (index glue)", lambda: scatter.entries(rid9, g9, T)),
+        ("bwd: raster scatter_rows kernel", lambda: scatter.scatter_entries(*ra_ent, g9)),
+        ("bwd: vertex sums", lambda: (ra.xyw_rows_to_vertices(gt9, tri, tuple(pos.shape)),
+                                      ra.xyw_rows_to_vertices(gt_aa, tri, tuple(pos.shape)),
+                                      pl.vertex_attr_grad(gt_a, cidx, tuple(col.shape), 1))),
     ]
 
 
@@ -220,6 +294,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--textured", action="store_true",
                     help="profile a render_pipeline_textured step instead")
+    ap.add_argument("--ops", action="store_true",
+                    help="profile a step of the composed rasterize, interpolate and "
+                         "antialias ops instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -237,6 +314,9 @@ def main(argv=None):
     if args.textured:
         what = "textured fwd+bwd"
         step, stages = _textured(pos, tri, cidx, vtxp, res)
+    elif args.ops:
+        what = "composed ops fwd+bwd"
+        step, stages = _ops(pos, tri, cidx, col, res)
     else:
         what = "fwd+bwd"
         step, stages = _training(pos, tri, cidx, col, res)

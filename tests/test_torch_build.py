@@ -16,16 +16,17 @@ import textwrap
 import pytest
 
 from nvdiffrast_tpu_torch import _build
-from nvdiffrast_tpu_torch.ops import (antialias_cuda, interpolate_cuda, pipeline_bwd_cuda,
-                                      pipeline_cuda, pipeline_tex_bwd_cuda, rasterize_cuda,
-                                      texture_bwd_cuda, texture_cuda)
+from nvdiffrast_tpu_torch.ops import (antialias_cuda, gather, interpolate_cuda,
+                                      pipeline_bwd_cuda, pipeline_cuda, pipeline_tex_bwd_cuda,
+                                      rasterize_cuda, scatter, texture_bwd_cuda, texture_cuda)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL,
            pipeline_bwd_cuda.BWD_KERNEL, pipeline_bwd_cuda.SCATTER_KERNEL,
            interpolate_cuda.KERNEL, texture_cuda.KERNEL, antialias_cuda.KERNEL,
            texture_bwd_cuda.BWD_KERNEL, texture_bwd_cuda.GRAD_KERNEL,
-           pipeline_tex_bwd_cuda.KERNEL]
+           pipeline_tex_bwd_cuda.KERNEL, interpolate_cuda.BWD_KERNEL,
+           antialias_cuda.BWD_KERNEL, gather.KERNEL, scatter.KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -73,14 +74,18 @@ def test_cuda_sources_exist():
     names = {p.name for p in _build.sources()}
     assert {"rasterize.cu", "shade_fwd.cu", "pipeline_bwd.cu", "grad_scatter.cu",
             "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu",
-            "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu"} <= names
+            "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu",
+            "interpolate_bwd.cu", "aa_bwd.cu", "table_take.cu", "scatter_rows.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
         assert f'extern "C" int {kernel.name}(' in text
-    # The AA pair math lives in one header that both forward kernels use.
+    # The AA pair math lives in one header that the AA kernels use.
     assert (_build.SRC_DIR / "aa_pair.cuh").exists()
-    for name in ("shade_fwd.cu", "aa_fwd.cu"):
+    for name in ("shade_fwd.cu", "aa_fwd.cu", "pipeline_bwd.cu", "aa_bwd.cu", "grad_scatter.cu"):
         assert '#include "aa_pair.cuh"' in (_build.SRC_DIR / name).read_text()
+    # The segmented float64 sums share their warp reduction.
+    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu"):
+        assert '#include "segment_sum.cuh"' in (_build.SRC_DIR / name).read_text()
     # The sampler's corner setup: one header for the forward and backward.
     for name in ("texture_fwd.cu", "texture_bwd.cu", "texture_grad.cu"):
         assert '#include "texture_corner.cuh"' in (_build.SRC_DIR / name).read_text()

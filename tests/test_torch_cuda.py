@@ -460,3 +460,158 @@ def test_render_pipeline_textured_grads_gpu_repeatable_and_match_cpu(
         # level may flip where the card's log2 differs by an ulp.
         assert float((g.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
         assert float(ref.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The standalone ops' backward kernels (B6, B8, B9, B10) and the ops.
+# ---------------------------------------------------------------------------
+
+def _ulp_close(got, ref64):
+    """Each float32 value within 1 ulp of the float64 reference."""
+    ref = ref64.float()
+    ulp = torch.from_numpy(np.spacing(ref.abs().cpu().numpy())).to(got.device)
+    return bool(((got.double() - ref64).abs() <= ulp.double()).all())
+
+
+@pytest.mark.parametrize("K,T,N", [(9, 300, 5000), (48, 17, 100001)])
+def test_table_take_kernel_matches_twin(dev, K, T, N):
+    from nvdiffrast_tpu_torch.ops import gather as tg
+    rng = np.random.RandomState(K)
+    tbl = torch.from_numpy(rng.randn(K, T).astype(np.float32)).to(dev)
+    rid = torch.from_numpy(rng.randint(-2, T + 2, N).astype(np.int32)).to(dev)
+    before = tg.KERNEL.launches
+    got = tg.table_take(tbl, rid)
+    ref = tg.table_take_plain(tbl, rid)
+    torch.cuda.synchronize()
+    assert tg.KERNEL.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("K,R,N,hot", [(9, 40, 1 << 15, 0), (48, 300, 5000, 0),
+                                       (3, 8, 400000, 300000)])
+def test_scatter_rows_kernel_within_one_ulp(dev, K, R, N, hot):
+    from nvdiffrast_tpu_torch.ops import scatter as ts
+    rng = np.random.RandomState(K)
+    ids = rng.randint(-3, R + 3, N).astype(np.int32)
+    if hot:
+        ids[rng.choice(N, hot, replace=False)] = 1
+    vals = rng.randn(K, N).astype(np.float32)
+    vals[:, rng.rand(N) < 0.1] = 0.0
+    ti, tv = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+    before = ts.KERNEL.launches
+    got = ts.scatter_add_by_id(ti, tv, R)
+    again = ts.scatter_add_by_id(ti, tv, R)
+    torch.cuda.synchronize()
+    assert ts.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    ok = (ids >= 0) & (ids < R)
+    acc = np.zeros((R, K), np.float64)
+    np.add.at(acc, ids[ok], vals[:, ok].T.astype(np.float64))
+    assert _ulp_close(got, torch.from_numpy(acc).to(dev))
+
+
+def _op_scene(dev, B=2, seed=3, res=(64, 80)):
+    pos, tri, attr, cidx = sphere_scene(B=B, seed=seed)
+    return inputs_from_numpy(pos, tri, attr, cidx, device=dev) + (res,)
+
+
+@pytest.mark.parametrize("per_image,A,diff_list", [(True, 3, ()), (False, 5, (3, 1)),
+                                                   (True, 16, tuple(range(16)))])
+def test_interp_bwd_kernel_matches_twin(dev, per_image, A, diff_list):
+    p, t, _, c, res = _op_scene(dev)
+    B, T, N = p.shape[0], t.shape[0], p.shape[0] * res[0] * res[1]
+    rng = np.random.default_rng(A)
+    attr = torch.from_numpy(rng.standard_normal((B if per_image else 1, p.shape[1], A))
+                            .astype(np.float32)).to(dev)
+    outs = rc.rasterize_fused(p, t, res, emit_db=True)
+    u, v, _, idf, *db = (o.reshape(N) for o in outs)
+    tbl = pl._attr_table(attr, c, B if per_image else 1, T)
+    D = len(diff_list)
+    gy = torch.from_numpy(rng.standard_normal((A, N)).astype(np.float32)).to(dev)
+    gda = torch.from_numpy(rng.standard_normal((2 * D, N)).astype(np.float32)).to(dev)
+    args = (tbl, u, v, idf, tuple(db) if D else None, gy, gda if D else None, diff_list, T,
+            res[0] * res[1] if per_image else 0)
+    before = ic.BWD_KERNEL.launches
+    got = ic.interp_backward(*args)
+    ref = ic.interp_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert ic.BWD_KERNEL.launches == before + 1
+    for x, y in zip(got, ref):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B,C", [(1, 3), (2, 5)])
+def test_aa_bwd_kernel_matches_twin(dev, B, C):
+    p, t, _, _, res = _op_scene(dev, B=B, seed=B)
+    T, N = t.shape[0], B * res[0] * res[1]
+    _, _, zw, idf = (o.reshape(N) for o in rc.rasterize_fused(p, t, res))
+    rng = np.random.default_rng(C)
+    ct = torch.from_numpy(rng.random((C, N), dtype=np.float32)).to(dev)
+    dy = torch.from_numpy(rng.standard_normal((C, N)).astype(np.float32)).to(dev)
+    ftable, vtbl, _, _ = _build_tables(p, t, build_opposite_table(t), *res)
+    _, res4 = ac.aa_forward(ct, idf, zw, ftable, (B,) + res, T)
+    before = ac.BWD_KERNEL.launches
+    got = ac.aa_backward(dy, ct, idf, vtbl, res4, (B,) + res, T)
+    ref = ac.aa_backward_plain(dy, ct, idf, vtbl, res4, (B,) + res, T)
+    torch.cuda.synchronize()
+    assert ac.BWD_KERNEL.launches == before + 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert int((got[2] != 0).any(0).sum()) > 10
+
+
+def test_composed_ops_grads_gpu_repeatable_and_match_cpu(dev):
+    from nvdiffrast_tpu_torch.ops import gather as tg
+    from nvdiffrast_tpu_torch.ops import scatter as ts
+    p, t, a, c, res = _op_scene(dev, seed=6)
+
+    def grads(device):
+        pv = p.to(device).requires_grad_()
+        av = a.to(device).requires_grad_()
+        tt, cc = t.to(device), c.to(device)
+        rast, db = dr.rasterize(None, pv, tt, res)
+        col, da = dr.interpolate(av, rast, cc, rast_db=db, diff_attrs="all")
+        img = dr.antialias(col, rast, pv, tt, pos_gradient_boost=2.0)
+        return torch.autograd.grad(img.square().mean() + 0.1 * da.square().mean(), (pv, av))
+
+    kernels = (rc.DB_KERNEL, ic.KERNEL, ic.BWD_KERNEL, ac.KERNEL, ac.BWD_KERNEL, tg.KERNEL,
+               ts.KERNEL)
+    before = [k.launches for k in kernels]
+    gpu = grads(dev)
+    again = grads(dev)
+    cpu = grads("cpu")
+    torch.cuda.synchronize()
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    for g, h, ref in zip(gpu, again, cpu):
+        assert torch.equal(g, h)
+        assert float((g.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        assert float(ref.abs().max()) > 0
+
+
+def test_render_pipeline_textured_linear_grads_gpu_match_cpu(dev):
+    res = (64, 80)
+    p, t, a = _textured_scene("cpu", 2, seed=9)
+    tex = torch.from_numpy(np.random.RandomState(0).rand(1, 32, 64, 3).astype(np.float32))
+
+    def grads(device):
+        xs = [x.to(device).requires_grad_() for x in (p, a, tex)]
+        img = dr.render_pipeline_textured(xs[0], t.to(device), xs[1], xs[2], res,
+                                          filter_mode="linear", boundary_mode="wrap")
+        return torch.autograd.grad(img.square().mean(), xs)
+
+    gpu = grads(dev)
+    again = grads(dev)
+    cpu = grads("cpu")
+    for g, h, ref in zip(gpu, again, cpu):
+        assert torch.equal(g, h)
+        assert float((g.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_cube_fit_converges_on_gpu(dev):
+    from nvdiffrast_tpu_torch.models.fit_cube import CubeFitModel
+    m = CubeFitModel(resolution=16, seed=0, device=dev)
+    for _ in range(150):
+        m.step()
+    assert m.geometric_error() < 0.08

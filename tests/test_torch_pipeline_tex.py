@@ -162,11 +162,10 @@ def test_error_paths(monkeypatch):
     for grad_arg in range(3):
         args = [p, a, tx]
         args[grad_arg] = args[grad_arg].clone().requires_grad_()
-        # Gradients of the 'linear' filter wait for the composed chain's
-        # backwards; the mip modes have them.
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            dr.render_pipeline_textured(args[0], t, args[1], args[2], RES,
-                                        filter_mode="linear")
+        # Every filter mode records gradients ('linear' through the
+        # composed ops' backwards).
+        assert dr.render_pipeline_textured(args[0], t, args[1], args[2], (8, 8),
+                                           filter_mode="linear").requires_grad
         assert dr.render_pipeline_textured(args[0], t, args[1], args[2],
                                            (8, 8)).requires_grad
         with torch.no_grad():
