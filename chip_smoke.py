@@ -70,7 +70,24 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      filter_mode='linear', fwd + bwd, the same checks;
  13. CubeFitModel(16) for 150 steps (error < 0.08) and
      PoseFitModel(64).fit(300) (angle < 2 degrees) on the card, their
-     ms per step.
+     ms per step;
+ 14. B12, the cube sampler, against its twins at 2048^2 on the bench
+     sphere's 8 views, reflection vectors (interpolate with diff_attrs=
+     'all') as directions into procedural_cubemap(512), 10 levels,
+     linear-mipmap-linear: cube_fwd and cube_bwd bit for bit, the texture
+     gradient (B10 on the cube taps) within 1 ulp of its float64 twin and
+     bitwise repeatable, their times (no PyTorch call samples cube maps);
+     then texture(boundary_mode='cube') fwd + bwd on the 8 views: all
+     three kernels launched, bitwise repeatable, ms/step, peak memory, a
+     256^2 view within the CPU bars of the CPU path;
+ 15. the repaired calls (antialias at 17 channels, render_pipeline at 9,
+     render_pipeline_textured with per-image uvs, 9 channels, 'nearest'
+     and a cube map) at 64^2, B = 2: finite, bitwise repeatable, within
+     the CPU bars of the CPU path; the 2-D texture op fwd + bwd at 2048^2;
+     EnvPhongFitModel at the sample's defaults (300 steps: env RMSE and
+     loss fall) and at the test size (150 steps, RMSE < 0.03);
+     EarthFitModel at the sample's defaults (200 steps: PSNR rises) and
+     at the test size (50 steps, PSNR > 10 dB); ms per step.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s) and, last, the device line. Any failed
@@ -105,6 +122,12 @@ CUBE_STEPS = 150    # tests/test_models.py: cube error < 0.08 after 150 steps
 CUBE_BAR = 0.08
 POSE_ITERS = 300    # pose angle < 2 degrees after 300 iterations
 POSE_BAR = 2.0
+CUBE_SIZE = 512     # phase 14: procedural_cubemap(512), 10 levels
+REPAIR_RES = 64     # phase 15: the C.1 / C.2 calls, GPU vs CPU
+ENV_STEPS = 300     # EnvPhongFitModel at the sample's defaults
+ENV_BAR = 0.03      # tests/test_models.py: env RMSE < 0.03 at the test size
+EARTH_STEPS = 200   # EarthFitModel at the sample's defaults
+EARTH_BAR = 10.0    # tests/test_models.py: PSNR > 10 dB at the test size
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -785,7 +808,7 @@ def main():
         f"glue {lin_grad_ms:.3f} ms, grid_sample backward to the input {texgrad_lib_ms:.3f} ms "
         f"({card})")
 
-    gda9 = tx.mip_level_vjp(da9, gfl9, TEX_SIZE, TEX_SIZE, len(tmeta))
+    gda9 = tx.level_vjp(da9, gfl9, TEX_SIZE, TEX_SIZE, len(tmeta))[0]
     iargs9 = (pl._attr_table(tuv, tu, 1, T), vtbl9, idf9, gu9, gv9, gda9, torch.stack(db9),
               res, T)
     out15 = ptb.interp_raster_bwd_tex(*iargs9)
@@ -1153,6 +1176,247 @@ def main():
     if not angle < POSE_BAR:
         raise AssertionError(f"pose fit: {angle} deg")
 
+    # -- 14. B12, the cube sampler, vs its twins (2048^2, 8 views) -------------
+    # Reflection vectors of the bench sphere (seen from the bench camera's
+    # position) interpolated with their screen derivatives act as the
+    # directions; the map is procedural_cubemap(512), 10 levels.
+    from nvdiffrast_tpu_torch.models import primitives
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    _, vtx_np, _, _ = primitives.uv_sphere(32, 64)
+    normals = vtx_np / np.linalg.norm(vtx_np, axis=1, keepdims=True)
+    view_np = vtx_np - np.array([0.0, 0.0, 3.5], np.float32)
+    refl_np = view_np - 2.0 * normals * (normals * view_np).sum(1, keepdims=True)
+    refl_np = (refl_np / np.linalg.norm(refl_np, axis=1, keepdims=True)).astype(np.float32)
+    (rvec,) = inputs_from_numpy(refl_np, device=dev)
+    env_np = primitives.procedural_cubemap(CUBE_SIZE)[None]
+    (env,) = inputs_from_numpy(env_np, device=dev)
+    cube_spec = ("linear-mipmap-linear", "cube", -1, True)
+
+    def refl_dirs(view, size=res):
+        with torch.no_grad():
+            rast, rast_db = dr.rasterize(None, view, t8.to(view.device), size, grad_db=True)
+            return dr.interpolate(rvec.to(view.device), rast, t8.to(view.device), rast_db,
+                                  diff_attrs="all")
+
+    dirs = [refl_dirs(view) for view in reqs]
+    _, csaved, cmeta = tx._texture_fwd(cube_spec, env, *dirs[0], None, ())
+    cflat, ccols = csaved[0], tuple(csaved[6:])
+    n_ctex = cflat.shape[0]
+    cimg = tcc.sample_cube(cflat, ccols, cmeta, FILTER)
+    cube_fwd_err = equal_or_raise((cimg,), (tcc.sample_cube_plain(cflat, ccols, cmeta, FILTER),),
+                                  "cube_fwd")
+    cdy = (2.0 * cimg / cimg.numel()).contiguous()  # d mean(img**2) / d img
+    cgs = tcc.cube_bwd(cflat, ccols, cdy, cmeta, FILTER)
+    cube_bwd_err = equal_or_raise(cgs, tcc.cube_bwd_plain(cflat, ccols, cdy, cmeta, FILTER),
+                                  "cube_bwd")
+    cfin = ccols[3] != 0
+    cl0 = ccols[2].floor().clamp(0, len(cmeta) - 1)
+    n_cvalid = int(cfin.sum())
+    n_creads = n_cvalid + int((cfin & (cl0 < len(cmeta) - 1) & (ccols[2] > cl0)).sum())
+    log(f"[14] cube_fwd, cube_bwd {RES}^2 ({FILTER}, {len(cmeta)} levels, {n_ctex} texels): "
+        f"equal to their twins bit for bit; {n_cvalid} valid directions, {n_creads} level "
+        f"reads, flevel in [{float(ccols[2].min()):.3f}, {float(ccols[2].max()):.3f}]")
+    cube_fwd_ms = cuda_ms(torch, lambda: tcc.sample_cube(cflat, ccols, cmeta, FILTER), 50)
+    cube_fwd_plain_ms = cuda_ms(torch, lambda: tcc.sample_cube_plain(cflat, ccols, cmeta,
+                                                                     FILTER), 3)
+    cube_bwd_ms = cuda_ms(torch, lambda: tcc.cube_bwd(cflat, ccols, cdy, cmeta, FILTER), 50)
+    cube_bwd_plain_ms = cuda_ms(torch, lambda: tcc.cube_bwd_plain(cflat, ccols, cdy, cmeta,
+                                                                  FILTER), 3)
+    log(f"[14] cube_fwd {RES}^2: kernel {cube_fwd_ms:.3f} ms, twin {cube_fwd_plain_ms:.3f} ms; "
+        f"cube_bwd: kernel {cube_bwd_ms:.3f} ms, twin {cube_bwd_plain_ms:.3f} ms; no PyTorch "
+        f"call samples cube maps, so no library yardstick ({card})")
+    # The texture gradient: the cube taps through B10.
+    cids, cw = tcc.cube_grad_entries(ccols, cmeta, FILTER)
+    cvals = (cdy.repeat(1, cw.shape[0] // N) * cw).contiguous()
+    cgrad = scatter.scatter_add_by_id(cids, cvals, n_ctex)
+    if not torch.equal(cgrad, scatter.scatter_add_by_id(cids, cvals, n_ctex)):
+        raise AssertionError("cube texture gradient not bitwise repeatable")
+    cube_grad_err = ulp_check(cgrad, scatter.scatter_add_by_id_plain(cids, cvals, n_ctex),
+                              "cube texture gradient")
+    cent = scatter.entries(cids, cvals, n_ctex)
+    n_ctaps = int(cent[0].shape[0])
+    cgrad_ms = cuda_ms(torch, lambda: scatter.scatter_entries(*cent, cvals), 20)
+    ctaps_ms = cuda_ms(torch, lambda: tcc.cube_grad_entries(ccols, cmeta, FILTER), 10)
+    cglue_ms = cuda_ms(torch, lambda: scatter.entries(cids, cvals, n_ctex), 10)
+    log(f"[14] cube texture gradient {RES}^2: {n_ctaps} live taps of {cids.shape[0]}, within "
+        f"1 ulp of its float64 twin (max|err| {cube_grad_err:.3g}), bitwise repeatable; "
+        f"scatter_rows {cgrad_ms:.3f} ms + taps {ctaps_ms:.3f} ms + index glue "
+        f"{cglue_ms:.3f} ms ({card})")
+
+    # The cube texture op, fwd + bwd (gradients to the map, uv and uv_da)
+    # on the 8 views: the main path of B12.
+    cube_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, scatter.KERNEL)
+
+    def cube_step(uv, uv_da, tex=env):
+        xs = [x.detach().clone().requires_grad_() for x in (tex, uv, uv_da)]
+        img = dr.texture(xs[0], xs[1], xs[2], filter_mode=FILTER, boundary_mode="cube")
+        return (img.detach(),) + torch.autograd.grad((img ** 2).mean(), xs)
+
+    for k in cube_kernels:
+        k.launches = 0
+    cg = [cube_step(*d) for d in dirs]
+    torch.cuda.synchronize()
+    cube_launches = {k.name: k.launches for k in cube_kernels}
+    log(f"[14] launches during the cube texture slice (8 views): {cube_launches}")
+    if min(cube_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the cube path never launched: {cube_launches}")
+    for x, y in zip(cg[0], cube_step(*dirs[0])):
+        if not torch.equal(x, y):
+            raise AssertionError("cube texture gradients not bitwise repeatable")
+    for i, out in enumerate(cg):
+        if not all(bool(torch.isfinite(x).all()) for x in out) or not bool(
+                (out[1] != 0).any()):
+            raise AssertionError(f"cube view {i}: output or map gradient not finite / zero")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cube_step(*dirs[1])
+    torch.cuda.synchronize()
+    cube_step_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    cube_step_ms = window_ms(torch, cube_step, dirs)
+    log(f"[14] texture(cube) fwd+bwd {RES}^2 (kernels): {cube_step_ms:.3f} ms/step; peak "
+        f"memory of a step above its inputs {cube_step_mib:.1f} MiB ({card})")
+    # The card's cube path against the CPU path on a small view.
+    sdirs = refl_dirs(reqs[3], small)
+    gpu_c = [x.cpu() for x in cube_step(*sdirs)]
+    cpu_c = cube_step(*(d.cpu() for d in sdirs), tex=env.cpu())
+    for name, x, y in zip(("image", "map", "uv", "uv_da"), gpu_c, cpu_c):
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        if not err <= TEX_GRAD_RTOL * max(scale, 1e-30):
+            raise AssertionError(f"{SMALL}^2 cube {name}, GPU vs CPU: {err} of {scale}")
+    log(f"[14] {SMALL}^2 cube texture, GPU vs CPU path: image and gradients within "
+        f"{TEX_GRAD_RTOL} of their largest")
+
+    # -- 15. the repairs, the 2-D texture op and the models on the card ---------
+    # C.1 and C.2 at 64^2: finite, bitwise repeatable, within the CPU bars of
+    # the CPU path.
+    rep = (REPAIR_RES, REPAIR_RES)
+    rng15 = np.random.RandomState(15)
+    (a9, uv2, tex9, env8, dirs8) = inputs_from_numpy(
+        rng15.rand(1, a8.shape[-2], 9), rng15.rand(2, tuv.shape[0], 2),
+        rng15.rand(1, 32, 64, 9), rng15.rand(1, 6, 8, 8, 3),
+        rng15.randn(tuv.shape[0], 3), device=dev)
+
+    def repairs(view, devc):
+        xs = [x.to(devc).detach().clone().requires_grad_()
+              for x in (view, a9, uv2, tex9, env8, dirs8, tuv, ttex)]
+        td, cd = t8.to(devc), c8.to(devc)
+        rast, _ = dr.rasterize(None, xs[0], td, rep, grad_db=False)
+        imgs = [dr.antialias(dr.interpolate(xs[1], rast, cd)[0].repeat(1, 1, 1, 2)[..., :17],
+                             rast, xs[0], td),
+                dr.render_pipeline(xs[0], td, xs[1], rep, attr_idx=cd),
+                dr.render_pipeline_textured(xs[0], td, xs[2], xs[7], rep, uv_tri=cd),
+                dr.render_pipeline_textured(xs[0], td, xs[6], xs[3], rep, uv_tri=cd,
+                                            filter_mode="linear"),
+                dr.render_pipeline_textured(xs[0], td, xs[6], xs[7], rep, uv_tri=cd,
+                                            filter_mode="nearest"),
+                dr.render_pipeline_textured(xs[0], td, xs[5], xs[4], rep, uv_tri=cd,
+                                            boundary_mode="cube")]
+        loss = sum((i ** 2).mean() for i in imgs)
+        used = [x for x in xs if x is not xs[6]]
+        return [i.detach() for i in imgs] + list(torch.autograd.grad(loss, used,
+                                                                    allow_unused=True))
+
+    pos2x = reqs[2]
+    rg = repairs(pos2x.expand(2, -1, -1).contiguous(), dev)
+    for x, y in zip(rg, repairs(pos2x.expand(2, -1, -1).contiguous(), dev)):
+        if not (bool(torch.isfinite(x).all()) and torch.equal(x, y)):
+            raise AssertionError("repairs: not finite or not bitwise repeatable")
+    rc_cpu = repairs(pos2x.expand(2, -1, -1).contiguous().cpu(), "cpu")
+    rep_err = 0.0
+    for i, (x, y) in enumerate(zip(rg, rc_cpu)):
+        err = float((x.cpu() - y).abs().max())
+        scale = max(float(y.abs().max()), 1e-30)
+        bar = TEX_CPU_ATOL if i < 6 else TEX_GRAD_RTOL * scale
+        if not err <= bar:
+            raise AssertionError(f"repairs output {i}, GPU vs CPU: {err} (bar {bar})")
+        rep_err = max(rep_err, err / (1.0 if i < 6 else scale))
+    log(f"[15] C.1 (antialias C = 17, render_pipeline A = 9) and C.2 (per-image uvs, C = 9, "
+        f"nearest, cube) at {REPAIR_RES}^2, B = 2: finite, bitwise repeatable, within the CPU "
+        f"bars of the CPU path (worst {rep_err:.3g})")
+
+    # The 2-D texture op fwd + bwd on the bench textured scene.
+    tex_kernels = (tc.KERNEL, txb.BWD_KERNEL, txb.GRAD_KERNEL)
+
+    def uv_of(view):
+        with torch.no_grad():
+            rast, rast_db = dr.rasterize(None, view, t8, res, grad_db=True)
+            return dr.interpolate(tuv, rast, c8, rast_db, diff_attrs="all")
+
+    tuvs = [uv_of(view) for view in reqs]
+
+    def tex_step(uv, uv_da):
+        xs = [x.detach().clone().requires_grad_() for x in (ttex, uv, uv_da)]
+        img = dr.texture(xs[0], xs[1], xs[2], filter_mode=FILTER, boundary_mode=BOUNDARY)
+        return torch.autograd.grad((img ** 2).mean(), xs)
+
+    for k in tex_kernels:
+        k.launches = 0
+    for d in tuvs:
+        tex_step(*d)
+    torch.cuda.synchronize()
+    top_launches = {k.name: k.launches for k in tex_kernels}
+    if min(top_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the texture op never launched: {top_launches}")
+    top_ms = window_ms(torch, tex_step, tuvs)
+    log(f"[15] texture (2-D, {FILTER}) fwd+bwd {RES}^2: {top_ms:.3f} ms/step; launches over "
+        f"8 views {top_launches} ({card})")
+
+    # The models.
+    from nvdiffrast_tpu_torch.models.fit_earth import EarthFitModel
+    from nvdiffrast_tpu_torch.models.fit_envphong import EnvPhongFitModel
+
+    def run_model(model, steps, metric, kernels):
+        for k in kernels:
+            k.launches = 0
+        m0 = metric(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [model.step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = {k.name: k.launches for k in kernels}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel of the model's path never launched: {launches}")
+        return m0, metric(model), losses, ms, launches
+
+    env_metric = lambda m: m.metrics()[0]  # noqa: E731
+    model_kernels = (tcc.FWD_KERNEL, scatter.KERNEL, rc.DB_KERNEL, ic.KERNEL)
+    e0, e1, el, env_ms, el_launch = run_model(
+        EnvPhongFitModel(res=128, env_res=32, subdiv=2, seed=0, device=dev), ENV_STEPS,
+        env_metric, model_kernels)
+    lk = ENV_STEPS // 10
+    log(f"[15] EnvPhongFitModel(128, env 32, subdiv 2): env RMSE {e0:.4f} -> {e1:.4f}, loss "
+        f"{np.mean(el[:lk]):.5f} -> {np.mean(el[-lk:]):.5f} over {ENV_STEPS} steps, "
+        f"{env_ms:.3f} ms/step; launches {el_launch} ({card})")
+    if not (e1 < e0 and np.mean(el[-lk:]) < np.mean(el[:lk])):
+        raise AssertionError("EnvPhongFitModel: env RMSE or loss did not fall")
+    s0, s1, _, envs_ms, _ = run_model(
+        EnvPhongFitModel(res=32, env_res=8, subdiv=1, seed=0, device=dev), 150, env_metric,
+        model_kernels)
+    log(f"[15] EnvPhongFitModel(32, env 8, subdiv 1): env RMSE {s0:.4f} -> {s1:.4f} after 150 "
+        f"steps (bar {ENV_BAR}), {envs_ms:.3f} ms/step ({card})")
+    if not s1 < ENV_BAR:
+        raise AssertionError(f"envphong test configuration: env RMSE {s1}")
+    earth_kernels = (tc.KERNEL, txb.GRAD_KERNEL, rc.DB_KERNEL, ic.KERNEL)
+    psnr = lambda m: m.texture_psnr()  # noqa: E731
+    p0, p1, pl_, earth_ms, pl_launch = run_model(
+        EarthFitModel(res=128, ref_res=256, tex_res=(128, 256), max_mip_level=9, seed=0,
+                      device=dev), EARTH_STEPS, psnr, earth_kernels)
+    log(f"[15] EarthFitModel(128, ref 256, tex 128x256): PSNR {p0:.3f} -> {p1:.3f} dB over "
+        f"{EARTH_STEPS} steps, {earth_ms:.3f} ms/step; launches {pl_launch} ({card})")
+    if not p1 > p0:
+        raise AssertionError("EarthFitModel: PSNR did not rise")
+    q0, q1, _, earths_ms, _ = run_model(
+        EarthFitModel(res=32, ref_res=64, tex_res=(32, 64), max_mip_level=4, seed=0,
+                      device=dev), 50, psnr, earth_kernels)
+    log(f"[15] EarthFitModel(32, ref 64, tex 32x64): PSNR {q0:.3f} -> {q1:.3f} dB after 50 "
+        f"steps (bar {EARTH_BAR}), {earths_ms:.3f} ms/step ({card})")
+    if not q1 > EARTH_BAR:
+        raise AssertionError(f"earth test configuration: PSNR {q1}")
+
     # Bounds: bytes each input read once and each output written once, over
     # 3.35 TB/s; float32 operations counted from the kernels' sources, over
     # 67 TFLOP/s. The larger is the bound.
@@ -1207,6 +1471,18 @@ def main():
     ibwd_bound = bound((atbl11.numel() + (3 + A) * N + (2 + 3 * A) * N) * f32, 10 * A * N)
     take_bound = bound((vtbl11.numel() + N + 9 * N) * f32, 0)
     srows_bound = bound((n_live * 10 + 2 * (R11 + 1) + R11 * 9) * f32, 9 * n_live)
+
+    # Cube sampler: reads finite of every pixel, and s, t, face, tz (flevel
+    # under a mip filter; C cotangents in the backward) of the valid
+    # directions only, the pyramid once; writes C channels (3 gradients)
+    # of every pixel; ~(40 + 8C) operations a level read forward (corner
+    # setup, the seam wrap of the corners off the face, the average-of-3
+    # fill, the blend), ~(40 + 14C) backward.
+    cvalid_words = n_cvalid * (4 + ("mipmap" in FILTER))
+    cube_fwd_bound = bound((N + cvalid_words + n_ctex * 3 + 3 * N) * f32,
+                           n_creads * (40 + 8 * 3))
+    cube_bwd_bound = bound((N + cvalid_words + 3 * n_cvalid + n_ctex * 3 + 3 * N) * f32,
+                           n_creads * (40 + 14 * 3))
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1264,6 +1540,12 @@ def main():
         entry("scatter_rows", "cuda", "nvdiffrast_tpu_torch/csrc/scatter_rows.cu",
               "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.KERNEL.name],
               scatter_rows_err, srows_ms, srows_plain_ms, srows_bound, srows_lib_ms),
+        entry("texture_cube_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube.cu",
+              "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.FWD_KERNEL.name],
+              cube_fwd_err, cube_fwd_ms, cube_fwd_plain_ms, cube_fwd_bound, None),
+        entry("texture_cube_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube.cu",
+              "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.BWD_KERNEL.name],
+              cube_bwd_err, cube_bwd_ms, cube_bwd_plain_ms, cube_bwd_bound, None),
     ]
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "

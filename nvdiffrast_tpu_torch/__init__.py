@@ -13,11 +13,17 @@ nvcc at first use on a GPU):
   ``interpolate`` (with ``diff_attrs``) and ``antialias``;
 * ``render_pipeline`` (rasterize + interpolate + antialias fused):
   gradients to the clip-space positions and the vertex attributes;
+* ``texture`` (2-D textures in every filter and boundary mode, cube maps
+  with seamless filtering; ``uv_da``, ``mip_level_bias``, mip stacks from
+  ``texture_construct_mip`` or lists): gradients to the texture (or its
+  mip levels), uv, uv_da and the bias;
 * ``render_pipeline_textured`` (rasterize with bary derivatives + uv
-  interpolate + 2-D texture + antialias), in the linear and mip filter
-  modes: gradients to the positions, the uvs and the texture.
+  interpolate + texture + antialias): fused kernels for 2-D textures of
+  up to 8 channels, the composed ops for the rest; gradients to the
+  positions, the uvs and the texture.
 
-``models`` holds the cube and pose fitting models on the ops. CPU
+``models`` holds the cube, pose, earth and envphong fitting models on
+the ops. CPU
 tensors run the kernels' plain PyTorch twins. Every call runs on the
 device of its input.
 """
@@ -30,15 +36,21 @@ from .ops.coord import float_to_triidx, triidx_to_float
 from .ops.interpolate import interpolate
 from .ops.pipeline import render_pipeline
 from .ops.pipeline_tex import render_pipeline_textured
-from .ops.rasterize import DepthPeeler, RasterizeCudaContext, rasterize
+from .ops.rasterize import (DepthPeeler, RasterizeCudaContext, RasterizeGLContext,
+                            rasterize)
+from .ops.texture import TextureMipWrapper, texture, texture_construct_mip
 from .utils.log import get_log_level, set_log_level
 
 __all__ = [
     "__version__",
     "RasterizeCudaContext",
-    "DepthPeeler",
+    "RasterizeGLContext",
     "rasterize",
+    "DepthPeeler",
     "interpolate",
+    "texture",
+    "texture_construct_mip",
+    "TextureMipWrapper",
     "antialias",
     "antialias_construct_topology_hash",
     "TopologyHashWrapper",

@@ -1,8 +1,9 @@
 """Procedural meshes (numpy only).
 
 Copies of ``nvdiffrast_tpu.models.primitives``' ``cube_continuous``,
-``cube_discontinuous`` and ``uv_sphere`` (the same arrays), kept free of
-any JAX import.
+``cube_discontinuous``, ``uv_sphere``, ``icosphere``,
+``checkerboard_texture`` and ``procedural_cubemap`` (the same arrays),
+kept free of any JAX import.
 """
 
 import numpy as np
@@ -80,3 +81,88 @@ def uv_sphere(n_lat=32, n_lon=64, radius=1.0):
                 tris.append([b, d, c])
     tri = np.asarray(tris, np.int32)
     return tri, vtx, tri.copy(), uvs
+
+
+def icosphere(subdiv=3, radius=1.0):
+    """Icosphere by repeated midpoint subdivision (envphong geometry).
+
+    Returns (tri [T, 3] i32, vtx [V, 3] f32)."""
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]], np.int64)
+
+    for _ in range(subdiv):
+        cache = {}
+        vlist = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key in cache:
+                return cache[key]
+            m = (verts[a] + verts[b]) / 2.0
+            m /= np.linalg.norm(m)
+            vlist.append(m)
+            cache[key] = len(vlist) - 1
+            return cache[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab = midpoint(a, b)
+            bc = midpoint(b, c)
+            ca = midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(vlist)
+        faces = np.asarray(new_faces, np.int64)
+
+    vtx = (radius * verts).astype(np.float32)
+    return faces.astype(np.int32), vtx
+
+
+def checkerboard_texture(h=256, w=512, c=3, tiles=16):
+    """Procedural stand-in for the earth texture [h, w, c] in [0, 1]."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (((xx * tiles // w) + (yy * tiles // h)) % 2).astype(np.float32)
+    r = 0.25 + 0.5 * base
+    g = 0.5 + 0.35 * np.sin(2 * np.pi * xx / w) * np.cos(np.pi * yy / h)
+    b = 1.0 - base * 0.6
+    tex = np.stack([r, g, b][:c], axis=-1).astype(np.float32)
+    return np.clip(tex, 0.0, 1.0)
+
+
+def procedural_cubemap(res=64, c=3):
+    """Smooth procedural environment cube map [6, res, res, c]."""
+    faces = []
+    for f in range(6):
+        s = (np.arange(res) + 0.5) / res
+        ss, tt = np.meshgrid(s, s, indexing="xy")
+        du = 2.0 * (ss - 0.5)
+        dv = 2.0 * (tt - 0.5)
+        one = np.ones_like(du)
+        if f == 0:
+            d = np.stack([one, -dv, -du], -1)
+        elif f == 1:
+            d = np.stack([-one, -dv, du], -1)
+        elif f == 2:
+            d = np.stack([du, one, dv], -1)
+        elif f == 3:
+            d = np.stack([du, -one, -dv], -1)
+        elif f == 4:
+            d = np.stack([du, -dv, one], -1)
+        else:
+            d = np.stack([-du, -dv, -one], -1)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        col = 0.5 + 0.5 * np.stack([
+            np.sin(3.0 * d[..., 0]) * np.cos(2.0 * d[..., 1]),
+            np.sin(2.5 * d[..., 1] + 1.0),
+            np.cos(3.5 * d[..., 2]) * np.sin(1.5 * d[..., 0]),
+        ], axis=-1)
+        faces.append(col[..., :c].astype(np.float32))
+    return np.stack(faces)

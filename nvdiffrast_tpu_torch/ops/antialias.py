@@ -314,17 +314,49 @@ def _pixel_grid(B, H, W, T, device):
 # The op (antialias.py:479-728).
 # ---------------------------------------------------------------------------
 
+def channel_groups(C, width):
+    """Channel ranges [a, b) of at most `width` channels covering C: how
+    the kernels of at most 8 channels serve wider images and textures."""
+    return [(a, min(a + width, C)) for a in range(0, C, width)]
+
+
+def aa_fwd_groups(ct, idf, zw, ftable, shape, T):
+    """``antialias_cuda.aa_forward`` over channel groups of 8: (out
+    [C, N], residuals). The residuals are the pairs' geometry, the same
+    for every group."""
+    from .antialias_cuda import MAX_C, aa_forward
+
+    outs = []
+    for a, b in channel_groups(ct.shape[0], MAX_C):
+        out, res = aa_forward(ct[a:b].contiguous(), idf, zw, ftable, shape, T)
+        outs.append(out)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)), res
+
+
 def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
                 need_pos=True):
     """(g_color [C, N], g_pos [B, V, 4] or None) from the cotangent
     dy [C, N] of the antialiased image: kernel B8, then the pairs' rows
-    reduced by kernel B10 and summed into vertices, times boost."""
-    from .antialias_cuda import aa_backward
+    reduced by kernel B10 and summed into vertices, times boost.
+
+    Past 8 channels B8 runs per group of 8; a pair's position gradient is
+    linear in its colour difference, so each group's columns add to those
+    of the groups before it (the pair rows are the same for every group).
+    The sum over channels then rounds per group: within a few float32
+    ulps of the columns of one pass, not bit for bit.
+    """
+    from .antialias_cuda import MAX_C, aa_backward
     from .rasterize import xyw_rows_to_vertices
     from .scatter import scatter_add_by_id
 
     T = tri.shape[0]
-    g_color, rid2, gval2 = aa_backward(dy, ct, idf, vtbl, residuals, shape, T)
+    g_color, gval2 = [], None
+    for a, b in channel_groups(ct.shape[0], MAX_C):
+        gc, rid2, gv = aa_backward(dy[a:b].contiguous(), ct[a:b].contiguous(), idf, vtbl,
+                                   residuals, shape, T)
+        g_color.append(gc)
+        gval2 = gv if gval2 is None else gval2 + gv
+    g_color = g_color[0] if len(g_color) == 1 else torch.cat(g_color)
     if not need_pos:
         return g_color, None
     gt = scatter_add_by_id(rid2.reshape(-1), gval2, vtbl.shape[1] - 1)
@@ -337,8 +369,6 @@ class _AntialiasFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, color, rast, pos, tri, op_table, boost):
-        from .antialias_cuda import aa_forward
-
         B, H, W, C = color.shape
         N = B * H * W
         T = tri.shape[0]
@@ -346,7 +376,7 @@ class _AntialiasFn(torch.autograd.Function):
         idf = rast[..., 3].reshape(N).contiguous()
         zw = rast[..., 2].reshape(N).contiguous()
         ftable, vtbl, _, _ = _build_tables(pos, tri, op_table, H, W)
-        out, res = aa_forward(ct, idf, zw, ftable, (B, H, W), T)
+        out, res = aa_fwd_groups(ct, idf, zw, ftable, (B, H, W), T)
         ctx.save_for_backward(ct, idf, vtbl, tri, *res)
         ctx.meta = (tuple(color.shape), tuple(pos.shape), boost)
         return out.T.reshape(B, H, W, C)
@@ -369,7 +399,8 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
     """Antialias silhouette edges (instance mode).
 
     Args:
-        color: [minibatch, H, W, C] float32 image, C <= 8. A tensor runs on
+        color: [minibatch, H, W, C] float32 image (C > 8 runs in groups
+            of 8 channels through the same kernels). A tensor runs on
             its device (CPU tensors on the plain twins); anything else is
             put on the default CUDA device, and raises RuntimeError where
             there is none.
@@ -384,7 +415,6 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
         The antialiased image, shaped like `color`; differentiable with
         respect to `color` and `pos` (rast gets no gradient).
     """
-    from .antialias_cuda import MAX_C
     from .rasterize import as_device_tensor
 
     if viewport is not None:
@@ -415,9 +445,8 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
     if tri.ndim != 2 or tri.shape[1] != 3:
         raise ValueError(f"antialias: tri must be [num_triangles, 3]; got "
                          f"{tuple(tri.shape)}")
-    if not 1 <= color.shape[-1] <= MAX_C:
-        raise NotImplementedError(
-            f"antialias: {color.shape[-1]} channels; the kernels serve 1 to {MAX_C}")
+    if color.shape[-1] < 1:
+        raise ValueError("antialias: color has no channels")
     if topology_hash is not None:
         if not isinstance(topology_hash, TopologyHashWrapper):
             raise TypeError("antialias: topology_hash must be a TopologyHashWrapper")

@@ -198,7 +198,9 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
             and raises RuntimeError where there is none.
         tri: [num_triangles, 3] int32.
         attr: [minibatch or 1, num_vertices_attr, A] or
-            [num_vertices_attr, A] float32 vertex attributes, A <= 8.
+            [num_vertices_attr, A] float32 vertex attributes; past 8
+            channels the call composes rasterize, interpolate and
+            antialias.
         resolution: (height, width).
         attr_idx: triangle tensor for the attribute topology (defaults
             to `tri`; must have the same number of triangles).
@@ -219,8 +221,8 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
 
     if pos.ndim != 3:
         raise NotImplementedError(
-            "render_pipeline: only instance mode ([minibatch, V, 4] pos) "
-            "is ported")
+            "render_pipeline: range mode (2-D pos) is not ported yet (ROADMAP "
+            "A.9); pass [minibatch, num_vertices, 4] positions")
     if atri.shape[0] != tri.shape[0]:
         raise ValueError(
             f"render_pipeline: attr_idx triangle count {atri.shape[0]} "
@@ -231,10 +233,8 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
             "render_pipeline: attr must be [minibatch or 1, V, A] or [V, A]; "
             f"got {tuple(attr.shape)}")
     A = attr.shape[-1]
-    if not 1 <= A <= MAX_A:
-        raise NotImplementedError(
-            f"render_pipeline: {A} attribute channels; the fused kernel "
-            f"serves 1 to {MAX_A}")
+    if A < 1:
+        raise ValueError("render_pipeline: attr has no channels")
 
     if topology_hash is not None:
         if not isinstance(topology_hash, TopologyHashWrapper):
@@ -244,5 +244,16 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
     else:
         op_table = build_opposite_table(tri)
 
+    if A > MAX_A:
+        # Past the fused kernel's width: the standalone ops, as the JAX
+        # package's fallback composes them (ops/pipeline.py:249-262).
+        from .antialias import antialias
+        from .interpolate import interpolate
+        from .rasterize import rasterize
+
+        rast, _ = rasterize(None, pos, tri, resolution, grad_db=False)
+        color, _ = interpolate(attr, rast, atri)
+        return antialias(color, rast, pos, tri, topology_hash=TopologyHashWrapper(op_table),
+                         pos_gradient_boost=pos_gradient_boost)
     return _PipelineFn.apply(pos, attr, tri, atri, op_table, resolution,
                              float(pos_gradient_boost))

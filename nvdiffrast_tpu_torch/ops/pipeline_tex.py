@@ -1,6 +1,6 @@
 """Textured render pipeline, forward and backward (torch).
 
-Counterpart of ``nvdiffrast_tpu/ops/pipeline_tex.py`` for 2-D textures:
+Counterpart of ``nvdiffrast_tpu/ops/pipeline_tex.py``:
 ``render_pipeline_textured`` renders
 
     rast, rast_db = rasterize(pos, tri, resolution, grad_db=True)
@@ -30,6 +30,10 @@ backwards, as the JAX package's flat chain does
 (``pipeline_tex.py:362-427``): antialias (kernels B8, B10), the texture
 (``texture_bwd_cuda``), interpolate (kernels B6, B10) and rasterize
 (kernels B9, B10).
+
+What the fused kernels do not serve (per-image uvs, more than 8
+channels, 'nearest', cube maps) composes the standalone ops, as the JAX
+package's fallback does (``_composed``).
 """
 
 import torch
@@ -147,7 +151,7 @@ def _ptex_bwd_core(saved, uv_attr, tri, uv_tri, resolution, filter_mode,
             g_pos = raster_pos_grad(vtbl, tri, pos_shape, idf, grast[0], grast[1], None,
                                     resolution) + g_pos_aa
         return g_pos, g_uv, g_tex
-    gda4 = tx.mip_level_vjp(da, gfl, th, tw, len(meta))
+    gda4 = tx.level_vjp(da, gfl, th, tw, len(meta))[0]
 
     # 4. Fused interpolate + rasterize backward; 5. one scatter for the uv,
     # raster and antialias pair gradients; then triangle -> vertex rows.
@@ -191,7 +195,7 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
                              filter_mode="linear-mipmap-linear",
                              boundary_mode="wrap", max_mip_level=-1,
                              pos_gradient_boost=1.0, topology_hash=None):
-    """Render rasterize + uv interpolate + 2-D texture + antialias.
+    """Render rasterize + uv interpolate + texture + antialias.
 
     Args:
         pos: [minibatch, num_vertices, 4] float32 clip-space positions.
@@ -199,16 +203,16 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
             twins); anything else is put on the default CUDA device,
             and raises RuntimeError where there is none.
         tri: [num_triangles, 3] int32.
-        uv_attr: [num_uv_vertices, 2] or [1, num_uv_vertices, 2] float32
-            texture coordinates.
-        tex: [D, height, width, C] float32 texture, D = 1 or minibatch,
-            C <= 8.
+        uv_attr: [num_uv_vertices, 2], [1, num_uv_vertices, 2] or
+            [minibatch, num_uv_vertices, 2] float32 texture coordinates,
+            or [..., 3] directions with boundary_mode='cube'.
+        tex: [D, height, width, C] float32 texture, or a cube map
+            [D, 6, w, w, C]; D = 1 or minibatch.
         resolution: (height, width).
         uv_tri: [num_triangles, 3] int32 uv indices (defaults to `tri`).
-        filter_mode: 'linear', 'linear-mipmap-nearest' or
-            'linear-mipmap-linear' ('nearest' is not ported yet).
-        boundary_mode: 'wrap', 'clamp' or 'zero' ('cube' is not ported
-            yet).
+        filter_mode: 'nearest', 'linear', 'linear-mipmap-nearest' or
+            'linear-mipmap-linear'.
+        boundary_mode: 'wrap', 'clamp', 'zero' or 'cube'.
         max_mip_level: limit on the mip levels built; -1 = down to 1x1.
         pos_gradient_boost: antialias position-gradient multiplier.
         topology_hash: optional TopologyHashWrapper for `tri`.
@@ -216,6 +220,12 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
     Returns:
         Antialiased textured image [minibatch, height, width, C];
         differentiable with respect to `pos`, `uv_attr` and `tex`.
+
+    The fused kernels serve 2-D textures of up to 8 channels with one uv
+    table in the linear and mip filter modes. Per-image uvs, more
+    channels, 'nearest' and cube maps compose the standalone ops
+    ``rasterize`` -> ``interpolate`` -> ``texture`` -> ``antialias``, as
+    the JAX package's fallback does (``pipeline_tex.py:324-347``).
     """
     tx.check_modes(filter_mode, boundary_mode)
     pos = as_device_tensor(pos, "render_pipeline_textured")
@@ -229,33 +239,33 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
     uv_tri = tri if uv_tri is None else torch.as_tensor(
         uv_tri, dtype=torch.int32, device=dev)
     resolution = tuple(int(x) for x in resolution)
+    cube = boundary_mode == "cube"
 
     if pos.ndim != 3:
         raise NotImplementedError(
-            "render_pipeline_textured: only instance mode ([minibatch, V, 4] "
-            "pos) is ported")
+            "render_pipeline_textured: range mode (2-D pos) is not ported yet "
+            "(ROADMAP A.9); pass [minibatch, num_vertices, 4] positions")
     _check_rasterize_args(pos, tri, resolution)
+    B = pos.shape[0]
     if uv_tri.shape != tri.shape:
         raise ValueError(
             f"render_pipeline_textured: uv_tri {tuple(uv_tri.shape)} must "
             f"match tri {tuple(tri.shape)}")
-    if uv_attr.shape[-1] != 2 or not (
-            uv_attr.ndim == 2 or (uv_attr.ndim == 3 and uv_attr.shape[0] == 1)):
+    A = 3 if cube else 2
+    if uv_attr.shape[-1] != A or not (
+            uv_attr.ndim == 2 or (uv_attr.ndim == 3 and uv_attr.shape[0] in (1, B))):
         raise ValueError(
-            "render_pipeline_textured: uv_attr must be [V, 2] or [1, V, 2]; "
-            f"got {tuple(uv_attr.shape)}")
+            f"render_pipeline_textured: uv_attr must be [V, {A}], [1, V, {A}] or "
+            f"[minibatch, V, {A}]; got {tuple(uv_attr.shape)}")
     if uv_tri.numel() and (int(uv_tri.min()) < 0
                            or int(uv_tri.max()) >= uv_attr.shape[-2]):
         raise ValueError("render_pipeline_textured: uv_tri indices out of "
                          f"range [0, {uv_attr.shape[-2]})")
-    if tex.ndim != 4 or tex.shape[0] not in (1, pos.shape[0]):
+    if tex.ndim != (5 if cube else 4) or tex.shape[0] not in (1, B) or (
+            cube and tex.shape[1] != 6):
         raise ValueError(
-            "render_pipeline_textured: tex must be [1 or minibatch, h, w, C]; "
-            f"got {tuple(tex.shape)}")
-    if not 1 <= tex.shape[-1] <= MAX_C:
-        raise NotImplementedError(
-            f"render_pipeline_textured: {tex.shape[-1]} texture channels; the "
-            f"kernels serve 1 to {MAX_C}")
+            "render_pipeline_textured: tex must be [1 or minibatch, h, w, C] (cube: "
+            f"[1 or minibatch, 6, w, w, C]); got {tuple(tex.shape)}")
 
     if topology_hash is not None:
         if not isinstance(topology_hash, TopologyHashWrapper):
@@ -264,8 +274,30 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
         op_table = topology_hash.op_table.to(dev)
     else:
         op_table = build_opposite_table(tri)
+    per_image_uv = uv_attr.ndim == 3 and uv_attr.shape[0] > 1
+    if (cube or filter_mode == "nearest" or tex.shape[-1] > MAX_C or per_image_uv):
+        return _composed(pos, tri, uv_attr, tex, uv_tri, op_table, resolution, filter_mode,
+                         boundary_mode, max_mip_level, pos_gradient_boost)
     args = (pos, uv_attr, tex, tri, uv_tri, op_table, resolution, filter_mode,
             boundary_mode, int(max_mip_level))
     if grad:
         return _PipelineTexFn.apply(*args, float(pos_gradient_boost))
     return _ptex_fwd_core(*args)[0]
+
+
+def _composed(pos, tri, uv_attr, tex, uv_tri, op_table, resolution, filter_mode,
+              boundary_mode, max_mip_level, boost):
+    """The textured chain through the standalone ops (their kernels and
+    backwards)."""
+    from .antialias import antialias
+    from .interpolate import interpolate
+    from .rasterize import rasterize
+
+    use_mip = "mipmap" in filter_mode
+    rast, rast_db = rasterize(None, pos, tri, resolution, grad_db=use_mip)
+    uv, uv_da = interpolate(uv_attr, rast, uv_tri, rast_db,
+                            diff_attrs="all" if use_mip else None)
+    img = tx.texture(tex, uv, uv_da if use_mip else None, filter_mode=filter_mode,
+                     boundary_mode=boundary_mode, max_mip_level=max_mip_level)
+    return antialias(img, rast, pos, tri, topology_hash=TopologyHashWrapper(op_table),
+                     pos_gradient_boost=boost)

@@ -106,7 +106,7 @@ def interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, resolution, T):
         clip-space vertex table (``antialias._build_tables``' btable).
       idf: [N] rasterizer id channel, N = B*H*W.
       gu, gv: [N] uv cotangents (``texture_bwd``); gda4: [4, N] uv_da
-        cotangents (``texture.mip_level_vjp``), (du/dX, du/dY, dv/dX,
+        cotangents (``texture.level_vjp``), (du/dX, du/dY, dv/dX,
         dv/dY); db4: [4, N] the rasterizer's bary derivatives.
       resolution: (H, W); T: triangles per image.
 

@@ -35,6 +35,26 @@ class RasterizeCudaContext:
         self.active_depth_peeler = None
 
 
+class RasterizeGLContext(RasterizeCudaContext):
+    """Deprecated alias of RasterizeCudaContext, kept for API parity."""
+
+    def __init__(self, output_db=True, mode="automatic", device=None):
+        import warnings
+
+        warnings.warn(
+            "RasterizeGLContext has been deprecated and uses RasterizeCudaContext internally",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        super().__init__(device=device)
+
+    def set_context(self):
+        pass
+
+    def release_context(self):
+        pass
+
+
 def _dop(a, b, c, d):
     """Correctly-rounded f32 difference of products fl(a*b - c*d).
 

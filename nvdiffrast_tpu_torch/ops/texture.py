@@ -1,16 +1,27 @@
-"""Texture glue of the port: mip pyramid, packing and the mip level (torch).
+"""Texture op of the port: mip pyramid, packing, the mip level and
+``texture`` (torch).
 
-Counterparts of parts of ``nvdiffrast_tpu/ops/texture.py``: the level
-sizes (``_mip_shapes``, with its odd-size rule), the 2x2 box-filter
-pyramid (``build_mip_stack``), the flat texel-major packing of all levels
+Counterparts of ``nvdiffrast_tpu/ops/texture.py``: the level sizes
+(``_mip_shapes``, with its odd-size rule), the 2x2 box-filter pyramid of
+2-D and cube textures (``build_mip_stack``, ``TextureMipWrapper``,
+``texture_construct_mip``), the flat texel-major packing of all levels
 (``_pack_pyramid``, ``_static_meta``), the footprint -> mip level map
-(``_mip_level_from_footprint_cols``) and the mode checks. All of it is
-plain tensor code on both routes, so the sampler kernel
-(``texture_cuda.sample``) and its plain twin read the same pyramid and
-the same ``flevel`` bits.
+(``_mip_level_from_footprint_cols``) and its vjp, the mode checks, and
+the public op ``texture`` (``_texture_impl``) as a
+``torch.autograd.Function`` with a hand-written backward. Its kernels:
+the 2-D sampler B11 (``texture_cuda.sample``), its uv / level backward
+(``texture_bwd_cuda.texture_bwd``) and texture gradient B13
+(``texture_bwd_cuda.texture_grad``); the cube sampler B12 and its
+backward (``texture_cube_cuda``), whose texture gradient goes through
+B10 (``scatter.scatter_add_by_id``). ``filter_mode='nearest'`` is tensor
+glue, as the JAX package's XLA-only ``_sample_nearest``. Textures of
+more than 8 channels run in groups of 8 through the same kernels. The
+pyramid, the level and the cube glue (``texture_cube``) are plain tensor
+code on both routes, so a kernel and its plain twin read the same bits.
 """
 
 import torch
+from torch.autograd.function import once_differentiable
 
 # Maximum number of mip levels (the reference's texture.h).
 MAX_MIP_LEVEL = 16
@@ -21,20 +32,13 @@ BOUNDARY_MODES = ("cube", "wrap", "clamp", "zero")
 
 
 def check_modes(filter_mode, boundary_mode):
-    """ValueError for an unknown mode; NotImplementedError for the modes
-    the port does not have yet (cube maps, nearest filtering)."""
+    """ValueError for an unknown mode."""
     if filter_mode not in FILTER_MODES:
         raise ValueError(f"unknown filter_mode {filter_mode!r}; expected one "
                          f"of {FILTER_MODES}")
     if boundary_mode not in BOUNDARY_MODES:
         raise ValueError(f"unknown boundary_mode {boundary_mode!r}; expected "
                          f"one of {BOUNDARY_MODES}")
-    if boundary_mode == "cube":
-        raise NotImplementedError(
-            "boundary_mode='cube' (cube maps) is not ported yet (ROADMAP A.10)")
-    if filter_mode == "nearest":
-        raise NotImplementedError(
-            "filter_mode='nearest' is not ported yet (ROADMAP A.7)")
 
 
 def _mip_shapes(h, w, max_levels):
@@ -76,16 +80,61 @@ def _downsample2x(x):
     return (x[..., 0, :] + x[..., 1, :]) * 0.5
 
 
-def build_mip_stack(tex, max_mip_level=-1):
-    """Mip levels 1.. of a 2-D texture [D, h, w, C] (the base not
-    included; empty when the texture is 1x1 or max_mip_level is 0)."""
-    shapes = _mip_shapes(int(tex.shape[-3]), int(tex.shape[-2]), max_mip_level)
+def build_mip_stack(tex, max_mip_level=-1, cube_mode=False):
+    """Mip levels 1.. of a 2-D texture [D, h, w, C] or a cube map
+    [D, 6, w, w, C], whose faces must be square and downsample each on
+    its own (the base not included; empty when the texture is 1x1 or
+    max_mip_level is 0)."""
+    h, w = int(tex.shape[-3]), int(tex.shape[-2])
+    if cube_mode and h != w:
+        raise ValueError("cube map faces must be square")
+    shapes = _mip_shapes(h, w, max_mip_level)
+    lead = tuple(tex.shape[:-3])
     levels = []
-    cur = tex
+    cur = tex.reshape((-1,) + tuple(tex.shape[-3:]))
     for _ in shapes[1:]:
         cur = _downsample2x(cur)
-        levels.append(cur)
+        levels.append(cur.reshape(lead + tuple(cur.shape[1:])))
     return levels
+
+
+class TextureMipWrapper:
+    """Opaque mipmap stack: the constructed level tensors (the base not
+    included) and how they were made. Levels built from a tensor that
+    requires grad keep their autograd history, so gradients reach it."""
+
+    def __init__(self, levels=None, max_mip_level=-1, cube_mode=False):
+        self.levels = list(levels) if levels is not None else []
+        self.max_mip_level = int(max_mip_level)
+        self.cube_mode = bool(cube_mode)
+
+
+def texture_construct_mip(tex, max_mip_level=None, cube_mode=False):
+    """Construct a mipmap stack for a texture (the JAX package's
+    ``texture_construct_mip``).
+
+    Args:
+        tex: texture tensor with the same constraints as in ``texture``;
+            a tensor stays on its device, anything else goes to the
+            default CUDA device.
+        max_mip_level: if given (>= 0), limits the number of levels built.
+        cube_mode: must be True for cube map textures.
+
+    Returns:
+        A ``TextureMipWrapper`` usable as the ``mip`` argument of
+        ``texture``.
+    """
+    from .rasterize import as_device_tensor
+
+    if cube_mode is not True and cube_mode is not False:
+        raise ValueError("texture_construct_mip: cube_mode must be True or False")
+    tex = as_device_tensor(tex, "texture_construct_mip").to(torch.float32)
+    if max_mip_level is None:
+        max_mip_level = -1
+    elif int(max_mip_level) < 0:
+        raise ValueError("texture_construct_mip: max_mip_level must be >= 0 or None")
+    levels = build_mip_stack(tex, int(max_mip_level), cube_mode)
+    return TextureMipWrapper(levels, max_mip_level, cube_mode)
 
 
 def _pack_pyramid(levels):
@@ -146,8 +195,10 @@ def _tie(x, out, other):
     return torch.where(x == out, 1.0, 0.0) / torch.where(other == out, 2.0, 1.0)
 
 
-def mip_level_vjp(da, gfl, tex_h, tex_w, L):
-    """Gradient of ``mip_level`` with respect to da: [4, N] from gfl [N].
+def level_vjp(da, gfl, tex_h, tex_w, L, bias=None):
+    """Vjp of the mip level clip(footprint(da) + bias, 0, L-1): (g_da
+    [4, N] or None when da is None, g_bias [N]) from gfl [N]; either of
+    da and bias may be None (no footprint: the level is the bias alone).
 
     Written by hand in the order of JAX's reverse pass over
     ``clip(_mip_level_from_footprint_cols(...), 0, L-1)``
@@ -158,29 +209,37 @@ def mip_level_vjp(da, gfl, tex_h, tex_w, L):
     flevel = 0, at L-1 and at the 1e-38 floor), where torch.clamp would
     pass all of it.
     """
-    tw, th = float(tex_w), float(tex_h)
-    dsdx, dsdy = da[0] * tw, da[1] * tw
-    dtdx, dtdy = da[2] * th, da[3] * th
-    A = dsdx * dsdx + dtdx * dtdx
-    B = dsdy * dsdy + dtdy * dtdy
-    Cc = dsdx * dsdy + dtdx * dtdy
-    l2b = 0.5 * (A + B)
-    t7 = 0.25 * (A - B)
-    l2n = t7 * (A - B) + Cc * Cc
-    l2a = torch.sqrt(l2n)
-    s = l2b + l2a
-    floor = torch.full_like(s, 1e-38)
-    lms = torch.maximum(s, floor)
-    fl0 = 0.5 * torch.log2(lms)
-    nan = torch.isnan(fl0)
-    fl1 = torch.where(nan, 0.0, fl0)
-    zero = torch.zeros_like(fl1)
-    top = torch.full_like(fl1, float(L - 1))
-    y = torch.maximum(zero, fl1)       # jnp.clip: minimum(hi, maximum(lo, x))
+    if da is not None:
+        tw, th = float(tex_w), float(tex_h)
+        dsdx, dsdy = da[0] * tw, da[1] * tw
+        dtdx, dtdy = da[2] * th, da[3] * th
+        A = dsdx * dsdx + dtdx * dtdx
+        B = dsdy * dsdy + dtdy * dtdy
+        Cc = dsdx * dsdy + dtdx * dtdy
+        l2b = 0.5 * (A + B)
+        t7 = 0.25 * (A - B)
+        l2n = t7 * (A - B) + Cc * Cc
+        l2a = torch.sqrt(l2n)
+        s = l2b + l2a
+        floor = torch.full_like(s, 1e-38)
+        lms = torch.maximum(s, floor)
+        fl0 = 0.5 * torch.log2(lms)
+        nan = torch.isnan(fl0)
+        fl = torch.where(nan, 0.0, fl0)
+    else:
+        fl = torch.zeros_like(gfl)
+    if bias is not None:
+        fl = fl + bias
+    zero = torch.zeros_like(fl)
+    top = torch.full_like(fl, float(L - 1))
+    y = torch.maximum(zero, fl)       # jnp.clip: minimum(hi, maximum(lo, x))
     z = torch.minimum(top, y)
 
     g = gfl * _tie(y, z, top)
-    g = g * _tie(fl1, y, zero)
+    g = g * _tie(fl, y, zero)
+    if da is None:
+        return None, g
+    g_bias = g
     g = torch.where(nan, 0.0, g)
     g = ((0.5 * g) / _LN2) / lms       # 0.5 * log(x) / log(2)
     g_s = g * _tie(s, lms, floor)
@@ -196,7 +255,7 @@ def mip_level_vjp(da, gfl, tex_h, tex_w, L):
     g_dtdx = (g_C * dtdy + dtdx * g_A) + g_A * dtdx
     g_dsdy = (dsdx * g_C + dsdy * g_B) + g_B * dsdy
     g_dsdx = (g_C * dsdy + dsdx * g_A) + g_A * dsdx
-    return torch.stack([g_dsdx * tw, g_dsdy * tw, g_dtdx * th, g_dtdy * th])
+    return torch.stack([g_dsdx * tw, g_dsdy * tw, g_dtdx * th, g_dtdy * th]), g_bias
 
 
 def pyramid_vjp(g_flat, meta, D, C):
@@ -221,3 +280,307 @@ def pyramid_vjp(g_flat, meta, D, C):
             up = acc.repeat_interleave(2, dim=2) * 0.5
         acc = lvl + up
     return acc
+
+
+# ---------------------------------------------------------------------------
+# The op (texture.py:620-816 of the JAX package).
+# ---------------------------------------------------------------------------
+
+def _nearest_taps(meta, uv, tz, boundary_mode, cube):
+    """Texel [N] int64 and validity [N] of nearest filtering at the base
+    level (``_sample_nearest``)."""
+    from .texture_cube import cube_faceid, cube_project
+
+    off, h, w = meta[0]
+    if cube:
+        x, y, z = uv.unbind(1)
+        finfo = cube_faceid(x, y, z)
+        s, t, valid = cube_project(finfo, x, y, z)
+        iu = torch.clamp(torch.floor(s * float(w)).to(torch.int32).long(), 0, w - 1)
+        iv = torch.clamp(torch.floor(t * float(h)).to(torch.int32).long(), 0, h - 1)
+        return off + ((tz * 6 + finfo[0]) * h + iv) * w + iu, valid
+    u, v = uv.unbind(1)
+    if boundary_mode == "wrap":
+        u = u - torch.floor(u)
+        v = v - torch.floor(v)
+    iu = torch.floor(u * float(w)).to(torch.int32).long()
+    iv = torch.floor(v * float(h)).to(torch.int32).long()
+    valid = torch.ones_like(iu, dtype=torch.bool)
+    if boundary_mode == "zero":
+        valid = (iu >= 0) & (iu < w) & (iv >= 0) & (iv < h)
+    iu = torch.clamp(iu, 0, w - 1)
+    iv = torch.clamp(iv, 0, h - 1)
+    return off + (tz * h + iv) * w + iu, valid
+
+
+def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
+    """Forward of ``texture``: (image [B, H, W, C], saved tensors)."""
+    from .texture_cube import cube_faceid, cube_project, cube_st_da
+    from .antialias import channel_groups
+    from .texture_cube_cuda import sample_cube
+    from .texture_cuda import MAX_C, sample
+
+    filter_mode, boundary_mode, max_mip_level, use_mip = spec
+    cube = boundary_mode == "cube"
+    B, H, W = uv.shape[:3]
+    N = B * H * W
+    D, C = tex.shape[0], tex.shape[-1]
+    uvf = uv.reshape(N, uv.shape[-1])
+    if use_mip and not mips:
+        mips = build_mip_stack(tex, max_mip_level, cube)
+    levels = [tex] + list(mips if use_mip else ())
+    meta, _ = _static_meta(levels)
+    L = len(levels)
+    flat = _pack_pyramid(levels)
+    tz = (torch.arange(N, device=uv.device) // (H * W) if D > 1
+          else torch.zeros(N, dtype=torch.int64, device=uv.device))
+
+    # Mip level: the footprint (of the face coordinates for cube maps)
+    # plus the bias, clipped to the levels there are.
+    d = uv_da.reshape(N, uv_da.shape[-1]).T if uv_da is not None else None
+    da = None
+    flevel = torch.zeros(N, dtype=torch.float32, device=uv.device)
+    if use_mip:
+        if d is not None:
+            da = torch.stack(cube_st_da(*uvf.unbind(1), d)) if cube else d
+            flevel = _mip_level_from_footprint_cols(da[0], da[1], da[2], da[3],
+                                                    float(tex.shape[-2]),
+                                                    float(tex.shape[-3]))
+        if bias is not None:
+            flevel = flevel + bias.reshape(N)
+        flevel = torch.clamp(flevel, 0.0, float(L - 1))
+
+    cols = ()
+    if filter_mode == "nearest":
+        idx, valid = _nearest_taps(meta, uvf, tz, boundary_mode, cube)
+        out = torch.where(valid, flat[idx].T, 0.0)
+    elif cube:
+        x, y, z = uvf.unbind(1)
+        finfo = cube_faceid(x, y, z)
+        s, t, finite = cube_project(finfo, x, y, z)
+        cols = (s, t, flevel) + tuple(a.to(torch.int32) for a in (finite, finfo[0], tz))
+        out = torch.cat([sample_cube(flat[:, a:b].contiguous(), cols, meta, filter_mode)
+                         for a, b in channel_groups(C, MAX_C)])
+    else:
+        out = torch.cat([sample(flat[:, a:b].contiguous(), uvf[:, 0], uvf[:, 1], flevel,
+                                meta, (B, H, W), D > 1, boundary_mode, filter_mode)
+                         for a, b in channel_groups(C, MAX_C)])
+    return out.T.reshape(B, H, W, C), (flat, uvf, d, da, flevel, tz) + cols, meta
+
+
+def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
+    """(g_tex, g_uv, g_uv_da, g_bias, g_mips) from the image cotangent dy
+    [B, H, W, C]; a gradient not in `needs` is None."""
+    from .antialias import channel_groups
+    from .scatter import scatter_add_by_id
+    from .texture_bwd_cuda import texture_bwd, texture_grad
+    from .texture_cube import cube_project_vjp, cube_st_da_vjp
+    from .texture_cube_cuda import cube_bwd, cube_texture_grad
+    from .texture_cuda import MAX_C
+
+    filter_mode, boundary_mode, _, use_mip = spec
+    flat, uvf, d, da, flevel, tz, *cols = saved
+    tex_shape, uv_shape, mip_shapes = shapes
+    cube = boundary_mode == "cube"
+    B, H, W = uv_shape[:3]
+    N = B * H * W
+    C = tex_shape[-1]
+    D = tex_shape[0]
+    n_tex = flat.shape[0]
+    gc = dy.reshape(N, C).T.contiguous()
+    groups = channel_groups(C, MAX_C)
+    g_tex = g_uv = g_da = g_bias = None
+    g_mips = [None] * len(mip_shapes)
+
+    # Texture gradient: to the base texture through the pyramid, or to the
+    # level tensors the caller passed.
+    if needs[0] or any(needs[4:]):
+        if filter_mode == "nearest":
+            idx, valid = _nearest_taps(meta, uvf, tz, boundary_mode, cube)
+            g_flat = scatter_add_by_id(torch.where(valid, idx, -1).to(torch.int32), gc, n_tex)
+        elif cube:
+            g_flat = torch.cat([cube_texture_grad(cols, gc[a:b], meta, n_tex, filter_mode)
+                                for a, b in groups], dim=1)
+        else:
+            g_flat = torch.cat([texture_grad(uvf[:, 0], uvf[:, 1], flevel, gc[a:b], meta,
+                                             n_tex, (B, H, W), D > 1, boundary_mode,
+                                             filter_mode) for a, b in groups], dim=1)
+        if mip_shapes:
+            parts = torch.split(g_flat, [int(torch.Size(sh[:-1]).numel())
+                                         for sh in (tex_shape,) + mip_shapes])
+            g_tex = parts[0].reshape(tex_shape)
+            g_mips = [p.reshape(sh) for p, sh in zip(parts[1:], mip_shapes)]
+        else:
+            g_tex = pyramid_vjp(g_flat, meta, D * (6 if cube else 1), C).reshape(tex_shape)
+    if not any(needs[1:4]):
+        return g_tex, g_uv, g_da, g_bias, g_mips
+    if filter_mode == "nearest":  # piecewise constant in uv
+        g_uv = torch.zeros(uv_shape, dtype=torch.float32, device=gc.device)
+        if d is not None:
+            g_da = torch.zeros_like(d.T).reshape(uv_shape[:3] + (d.shape[0],))
+        if bias is not None:
+            g_bias = torch.zeros_like(bias)
+        return g_tex, g_uv, g_da, g_bias, g_mips
+
+    # Gradients to the sampling coordinates and the level, summed over the
+    # channel groups in order.
+    g3 = None
+    for a, b in groups:
+        if cube:
+            part = cube_bwd(flat[:, a:b].contiguous(), tuple(cols), gc[a:b].contiguous(),
+                            meta, filter_mode)
+        else:
+            part = texture_bwd(flat[:, a:b].contiguous(), uvf[:, 0], uvf[:, 1], flevel,
+                               gc[a:b].contiguous(), meta, (B, H, W), D > 1, boundary_mode,
+                               filter_mode)
+        g3 = part if g3 is None else tuple(x + y for x, y in zip(g3, part))
+    gs, gt, gfl = g3
+    xyz = uvf.unbind(1)
+    g_cols = list(cube_project_vjp(*xyz, gs, gt)) if cube else [gs, gt]
+    g_d = None
+    if use_mip:
+        g_da4, g_b = level_vjp(da, gfl, tex_shape[-3], tex_shape[-2], len(meta),
+                               None if bias is None else bias.reshape(N))
+        if bias is not None:
+            g_bias = g_b.reshape(bias.shape)
+        if d is not None:
+            if cube:
+                g_xyz, g_d = cube_st_da_vjp(*xyz, d, g_da4)
+                g_cols = [g + h for g, h in zip(g_cols, g_xyz)]
+            else:
+                g_d = g_da4
+    elif bias is not None:
+        g_bias = torch.zeros_like(bias)
+    if d is not None:
+        g_da = (g_d.T if g_d is not None else torch.zeros_like(d.T))
+        g_da = g_da.reshape(uv_shape[:3] + (d.shape[0],))
+    g_uv = torch.stack(g_cols, dim=1).reshape(uv_shape)
+    return g_tex, g_uv, g_da, g_bias, g_mips
+
+
+class _TextureFn(torch.autograd.Function):
+    """texture with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, spec, tex, uv, uv_da, bias, *mips):
+        img, saved, meta = _texture_fwd(spec, tex, uv, uv_da, bias, mips)
+        saved = saved + (bias,)
+        ctx.present = [x is not None for x in saved]
+        ctx.save_for_backward(*[x for x in saved if x is not None])
+        ctx.spec, ctx.meta = spec, meta
+        ctx.shapes = (tuple(tex.shape), tuple(uv.shape), tuple(tuple(m.shape) for m in mips))
+        return img
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        it = iter(ctx.saved_tensors)
+        saved = [next(it) if p else None for p in ctx.present]
+        bias = saved.pop()
+        grads = _texture_bwd(ctx.spec, ctx.meta, saved, ctx.shapes, bias,
+                             ctx.needs_input_grad[1:], dy.contiguous())
+        return (None,) + grads[:4] + tuple(grads[4])
+
+
+def _on_device(x, dev, what):
+    """`x` as float32 on `dev`: a tensor on another device raises
+    ValueError (no quiet copy between host and card); anything else is
+    put there."""
+    if isinstance(x, torch.Tensor) and x.device != dev:
+        raise ValueError(f"texture: {what} is on {x.device} but uv is on {dev}")
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def texture(tex, uv, uv_da=None, mip_level_bias=None, mip=None, filter_mode="auto",
+            boundary_mode="wrap", max_mip_level=None):
+    """Perform texture sampling (the JAX package's ``texture``).
+
+    Args:
+        tex: float32 texture [D, tex_height, tex_width, C], or a cube map
+            [D, 6, w, w, C] with boundary_mode='cube'; D = 1 or the
+            minibatch size.
+        uv: [minibatch, height, width, 2] texture coordinates, or [..., 3]
+            directions for cube maps. A tensor runs on its device (CPU
+            tensors on the plain twins); anything else is put on the
+            default CUDA device, and raises RuntimeError where there is
+            none. Tensor arguments on another device than uv raise
+            ValueError.
+        uv_da: optional screen derivatives of uv [..., 4] (cube: [..., 6]),
+            for the mip level.
+        mip_level_bias: optional per-pixel level bias [minibatch, height,
+            width]; used alone it selects the level.
+        mip: optional ``TextureMipWrapper`` from ``texture_construct_mip``,
+            or a list of level tensors (the base not included), which then
+            receive the gradients instead of `tex`.
+        filter_mode: 'auto', 'nearest', 'linear', 'linear-mipmap-nearest'
+            or 'linear-mipmap-linear'.
+        boundary_mode: 'wrap', 'clamp', 'zero' or 'cube'.
+        max_mip_level: limit on the levels built; None or -1 for all, 0
+            drops the mip filters to 'linear'.
+
+    Returns:
+        [minibatch, height, width, C]; differentiable with respect to tex
+        (or the mip levels), uv, uv_da and mip_level_bias. Cube-map
+        lookups with an invalid direction (a zero vector) return zeros and
+        pass no gradient.
+    """
+    from .rasterize import as_device_tensor
+
+    if filter_mode == "auto":
+        filter_mode = ("linear-mipmap-linear"
+                       if (uv_da is not None or mip_level_bias is not None) else "linear")
+    check_modes(filter_mode, boundary_mode)
+    max_mip_level = -1 if max_mip_level is None else int(max_mip_level)
+    if max_mip_level < -1:
+        raise ValueError(f"texture: max_mip_level {max_mip_level} < -1")
+    uv = as_device_tensor(uv, "texture")
+    dev = uv.device
+    tex = _on_device(tex, dev, "tex")
+    uv = uv.to(torch.float32)
+    cube = boundary_mode == "cube"
+    if cube:
+        if tex.ndim != 5 or tex.shape[1] != 6:
+            raise ValueError("texture: cube map texture must have shape [>0, 6, >0, >0, >0]")
+        if tex.shape[2] != tex.shape[3]:
+            raise ValueError("texture: cube map texture must have square faces")
+        if uv.shape[-1] != 3:
+            raise ValueError("texture: cube map sampling requires 3-channel uv")
+    else:
+        if tex.ndim != 4:
+            raise ValueError("texture: texture must have shape [>0, >0, >0, >0]")
+        if uv.shape[-1] != 2:
+            raise ValueError("texture: 2-D texture sampling requires 2-channel uv")
+    if uv.ndim != 4:
+        raise ValueError(f"texture: uv must be [minibatch, height, width, {uv.shape[-1]}]; "
+                         f"got {tuple(uv.shape)}")
+    if tex.shape[0] not in (1, uv.shape[0]):
+        raise ValueError("texture: texture minibatch size must be 1 or match uv")
+    use_mip = "mipmap" in filter_mode
+    if use_mip and uv_da is None and mip_level_bias is None:
+        raise ValueError("texture: mipmap filter modes require uv_da and/or mip_level_bias")
+    if max_mip_level == 0 and use_mip:
+        filter_mode, use_mip = "linear", False
+    if uv_da is not None:
+        uv_da = _on_device(uv_da, dev, "uv_da")
+        if uv_da.shape != uv.shape[:3] + (6 if cube else 4,):
+            raise ValueError(f"texture: uv_da must be {tuple(uv.shape[:3])} + "
+                             f"({6 if cube else 4},); got {tuple(uv_da.shape)}")
+    if mip_level_bias is not None:
+        mip_level_bias = _on_device(mip_level_bias, dev, "mip_level_bias")
+        if mip_level_bias.numel() != uv.shape[:3].numel():
+            raise ValueError("texture: mip_level_bias must be [minibatch, height, width]")
+    mips = ()
+    if use_mip and mip is not None:
+        if isinstance(mip, TextureMipWrapper):
+            mips = tuple(mip.levels)
+        elif isinstance(mip, (list, tuple)):
+            mips = tuple(mip)
+        else:
+            raise TypeError("texture: mip must be a TextureMipWrapper or a list of tensors")
+        mips = tuple(_on_device(m, dev, "a mip level") for m in mips)
+        for m in mips:
+            if m.ndim != tex.ndim or m.shape[0] != tex.shape[0] or m.shape[-1] != tex.shape[-1]:
+                raise ValueError(f"texture: mip level {tuple(m.shape)} does not fit the "
+                                 f"texture {tuple(tex.shape)}")
+    spec = (filter_mode, boundary_mode, max_mip_level, use_mip)
+    return _TextureFn.apply(spec, tex, uv, uv_da, mip_level_bias, *mips)

@@ -1,6 +1,7 @@
 """Where the time of one training step of render_pipeline goes, on a GPU.
 
-    python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16] [--textured | --ops]
+    python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16]
+        [--textured | --ops | --cube]
 
 The bench scene (uv-sphere 32x64, 3,968 triangles, vertex colours,
 A = 3, B = 1, camera projection(x=0.4) @ translate(0, 0, -3.5)). One
@@ -10,7 +11,12 @@ on bench.py's textured line (a 512x512x3 texture from rand seed 0,
 spherical uvs, linear-mipmap-linear, wrap), forward, mean(img**2) and the
 backward to pos, the uvs and the texture. With --ops it is the composed
 standalone ops, rasterize -> interpolate -> antialias, on the bench scene,
-forward, mean(img**2) and the backward to pos and the colours.
+forward, mean(img**2) and the backward to pos and the colours. With
+--cube it is one EnvPhongFitModel-shaped step: rasterize and interpolate
+the bench sphere's reflection vectors with their screen derivatives, a
+seamless trilinear lookup in procedural_cubemap(512) (10 levels) plus a
+Phong highlight, mean squared error against the reference map's image,
+and the backward to the map and the Phong parameters.
 Prints:
   1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
   2. each stage of the step run alone and synchronised, mean of 20;
@@ -246,7 +252,7 @@ def _textured(pos, tri, cidx, vtxp, res):
                               *mode[::-1])
     g_flat = tb.grad_from_entries(*entries, uvc[0], uvc[1], fl, gc, meta, shape, False,
                                   *mode[::-1])
-    gda4 = tx.mip_level_vjp(da, gfl, 512, 512, len(levels))
+    gda4 = tx.level_vjp(da, gfl, 512, 512, len(levels))[0]
     atbl = pl._attr_table(uv, cidx, 1, T)
     db4 = torch.stack(db)
     out15 = ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)
@@ -275,7 +281,7 @@ def _textured(pos, tri, cidx, vtxp, res):
         ("bwd: texture_grad kernel", lambda: tb.grad_from_entries(
             *entries, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])),
         ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 1, 3)),
-        ("bwd: mip-level vjp", lambda: tx.mip_level_vjp(da, gfl, 512, 512, len(levels))),
+        ("bwd: mip-level vjp", lambda: tx.level_vjp(da, gfl, 512, 512, len(levels))[0]),
         ("bwd: interp_raster_bwd_tex kernel",
          lambda: ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)),
         ("bwd: entry sort (index glue)",
@@ -288,6 +294,67 @@ def _textured(pos, tri, cidx, vtxp, res):
     ]
 
 
+def _cube(pos, tri, vtxp, res):
+    """(step, stages) of an envphong-shaped step with a 512^2 cube map."""
+    from .models.fit_envphong import shade
+    from .ops import texture_cube as tcg
+    from .ops import texture_cube_cuda as tcc
+
+    dev = pos.device
+    normals = vtxp / np.linalg.norm(vtxp, axis=1, keepdims=True)
+    view = vtxp - np.array([0.0, 0.0, 3.5], np.float32)
+    refl = view - 2.0 * normals * (normals * view).sum(1, keepdims=True)
+    refl = torch.as_tensor(refl / np.linalg.norm(refl, axis=1, keepdims=True),
+                           dtype=torch.float32, device=dev)
+    env_ref = torch.as_tensor(primitives.procedural_cubemap(512), device=dev)
+    env = torch.full_like(env_ref, 0.5)
+    phong = torch.tensor([1.0, 1.0, 1.0, 10.0], device=dev)
+    ldir = torch.tensor([0.3, -0.8, 0.52], device=dev)
+    rgb_ref = torch.tensor([1.0, 0.8, 0.6], device=dev)
+
+    def directions():
+        with torch.no_grad():
+            rast, rast_db = ra.rasterize(None, pos, tri, res, grad_db=True)
+            d, dd = interpolate(refl, rast, tri, rast_db, diff_attrs="all")
+            d = d / (torch.sum(d ** 2, -1, keepdim=True) + 1e-8) ** 0.5
+            return d, dd, rast[..., -1:] == 0
+
+    def step():
+        d, dd, mask = directions()
+        with torch.no_grad():
+            ref = shade(env_ref, rgb_ref, 25.0, d, dd, ldir, mask)
+        e = env.detach().requires_grad_()
+        ph = phong.detach().requires_grad_()
+        img = shade(e, ph[:3], ph[3], d, dd, ldir, mask)
+        return torch.autograd.grad(((img - ref) ** 2).mean(), (e, ph))
+
+    spec = ("linear-mipmap-linear", "cube", -1, True)
+    d, dd, _ = directions()
+    N = d.shape[1] * d.shape[2]
+    _, saved, meta = tx._texture_fwd(spec, env[None], d, dd, None, ())
+    flat, cols = saved[0], tuple(saved[6:])
+    dy = torch.full((3, N), 1e-7, device=dev)
+    ids, w = tcc.cube_grad_entries(cols, meta, "linear-mipmap-linear")
+    vals = (dy.repeat(1, w.shape[0] // N) * w).contiguous()
+    ent = scatter.entries(ids, vals, flat.shape[0])
+    g_flat = scatter.scatter_entries(*ent, vals)
+    uvf = d.reshape(N, 3)
+    return step, [
+        ("fwd: rasterize + interpolate (directions)", directions),
+        ("fwd: mip pyramid", lambda: tx.build_mip_stack(env[None], -1, True)),
+        ("fwd: cube glue (face, s, t, footprint, level)",
+         lambda: (tcg.cube_project(tcg.cube_faceid(*uvf.unbind(1)), *uvf.unbind(1)),
+                  tcg.cube_st_da(*uvf.unbind(1), dd.reshape(N, 6).T))),
+        ("fwd: cube_fwd kernel", lambda: tcc.sample_cube(flat, cols, meta,
+                                                         "linear-mipmap-linear")),
+        ("bwd: cube taps (glue)", lambda: tcc.cube_grad_entries(cols, meta,
+                                                                "linear-mipmap-linear")),
+        ("bwd: tap entries (index glue)", lambda: scatter.entries(ids, vals, flat.shape[0])),
+        ("bwd: scatter_rows kernel", lambda: scatter.scatter_entries(*ent, vals)),
+        ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 6, 3)),
+    ]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--res", type=int, default=2048)
@@ -297,6 +364,8 @@ def main(argv=None):
     ap.add_argument("--ops", action="store_true",
                     help="profile a step of the composed rasterize, interpolate and "
                          "antialias ops instead")
+    ap.add_argument("--cube", action="store_true",
+                    help="profile an envphong-shaped cube-map step instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -314,6 +383,9 @@ def main(argv=None):
     if args.textured:
         what = "textured fwd+bwd"
         step, stages = _textured(pos, tri, cidx, vtxp, res)
+    elif args.cube:
+        what = "envphong-shaped cube-map fwd+bwd"
+        step, stages = _cube(pos, tri, vtxp, res)
     elif args.ops:
         what = "composed ops fwd+bwd"
         step, stages = _ops(pos, tri, cidx, col, res)

@@ -615,3 +615,142 @@ def test_cube_fit_converges_on_gpu(dev):
     for _ in range(150):
         m.step()
     assert m.geometric_error() < 0.08
+
+
+# ---------------------------------------------------------------------------
+# Cube maps (B12), the texture op, the repairs and the models on the ops.
+# ---------------------------------------------------------------------------
+
+def _cube_cols(dev, B=2, H=40, W=72, fw=16, D=2, seed=0):
+    """(flat, meta, cols, n_texels) of a random cube pyramid and random
+    directions with exact cube-corner and face-edge ones, on `dev`."""
+    from nvdiffrast_tpu_torch.ops import texture_cube as tcg
+
+    rng = np.random.RandomState(seed)
+    tex = torch.from_numpy(rng.rand(D, 6, fw, fw, 3).astype(np.float32)).to(dev)
+    levels = [tex] + tx.build_mip_stack(tex, -1, True)
+    meta, n_tex = tx._static_meta(levels)
+    N = B * H * W
+    v = torch.from_numpy(rng.randn(N, 3).astype(np.float32)).to(dev)
+    v[:6] = torch.tensor([[1, 1, 1], [1, 1, 0], [0, 0, 0], [-1, 1, -1], [0, 1, 1],
+                          [1, 0, -1]], dtype=torch.float32)
+    x, y, z = v.unbind(1)
+    finfo = tcg.cube_faceid(x, y, z)
+    s, t, fin = tcg.cube_project(finfo, x, y, z)
+    fl = torch.from_numpy(rng.uniform(0, len(meta) - 1, N).astype(np.float32)).to(dev)
+    fl[6:14] = torch.arange(8.0).clamp(max=len(meta) - 1)
+    tz = torch.arange(N, device=dev) // (H * W) if D > 1 else torch.zeros(N, device=dev)
+    cols = (s, t, fl) + tuple(a.to(torch.int32) for a in (fin, finfo[0], tz))
+    return tx._pack_pyramid(levels), meta, cols, n_tex
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("filter_mode", ["linear", "linear-mipmap-nearest",
+                                         "linear-mipmap-linear"])
+def test_cube_kernels_match_twins(dev, filter_mode, D):
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    flat, meta, cols, _ = _cube_cols(dev, D=D, seed=D)
+    dy = torch.randn((3, cols[0].shape[0]), generator=torch.Generator().manual_seed(D)).to(dev)
+    f0, b0 = tcc.FWD_KERNEL.launches, tcc.BWD_KERNEL.launches
+    got = tcc.sample_cube(flat, cols, meta, filter_mode)
+    gb = tcc.cube_bwd(flat, cols, dy, meta, filter_mode)
+    ref = tcc.sample_cube_plain(flat, cols, meta, filter_mode)
+    rb = tcc.cube_bwd_plain(flat, cols, dy, meta, filter_mode)
+    torch.cuda.synchronize()
+    assert (tcc.FWD_KERNEL.launches, tcc.BWD_KERNEL.launches) == (f0 + 1, b0 + 1)
+    assert torch.equal(got, ref)
+    for a, b in zip(gb, rb):
+        assert torch.equal(a, b)
+    # The card's glue + twin equals the CPU path.
+    cpu = tcc.sample_cube(flat.cpu(), tuple(c.cpu() for c in cols), meta, filter_mode)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_cube_texture_grad_within_one_ulp(dev):
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    flat, meta, cols, n_tex = _cube_cols(dev, seed=3)
+    dy = torch.randn((3, cols[0].shape[0]), generator=torch.Generator().manual_seed(3)).to(dev)
+    got = tcc.cube_texture_grad(cols, dy, meta, n_tex, "linear-mipmap-linear")
+    again = tcc.cube_texture_grad(cols, dy, meta, n_tex, "linear-mipmap-linear")
+    ref = tcc.cube_texture_grad(tuple(c.cpu() for c in cols), dy.cpu(), meta, n_tex,
+                                "linear-mipmap-linear")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ulp = torch.from_numpy(np.spacing(ref.abs().numpy()))
+    assert bool(((got.cpu() - ref).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("case", ["cube", "cube9", "2d_mip", "2d_bias", "2d_nearest"])
+def test_texture_op_gpu_matches_cpu(dev, case):
+    rng = np.random.RandomState(5)
+    B, H, W = 2, 24, 40
+    cube = case.startswith("cube")
+    C = 9 if case == "cube9" else 3
+    tex = rng.rand(1, 6, 16, 16, C) if cube else rng.rand(2, 32, 64, C)
+    uv = rng.randn(B, H, W, 3) if cube else rng.uniform(-0.2, 1.2, (B, H, W, 2))
+    uv_da = rng.randn(B, H, W, 6 if cube else 4) * 0.05
+    bias = rng.uniform(-1, 5, (B, H, W))
+    kw = dict(boundary_mode="cube" if cube else "clamp",
+              filter_mode="nearest" if case == "2d_nearest" else "linear-mipmap-linear")
+
+    def run(device):
+        xs = [torch.tensor(a, dtype=torch.float32, device=device, requires_grad=True)
+              for a in (tex, uv, uv_da, bias)]
+        img = dr.texture(xs[0], xs[1], xs[2], xs[3] if case == "2d_bias" else None, **kw)
+        used = xs if case == "2d_bias" else xs[:3]
+        return (img.detach(),) + torch.autograd.grad((img ** 2).sum(), used)
+
+    gpu = run(dev)
+    again = run(dev)
+    cpu = run("cpu")
+    for g, h, ref in zip(gpu, again, cpu):
+        assert torch.equal(g, h)
+        assert bool(torch.isfinite(g).all())
+        assert float((g.cpu() - ref).abs().max()) <= 1e-5 * max(float(ref.abs().max()), 1e-30)
+
+
+def test_repairs_gpu_match_cpu(dev):
+    """C > 8 antialias and render_pipeline, and the textured fallback (per-
+    image uvs, cube) on the card against the CPU path."""
+    pos, tri, attr, aidx = sphere_scene(B=2, seed=4, A=9)
+    p, t, a, c = inputs_from_numpy(pos, tri, attr, aidx)
+    rng = np.random.RandomState(2)
+    uv2 = torch.from_numpy(rng.rand(2, attr.shape[1], 2).astype(np.float32))
+    env = torch.from_numpy(rng.rand(1, 6, 8, 8, 3).astype(np.float32))
+    dirs = torch.from_numpy(rng.randn(attr.shape[1], 3).astype(np.float32))
+    tex = torch.from_numpy(rng.rand(1, 32, 64, 3).astype(np.float32))
+    res = (48, 64)
+
+    def grads(device):
+        xs = [x.to(device).requires_grad_() for x in (p, a, uv2, dirs, tex, env)]
+        td, cd = t.to(device), c.to(device)
+        imgs = [dr.render_pipeline(xs[0], td, xs[1], res, attr_idx=cd),
+                dr.render_pipeline_textured(xs[0], td, xs[2], xs[4], res, uv_tri=cd),
+                dr.render_pipeline_textured(xs[0], td, xs[3], xs[5], res, uv_tri=cd,
+                                            boundary_mode="cube")]
+        loss = sum((i ** 2).mean() for i in imgs)
+        return [i.detach() for i in imgs] + list(torch.autograd.grad(loss, xs))
+
+    gpu = grads(dev)
+    again = grads(dev)
+    cpu = grads("cpu")
+    for g, h, ref in zip(gpu, again, cpu):
+        assert torch.equal(g, h)
+        assert float((g.cpu() - ref).abs().max()) <= 5e-5 * max(float(ref.abs().max()), 1e-30)
+
+
+def test_earth_and_envphong_fit_on_gpu(dev):
+    from nvdiffrast_tpu_torch.models.fit_earth import EarthFitModel
+    from nvdiffrast_tpu_torch.models.fit_envphong import EnvPhongFitModel
+
+    m = EarthFitModel(res=32, ref_res=64, tex_res=(32, 64), max_mip_level=4, seed=0,
+                      device=dev)
+    for _ in range(50):
+        m.step()
+    assert m.texture_psnr() > 10.0
+    e = EnvPhongFitModel(res=32, env_res=8, subdiv=1, seed=0, device=dev)
+    for _ in range(150):
+        e.step()
+    assert e.metrics()[0] < 0.03

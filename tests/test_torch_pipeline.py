@@ -167,8 +167,9 @@ def test_render_pipeline_topology_and_broadcast(render_case):
 def test_render_pipeline_argument_checks():
     pos, tri, attr, cidx = sphere_scene(B=2, seed=4, A=9)
     p, t, a, c = inputs_from_numpy(pos, tri, attr, cidx)
-    with pytest.raises(NotImplementedError):
-        dr.render_pipeline(p, t, a, RES, attr_idx=c)  # 9 channels
+    # 9 channels compose the standalone ops, equal to the fused kernels.
+    assert torch.equal(dr.render_pipeline(p, t, a, RES, attr_idx=c)[..., :3],
+                       dr.render_pipeline(p, t, a[..., :3], RES, attr_idx=c))
     with pytest.raises(ValueError):
         dr.render_pipeline(p, t, a[..., :3], RES, attr_idx=c[:-1])
     with pytest.raises(ValueError):

@@ -13,7 +13,7 @@ Bars, each with its reason:
   sums in float32 on the matrix unit, within 1e-6 of the texel's tap
   magnitudes; its generic scatter splits each term into bf16 hi and lo,
   within 2^-16 of them.
-* mip_level_vjp: within 4 ulps of jax.vjp on 99.5 % of the entries and
+* level_vjp (the mip level's vjp to uv_da): within 4 ulps of jax.vjp on 99.5 % of the entries and
   1e-5 of the pixel's largest gradient on all (XLA:CPU contracts some of
   JAX's products into fma, which shows where terms cancel); exact zeros
   on background pixels (zero footprints; JAX gives NaN there on the CPU)
@@ -243,7 +243,7 @@ def test_mip_level_vjp_matches_jax():
     cols = tuple(jnp.asarray(d) for d in da)
     fl_ref, vjp = jax.vjp(flv, cols)
     ref = np.stack([np.asarray(x) for x in vjp(jnp.asarray(gfl))[0]])
-    got = tx.mip_level_vjp(torch.from_numpy(da), torch.from_numpy(gfl), 32, 64, L).numpy()
+    got = tx.level_vjp(torch.from_numpy(da), torch.from_numpy(gfl), 32, 64, L)[0].numpy()
     fl_ref = np.asarray(fl_ref)
     assert (fl_ref[110:120] == 0).all() and (fl_ref[120:130] == L - 1).all()
     # Zero footprints: the port gives exact zeros. JAX's vjp gives NaN
