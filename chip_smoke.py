@@ -87,7 +87,23 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      EnvPhongFitModel at the sample's defaults (300 steps: env RMSE and
      loss fall) and at the test size (150 steps, RMSE < 0.03);
      EarthFitModel at the sample's defaults (200 steps: PSNR rises) and
-     at the test size (50 steps, PSNR > 10 dB); ms per step.
+     at the test size (50 steps, PSNR > 10 dB); ms per step;
+ 16. the rest of the rasterizer at 2048^2: DepthPeeler on four
+     concentric bench spheres (15,872 triangles, B = 2, 4 layers;
+     fwd + bwd through interpolate and antialias finite and bitwise
+     repeatable, each layer's kernel bit for bit with its twin, layer 0
+     with plain rasterize, depth strictly growing); range mode (the
+     spheres as one 2-D pos, B = 8, image b drawing sphere b mod 4: the
+     kernel bit for bit with its twin and with the instance render of
+     each window, the composed fwd + bwd repeatable, 256^2 within 1e-5
+     of the CPU path); the bench render as four 512-row viewport bands
+     (rast and rast_db bit for bit the full render's rows, antialias
+     away from the folded band edges, band gradients within 1e-6 of the
+     full render's restricted to the band); the bench scene binned
+     against unbinned; uv_sphere(512, 1024) (1,046,528 triangles): the
+     binned kernel bit for bit with the unbinned one and with its twin
+     (also at uv_sphere(128, 320)), the forward split (prepass, binning
+     glue, kernel), render_pipeline fwd + bwd ms/step and peak memory.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s) and, last, the device line. Any failed
@@ -128,6 +144,13 @@ ENV_STEPS = 300     # EnvPhongFitModel at the sample's defaults
 ENV_BAR = 0.03      # tests/test_models.py: env RMSE < 0.03 at the test size
 EARTH_STEPS = 200   # EarthFitModel at the sample's defaults
 EARTH_BAR = 10.0    # tests/test_models.py: PSNR > 10 dB at the test size
+PEEL_SCALES = (1.0, 0.8, 0.6, 0.4)  # phase 16: four concentric bench spheres
+PEEL_LAYERS = 4
+RANGE_B = 8          # range-mode images, image b drawing sphere b mod 4
+VP_BANDS = 4         # 512-row viewport bands of the 2048^2 bench render
+VP_GRAD_RTOL = 1e-6  # band gradients vs the full render's restricted to the band
+BIG_SPHERE = (512, 1024)  # 1,046,528 triangles (benchmarks/profile_bigmesh.py's largest)
+MID_SPHERE = (128, 320)   # 81,280 triangles: the binned kernel against its twin
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -279,6 +302,424 @@ def zfight_check(ref, got, what):
     if not err <= RASTER_ATOL:
         raise AssertionError(f"{what}: u/v/zw differ by {err}")
     return err, n_diff
+
+
+
+def four_spheres(cams):
+    """Four concentric bench spheres (uv_sphere(32, 64) scaled 1.0, 0.8,
+    0.6, 0.4; 15,872 triangles) under the given cameras: (pos [B, 4V, 4],
+    tri, vertex colours [4V, 3], the triangle offset of each sphere)."""
+    import numpy as np
+    from nvdiffrast_tpu_torch.models import primitives
+
+    pos_idx, vtxp, _, _ = primitives.uv_sphere(32, 64)
+    V, T = vtxp.shape[0], pos_idx.shape[0]
+    verts = np.concatenate([vtxp * s for s in PEEL_SCALES])
+    tri = np.concatenate([pos_idx + k * V for k in range(len(PEEL_SCALES))]).astype(np.int32)
+    posw = np.concatenate([verts, np.ones_like(verts[:, :1])], axis=1)
+    pos = np.stack([(posw @ m.T).astype(np.float32) for m in cams])
+    col = (verts * 0.5 + 0.5).astype(np.float32)
+    return pos, tri, col, [k * T for k in range(len(PEEL_SCALES))]
+
+
+def big_sphere(rows, cols):
+    """uv_sphere(rows, cols) under the bench camera, vertex colours."""
+    import numpy as np
+    from nvdiffrast_tpu_torch.models import primitives
+
+    pos_idx, vtxp, _, _ = primitives.uv_sphere(rows, cols)
+    posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
+    pos = (posw @ cameras(1, 0)[0].T).astype(np.float32)[None]
+    return pos, pos_idx.astype(np.int32), (vtxp * 0.5 + 0.5).astype(np.float32)
+
+
+def frag_count(aabb, H, W):
+    """Fragments the kernel must evaluate: each record's AABB pixels inside
+    the image, summed over the records [..., 4] given."""
+    sx = aabb[..., 2].clamp(max=W - 1) - aabb[..., 0].clamp(min=0) + 1
+    sy = aabb[..., 3].clamp(max=H - 1) - aabb[..., 1].clamp(min=0) + 1
+    return float((sx.clamp(min=0) * sy.clamp(min=0)).sum())
+
+
+def phase16(dev, card, entry):
+    """The rest of the rasterizer: depth peeling, range mode, viewport
+    bands and per-tile binning for big meshes. Returns the kernels' JSON
+    entries."""
+    import numpy as np
+    import torch
+    import nvdiffrast_tpu_torch as dr
+    from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.ops import antialias_cuda as ac
+    from nvdiffrast_tpu_torch.ops import gather, scatter
+    from nvdiffrast_tpu_torch.ops import interpolate_cuda as ic
+    from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
+    from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
+    from nvdiffrast_tpu_torch.ops import rasterize as ra
+    from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
+    from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
+
+    res = (RES, RES)
+    f32 = 4
+    t_phase = time.perf_counter()
+    raster_kernels = (rc.KERNEL, rc.DB_KERNEL, rc.BINNED_KERNEL, rc.PEEL_KERNEL,
+                      rc.RANGE_KERNEL, rc.BAND_KERNEL, rc.BIN_COUNT_KERNEL,
+                      rc.BIN_EMIT_KERNEL)
+    op_kernels = raster_kernels + (ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
+                                   gather.KERNEL, scatter.KERNEL)
+
+    def reset():
+        for k in op_kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.name: k.launches for k in op_kernels if k.launches}
+
+    def check_grads(gs, what):
+        for name, g in gs:
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                raise AssertionError(f"{what}: {name} gradient not finite or all zero")
+
+    # -- 16a. depth peeling: four spheres, B = 2, 4 layers ---------------------
+    pos, tri, col, starts = four_spheres(cameras(2, seed=16))
+    p, t, a = inputs_from_numpy(pos, tri, col, device=dev)
+    T4 = t.shape[0]
+
+    def peel_step(pv, av):
+        pv = pv.detach().clone().requires_grad_()
+        av = av.detach().clone().requires_grad_()
+        loss, layers = 0.0, []
+        with dr.DepthPeeler(dr.RasterizeCudaContext(), pv, t, res) as peeler:
+            for _ in range(PEEL_LAYERS):
+                rast, db = peeler.rasterize_next_layer()
+                img_c, _ = dr.interpolate(av, rast, t)
+                img = dr.antialias(img_c, rast, pv, t)
+                loss = loss + (img ** 2).mean()
+                layers.append((rast.detach(), db.detach()))
+        return layers, torch.autograd.grad(loss, (pv, av))
+
+    reset()
+    layers, pg = peel_step(p, a)
+    torch.cuda.synchronize()
+    peel_launches = counts()
+    log(f"[16] launches during the peeling slice (B=2, {PEEL_LAYERS} layers): {peel_launches}")
+    if rc.PEEL_KERNEL.launches != PEEL_LAYERS - 1:
+        raise AssertionError(f"peel kernel launched {rc.PEEL_KERNEL.launches} times")
+    check_grads(zip(("pos", "col"), pg), "peeling")
+    layers2, pg2 = peel_step(p, a)
+    for x, y in zip(pg + tuple(r for l_ in layers for r in l_),
+                    pg2 + tuple(r for l_ in layers2 for r in l_)):
+        if not torch.equal(x, y):
+            raise AssertionError("peeling: not bitwise repeatable")
+    plain = dr.rasterize(None, p, t, res)
+    equal_or_raise(layers[0], plain, "peel layer 0 vs rasterize")
+    # Each layer's kernel against its twin, on the previous layer's zbuf.
+    rec, aabb = rc.build_records(p, t, res)
+    bins = rc.bin_records(aabb, res)
+    prev, peel_in = None, None
+    for k in range(PEEL_LAYERS):
+        got = rc.launch_records(rec, aabb, res, True, peel=prev, emit_zbuf=True, bins=bins)
+        ref = rc.rasterize_records_plain(rec, aabb, res, True, peel=prev, emit_zbuf=True)
+        equal_or_raise(got, ref, f"peel layer {k} kernel vs twin")
+        equal_or_raise(got[:8], tuple(x for r in layers[k] for x in r.unbind(-1)),
+                       f"peel layer {k} kernel vs DepthPeeler")
+        covered = int((got[3] > 0).sum())
+        if prev is not None:
+            both = (got[3] > 0) & (prev_ids > 0)
+            if not bool((got[8][both] > prev[both]).all()):
+                raise AssertionError(f"peel layer {k}: depth does not grow")
+            log(f"[16] peel layer {k}: {covered} covered pixels, depth grows strictly on "
+                f"the {int(both.sum())} covered in layer {k - 1} too; kernel = twin bit for bit")
+            if k == 1:
+                peel_in = prev
+        prev, prev_ids = got[8], got[3]
+    peel_ms = cuda_ms(torch, lambda: rc.launch_records(rec, aabb, res, True, peel=peel_in,
+                                                       emit_zbuf=True, bins=bins), 20)
+    peel_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(
+        rec, aabb, res, True, peel=peel_in, emit_zbuf=True), 2)
+    layer0_ms = cuda_ms(torch, lambda: rc.launch_records(rec, aabb, res, True,
+                                                         emit_zbuf=True, bins=bins), 20)
+    peeler_ms = window_ms(torch, lambda: peel_step(p, a), [()])
+    log(f"[16] peeling {RES}^2 B=2, T={T4}: kernel {peel_ms:.3f} ms a peeled layer, "
+        f"{layer0_ms:.3f} ms layer 0 (plain rasterize's sweep), twin {peel_plain_ms:.3f} ms; "
+        f"{PEEL_LAYERS}-layer fwd+bwd step {peeler_ms:.3f} ms ({card})")
+    n_peel = frag_count(aabb, RES, RES)
+    peel_bound = bound((rec.numel() + aabb.numel() + 2 * RES * RES * (1 + 9)) * f32,
+                       40 * n_peel)
+
+    # -- 16b. range mode: one 2-D pos, B = 8, image b draws sphere b mod 4 ------
+    p2 = p[0].contiguous()
+    ranges = torch.tensor([[starts[b % 4], T4 // 4] for b in range(RANGE_B)],
+                          dtype=torch.int32, device=dev)
+    rec1, aabb1 = rc.build_records(p2, t, res)
+    bins1 = rc.bin_records(aabb1, res)
+    got = rc.launch_records(rec1, aabb1, res, True, ranges=ranges, emit_zbuf=True,
+                            bins=bins1)
+    ref = rc.rasterize_records_plain(rec1, aabb1, res, True, ranges=ranges, emit_zbuf=True)
+    equal_or_raise(got, ref, "range kernel vs twin")
+    for b in range(4):
+        s0 = starts[b]
+        one = rc.rasterize_fused(p2[None], t[s0:s0 + T4 // 4], res, emit_db=True,
+                                 emit_zbuf=True)
+        ids = torch.where(one[3][0] > 0, one[3][0] + s0, 0.0)
+        for bb in (b, b + 4):
+            if not torch.equal(got[3][bb], ids):
+                raise AssertionError(f"range image {bb}: ids differ from the instance render")
+            equal_or_raise([got[k][bb] for k in (0, 1, 2, 4, 5, 6, 7, 8)],
+                           [one[k][0] for k in (0, 1, 2, 4, 5, 6, 7, 8)],
+                           f"range image {bb} vs the instance render")
+    log(f"[16] range mode {RES}^2 B={RANGE_B}: kernel = twin bit for bit; each image equals "
+        f"the instance render of its window (ids shifted by start), bit for bit")
+    range_ms = cuda_ms(torch, lambda: rc.launch_records(
+        rec1, aabb1, res, True, ranges=ranges, bins=bins1), 20)
+    range_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(
+        rec1, aabb1, res, True, ranges=ranges), 2)
+    n_range = sum(frag_count(aabb1[0, s:s + T4 // 4], RES, RES)
+                  for s in (starts[b % 4] for b in range(RANGE_B)))
+    range_bound = bound((rec1.numel() + aabb1.numel() + 2 * RANGE_B
+                         + 8 * RANGE_B * RES * RES) * f32, 34 * n_range)
+
+    def range_step(pv, av, size, rg):
+        pv = pv.detach().clone().requires_grad_()
+        av = av.detach().clone().requires_grad_()
+        rast, _ = dr.rasterize(None, pv, t.to(pv.device), size, ranges=rg)
+        img_c, _ = dr.interpolate(av, rast, t.to(pv.device))
+        img = dr.antialias(img_c, rast, pv, t.to(pv.device))
+        return torch.autograd.grad((img ** 2).mean(), (pv, av))
+
+    reset()
+    rg1 = range_step(p2, a, res, ranges)
+    torch.cuda.synchronize()
+    range_launches = counts()
+    log(f"[16] launches during the range-mode slice: {range_launches}")
+    for k in (rc.RANGE_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
+              gather.KERNEL, scatter.KERNEL):
+        if k.launches <= 0:
+            raise AssertionError(f"range mode: {k.name} never launched")
+    check_grads(zip(("pos", "col"), rg1), "range mode")
+    for x, y in zip(rg1, range_step(p2, a, res, ranges)):
+        if not torch.equal(x, y):
+            raise AssertionError("range mode gradients not bitwise repeatable")
+    gpu_g = [g.cpu() for g in range_step(p2, a, (SMALL, SMALL), ranges)]
+    cpu_g = range_step(p2.cpu(), a.cpu(), (SMALL, SMALL), ranges.cpu())
+    for name, x, y in zip(("pos", "col"), gpu_g, cpu_g):
+        err, scale = float((x - y).abs().max()), float(y.abs().max())
+        if not (scale > 0 and err <= GRAD_CPU_RTOL * scale):
+            raise AssertionError(f"{SMALL}^2 range {name} gradient, GPU vs CPU: {err} of {scale}")
+        log(f"[16] {SMALL}^2 range-mode {name} gradient, GPU vs CPU path: max|err| {err:.3g} "
+            f"(max|g| {scale:.3g}, bar {GRAD_CPU_RTOL} x max|g|)")
+    range_step_ms = window_ms(torch, lambda: range_step(p2, a, res, ranges), [()])
+    log(f"[16] range mode {RES}^2 B={RANGE_B}: kernel {range_ms:.3f} ms, twin "
+        f"{range_plain_ms:.3f} ms; composed fwd+bwd {range_step_ms:.3f} ms/step ({card})")
+
+    # -- 16c. viewport bands: the bench render as four 512-row bands ------------
+    bpos, btri, bcol, bcidx = sphere_scene(cameras(1, seed=0))
+    bp, bt, ba, bc = inputs_from_numpy(bpos, btri, bcol, bcidx, device=dev)
+    rng = np.random.default_rng(16)
+    w1, w2 = (torch.from_numpy(rng.standard_normal((1, RES, RES, 4)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    full, full_db = dr.rasterize(None, bp, bt, res)
+    fcol, _ = dr.interpolate(ba, full, bc)
+    faa = dr.antialias(fcol, full, bp, bt)
+    band_h = RES // VP_BANDS
+    reset()
+    band_out = []
+    for k in range(VP_BANDS):
+        y0 = k * band_h
+        vp = (y0, RES)
+        pv = bp.detach().clone().requires_grad_()
+        rast, db = dr.rasterize(None, pv, bt, (band_h, RES), viewport=vp)
+        bcol_img, _ = dr.interpolate(ba, rast, bc)
+        aa = dr.antialias(bcol_img, rast, pv, bt, viewport=vp)
+        sl = slice(y0, y0 + band_h)
+        loss = (rast * w1[:, sl]).sum() + (db * w2[:, sl]).sum()
+        band_out.append((rast.detach(), db.detach(), aa.detach(),
+                         torch.autograd.grad(loss, pv)[0]))
+    torch.cuda.synchronize()
+    band_launches = counts()
+    log(f"[16] launches during the viewport slice ({VP_BANDS} bands): {band_launches}")
+    if rc.BAND_KERNEL.launches != VP_BANDS:
+        raise AssertionError(f"band kernel launched {rc.BAND_KERNEL.launches} times")
+    band_gerr = 0.0
+    for k, (rast, db, aa, g) in enumerate(band_out):
+        sl = slice(k * band_h, (k + 1) * band_h)
+        equal_or_raise((rast, db), (full[:, sl], full_db[:, sl]), f"band {k} vs full render")
+        # Away from the band's folded top and bottom rows.
+        inner = slice(k * band_h + 1, (k + 1) * band_h - 1)
+        equal_or_raise((aa[:, 1:-1],), (faa[:, inner],), f"band {k} antialias vs full rows")
+        mask = torch.zeros_like(w1)
+        mask[:, sl] = 1.0
+        pv = bp.detach().clone().requires_grad_()
+        fr, fdb = dr.rasterize(None, pv, bt, res)
+        gref = torch.autograd.grad((fr * w1 * mask).sum() + (fdb * w2 * mask).sum(), pv)[0]
+        err = float((g - gref).abs().max()) / float(gref.abs().max())
+        if not err <= VP_GRAD_RTOL:
+            raise AssertionError(f"band {k} gradient vs the full render's: {err} of scale")
+        band_gerr = max(band_gerr, err)
+    log(f"[16] viewport: each band's rast and rast_db equal the full render's rows bit for "
+        f"bit; antialias equals them away from the folded band edges; band gradients within "
+        f"{band_gerr:.3g} of scale of the full render's restricted to the band (bar "
+        f"{VP_GRAD_RTOL})")
+    vrec, vaabb = rc.build_records(bp, bt, (band_h, RES), (band_h, RES))
+    vgot = rc.rasterize_records(vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES))
+    vref = rc.rasterize_records_plain(vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES))
+    equal_or_raise(vgot, vref, "band kernel vs twin")
+    band_ms = cuda_ms(torch, lambda: rc.rasterize_records(
+        vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES)), 20)
+    band_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(
+        vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES)), 3)
+    full_rec, full_aabb = rc.build_records(bp, bt, res)
+    full_ms = cuda_ms(torch, lambda: rc.launch_records(full_rec, full_aabb, res, True), 20)
+    band_bound = bound((vrec.numel() + vaabb.numel() + 8 * band_h * RES) * f32,
+                       34 * frag_count(vaabb, band_h, RES))
+    log(f"[16] band kernel (rows {band_h}-{2 * band_h - 1}): {band_ms:.3f} ms, twin "
+        f"{band_plain_ms:.3f} ms; the full {RES}^2 render's db kernel {full_ms:.3f} ms ({card})")
+
+    # Binned against unbinned on scenes around the rule of BIN_MIN_WORK, in
+    # turns: the bench scene at 256^2 and 2048^2 (B = 1 and 2), the peel
+    # scene (B = 2).
+    for what, cp, ct, size in (("bench", bp, bt, SMALL), ("bench", bp, bt, RES),
+                               ("bench", torch.cat([bp, p[1:, :bp.shape[1]]]), bt, RES),
+                               ("peel", p, t, RES)):
+        sres = (size, size)
+        srec_, saabb_ = rc.build_records(cp, ct, sres)
+        runs = {"unbinned": lambda: rc.launch_records(srec_, saabb_, sres),
+                "binned": lambda: rc.launch_records(srec_, saabb_, sres,
+                                                    bins=rc.bin_records(saabb_, sres))}
+        equal_or_raise(runs["binned"](), runs["unbinned"](), f"{what} {size}^2 binned vs unbinned")
+        ev_ms = {k: [] for k in runs}
+        wall_ms = {k: [] for k in runs}
+        for name in ("unbinned", "binned", "binned", "unbinned"):
+            ev_ms[name].append(round(cuda_ms(torch, runs[name], 20), 4))
+            wall_ms[name].append(round(window_ms(torch, runs[name], [()]), 4))
+        sbins_ = rc.bin_records(saabb_, sres)
+        kern_ms = cuda_ms(torch, lambda: rc.launch_records(srec_, saabb_, sres, bins=sbins_), 20)
+        tests = cp.shape[0] * ct.shape[0] * (-(-size // 16)) ** 2
+        log(f"[16] binning rule, {what} scene {size}^2 B={cp.shape[0]} (T={ct.shape[0]}, "
+            f"{tests} AABB tests unbinned, {sbins_[1].numel()} list entries): CUDA events "
+            f"unbinned {ev_ms['unbinned']} ms, binned with its glue {ev_ms['binned']} ms "
+            f"(kernel alone {kern_ms:.4f}); host clock a call unbinned {wall_ms['unbinned']}, "
+            f"binned {wall_ms['binned']} ms ({card})")
+
+    # -- 16d. big mesh: uv_sphere(512, 1024), 1,046,528 triangles ---------------
+    mpos, mtri, mcol = big_sphere(*BIG_SPHERE)
+    mp, mt, ma = inputs_from_numpy(mpos, mtri, mcol, device=dev)
+    TM = mt.shape[0]
+    mrec, maabb = rc.build_records(mp, mt, res)
+    mbins = rc.bin_records(maabb, res)
+    before = rc.KERNEL.launches, rc.BINNED_KERNEL.launches
+    mb = rc.launch_records(mrec, maabb, res, bins=mbins)
+    mu = rc.launch_records(mrec, maabb, res)
+    torch.cuda.synchronize()
+    if (rc.KERNEL.launches, rc.BINNED_KERNEL.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError("big mesh: one launch each expected")
+    equal_or_raise(mb, mu, f"binned vs unbinned kernel at T={TM}")
+    cover = float((mb[3] > 0).float().mean())
+    log(f"[16] T={TM} at {RES}^2: binned kernel = unbinned kernel bit for bit "
+        f"({mbins[1].numel()} list entries, covered {cover:.4f})")
+    mbin_ms = cuda_ms(torch, lambda: rc.launch_records(mrec, maabb, res, bins=mbins), 10)
+    munbin_ms = cuda_ms(torch, lambda: rc.launch_records(mrec, maabb, res), 2)
+    prepass_ms = cuda_ms(torch, lambda: rc.build_records(mp, mt, res), 5)
+    glue_ms = cuda_ms(torch, lambda: rc.bin_records(maabb, res), 10)
+    n_big = mrec.shape[1]
+    counts_t = torch.empty((n_big,), dtype=torch.int32, device=dev)
+    count_ms = cuda_ms(torch, lambda: rc.BIN_COUNT_KERNEL.launch(
+        dev, _build.ptr(maabb), n_big, RES // 16, RES // 16, _build.ptr(counts_t)), 20)
+    ends = torch.cumsum(counts_t, 0, dtype=torch.int64)
+    offs = ends - counts_t
+    keys = torch.empty((int(ends[-1]),), dtype=torch.int64, device=dev)
+    emit_ms = cuda_ms(torch, lambda: rc.BIN_EMIT_KERNEL.launch(
+        dev, _build.ptr(maabb), _build.ptr(offs), n_big, TM, RES // 16, RES // 16,
+        _build.ptr(keys)), 20)
+    bins_plain_ms = cuda_ms(torch, lambda: rc.bin_records_plain(maabb, res), 2)
+    equal_or_raise(rc.bin_records_plain(maabb, res), mbins, "bin kernels vs twin")
+    log(f"[16] T={TM} forward split: prepass {prepass_ms:.3f} ms, binning glue {glue_ms:.3f} "
+        f"ms (bin_count {count_ms:.4f}, bin_emit {emit_ms:.4f}, twin {bins_plain_ms:.3f}), "
+        f"binned kernel {mbin_ms:.3f} ms; the unbinned kernel {munbin_ms:.3f} ms ({card})")
+    # The binned kernel against its twin at uv_sphere(128, 320).
+    spos, stri, _ = big_sphere(*MID_SPHERE)
+    sp, st = inputs_from_numpy(spos, stri, device=dev)
+    srec, saabb = rc.build_records(sp, st, res)
+    sbins = rc.bin_records(saabb, res)
+    sgot = rc.launch_records(srec, saabb, res, bins=sbins)
+    sref = rc.rasterize_records_plain(srec, saabb, res)
+    equal_or_raise(sgot, sref, f"binned kernel vs twin at T={st.shape[0]}")
+    binned_mid_ms = cuda_ms(torch, lambda: rc.launch_records(srec, saabb, res, bins=sbins), 20)
+    # The twin at 1 M triangles: one timed call, held to the kernel too.
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    mref = rc.rasterize_records_plain(mrec, maabb, res)
+    ev[1].record()
+    torch.cuda.synchronize()
+    binned_plain_ms = ev[0].elapsed_time(ev[1])
+    equal_or_raise(mb, mref, f"binned kernel vs twin at T={TM}")
+    del mref
+    log(f"[16] binned kernel = twin bit for bit at T={st.shape[0]} (kernel "
+        f"{binned_mid_ms:.3f} ms) and at T={TM} (twin {binned_plain_ms:.3f} ms, one call) "
+        f"({card})")
+
+    def big_step():
+        pv = mp.detach().clone().requires_grad_()
+        av = ma.detach().clone().requires_grad_()
+        img = dr.render_pipeline(pv, mt, av, res)
+        return torch.autograd.grad((img ** 2).mean(), (pv, av))
+
+    reset()
+    for k in (pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+        k.launches = 0
+    g_big = big_step()
+    torch.cuda.synchronize()
+    big_launches = dict(counts(), **{k.name: k.launches
+                                     for k in (pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)})
+    log(f"[16] launches during the 1M-triangle render_pipeline step: {big_launches}")
+    for k in (rc.BINNED_KERNEL, rc.BIN_COUNT_KERNEL, rc.BIN_EMIT_KERNEL, pc.KERNEL,
+              pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+        if k.launches <= 0:
+            raise AssertionError(f"1M-triangle step: {k.name} never launched")
+    check_grads(zip(("pos", "col"), g_big), "1M-triangle step")
+    for x, y in zip(g_big, big_step()):
+        if not torch.equal(x, y):
+            raise AssertionError("1M-triangle gradients not bitwise repeatable")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    big_step()
+    torch.cuda.synchronize()
+    big_mib = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    big_ms = window_ms(torch, big_step, [()])
+    log(f"[16] render_pipeline fwd+bwd T={TM} {RES}^2: {big_ms:.3f} ms/step, peak memory of a "
+        f"step above its inputs {big_mib:.1f} MiB ({card})")
+    n_big_frag = frag_count(maabb, RES, RES)
+    binned_bound = bound((mrec.numel() + mbins[0].numel() + mbins[1].numel()
+                          + 4 * RES * RES) * f32, 34 * n_big_frag)
+    n_keys = mbins[1].numel()
+    count_bound = bound(n_big * (16 + 4), 0)
+    emit_bound = bound(n_big * (16 + 8) + n_keys * 8, 0)
+    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+    return [
+        entry("rasterize_peel", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", peel_launches[rc.PEEL_KERNEL.name],
+              0.0, peel_ms, peel_plain_ms, peel_bound, None),
+        entry("rasterize_range", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
+              range_launches[rc.RANGE_KERNEL.name], 0.0, range_ms, range_plain_ms,
+              range_bound, None),
+        entry("rasterize_band", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", band_launches[rc.BAND_KERNEL.name],
+              0.0, band_ms, band_plain_ms, band_bound, None),
+        entry("rasterize_binned", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
+              big_launches[rc.BINNED_KERNEL.name], 0.0, mbin_ms, binned_plain_ms, binned_bound,
+              None),
+        entry("bin_count", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:527",
+              big_launches[rc.BIN_COUNT_KERNEL.name], 0.0, count_ms, bins_plain_ms,
+              count_bound, None),
+        entry("bin_emit", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:494",
+              big_launches[rc.BIN_EMIT_KERNEL.name], 0.0, emit_ms, bins_plain_ms,
+              emit_bound, None),
+    ]
 
 
 def main():
@@ -1489,6 +1930,9 @@ def main():
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
 
+    # -- 16. the rest of the rasterizer: peel, range, bands, binning -----------
+    phase16_kernels = phase16(dev, card, entry)
+
     kernels = [
         entry("rasterize", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", fit_launches[rc.KERNEL.name],
@@ -1546,7 +1990,7 @@ def main():
         entry("texture_cube_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.BWD_KERNEL.name],
               cube_bwd_err, cube_bwd_ms, cube_bwd_plain_ms, cube_bwd_bound, None),
-    ]
+    ] + phase16_kernels
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "
             f"{k['ms']:.4f} ms ({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

@@ -140,11 +140,13 @@ class Kernel:
     """One C entry point of the library, with its launch count.
 
     `launch` is the only place a kernel is launched; it adds one to
-    `launches` per successful launch.
+    `launches` per successful launch. Several counters may bind one
+    entry (`symbol`, by default `name`), one per mode a caller picks.
     """
 
-    def __init__(self, name, argtypes):
+    def __init__(self, name, argtypes, symbol=None):
         self.name = name
+        self.symbol = symbol or name
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
@@ -152,7 +154,7 @@ class Kernel:
     def launch(self, device, *args):
         """Launch on `device`'s current stream; raise on a CUDA error."""
         if self._fn is None:
-            fn = getattr(library(), self.name)
+            fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes + [ctypes.c_void_p]  # + stream
             fn.restype = ctypes.c_int
             self._fn = fn

@@ -1,7 +1,8 @@
 // Antialias backward of a colour image on flat channel-major buffers.
 //
 // Replaces: nvdiffrast_tpu/ops/antialias_pallas.py, aa_backward_fused_cols
-// (instance mode).
+// (instance and range mode, viewport bands: RT, fyo as aa_fwd.cu, and
+// pyh = 0.5 * the full image height for the clip-space scale).
 //
 // One thread per pixel p (flat index over B*H*W). Each thread reads its
 // own loss gradient dy, colour and the AA residuals (alpha, aux) of both
@@ -76,12 +77,12 @@ aa_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ ct,
               const float* __restrict__ al0, const float* __restrict__ ax0,
               const float* __restrict__ al1, const float* __restrict__ ax1,
               float* __restrict__ gcol, int* __restrict__ rid2, float* __restrict__ gval2, int N,
-              int T, int H, int W, float fxo, float fyo, float pxh, float pyh) {
+              int T, int RT, int H, int W, float fxo, float fyo, float pxh, float pyh) {
     const int p = blockIdx.x * BLOCK + threadIdx.x;
     if (p >= N) return;
     const int col = p % W;
     const int row = (p / W) % H;
-    const int ro = (p / (H * W)) * T;  // instance row offset b*T
+    const int ro = (p / (H * W)) * RT;  // row offset b*T, 0 in range mode
     const float fx = static_cast<float>(col) + fxo;
     const float fy = static_cast<float>(row) + fyo;
     const float id0 = idf[p];
@@ -123,15 +124,15 @@ aa_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ ct,
 extern "C" int nvdr_aa_bwd(const float* dy, const float* ct, const float* idf,
                            const float* vtbl, int cols, const float* al0, const float* ax0,
                            const float* al1, const float* ax1, float* gcol, int* rid2,
-                           float* gval2, int N, int C, int T, int H, int W, float fxo, float fyo,
-                           float pxh, float pyh, void* stream) {
+                           float* gval2, int N, int C, int T, int RT, int H, int W, float fxo,
+                           float fyo, float pxh, float pyh, void* stream) {
     if (N <= 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int grid = (N + BLOCK - 1) / BLOCK;
 #define NVDR_AA_BWD_CASE(n)                                                                   \
     case n:                                                                                   \
         aa_bwd_kernel<n><<<grid, BLOCK, 0, s>>>(dy, ct, idf, vtbl, cols, al0, ax0, al1, ax1,   \
-                                                gcol, rid2, gval2, N, T, H, W, fxo, fyo, pxh, \
+                                                gcol, rid2, gval2, N, T, RT, H, W, fxo, fyo, pxh, \
                                                 pyh);                                         \
         break;
     switch (C) {

@@ -1,7 +1,10 @@
 // Antialias forward of a colour image on flat channel-major buffers.
 //
 // Replaces: nvdiffrast_tpu/ops/antialias_pallas.py, aa_forward_fused_cols
-// (instance mode).
+// (instance and range mode, viewport bands). Table rows: pixel of image
+// b, triangle t -> b*RT + t (RT = T in instance mode, 0 in range mode).
+// Viewport: fyo = y0 + 0.5 - 0.5*Hf puts the band's rows on the full
+// image; the band's top and bottom rows fold as borders.
 //
 // One thread per pixel. Each thread reads its own and its right and down
 // neighbours' (id, z/w, colour[C]) straight from the flat buffers (borders
@@ -73,12 +76,12 @@ aa_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ idf,
               const float* __restrict__ zw, const float* __restrict__ ftbl, int cols,
               float* __restrict__ out_own, float* __restrict__ negx, float* __restrict__ negy,
               float* __restrict__ al0, float* __restrict__ ax0, float* __restrict__ al1,
-              float* __restrict__ ax1, int N, int T, int H, int W, float fxo, float fyo) {
+              float* __restrict__ ax1, int N, int T, int RT, int H, int W, float fxo, float fyo) {
     const int p = blockIdx.x * BLOCK + threadIdx.x;
     if (p >= N) return;
     const int col = p % W;
     const int row = (p / W) % H;
-    const int ro = (p / (H * W)) * T;  // instance row offset b*T
+    const int ro = (p / (H * W)) * RT;  // row offset b*T, 0 in range mode
     const float fx = static_cast<float>(col) + fxo;
     const float fy = static_cast<float>(row) + fyo;
     const float id0 = idf[p];
@@ -107,14 +110,14 @@ aa_fwd_kernel(const float* __restrict__ ct, const float* __restrict__ idf,
 extern "C" int nvdr_aa_fwd(const float* ct, const float* idf, const float* zw,
                            const float* ftbl, int cols, float* out, float* negx, float* negy,
                            float* al0, float* ax0, float* al1, float* ax1, int N, int C, int T,
-                           int H, int W, float fxo, float fyo, void* stream) {
+                           int RT, int H, int W, float fxo, float fyo, void* stream) {
     if (N <= 0) return static_cast<int>(cudaGetLastError());
     const int grid = (N + BLOCK - 1) / BLOCK;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NVDR_AA_CASE(n)                                                                     \
     case n:                                                                                 \
         aa_fwd_kernel<n><<<grid, BLOCK, 0, s>>>(ct, idf, zw, ftbl, cols, out, negx, negy,  \
-                                                al0, ax0, al1, ax1, N, T, H, W, fxo, fyo); \
+                                                al0, ax0, al1, ax1, N, T, RT, H, W, fxo, fyo); \
         break;
     switch (C) {
         NVDR_AA_CASE(1)

@@ -4,7 +4,8 @@ Counterpart of ``nvdiffrast_tpu/ops/antialias.py``: the shared per-pair
 math (``pair_ids``, ``pair_alpha`` and their sign and rational helpers;
 the backward's ``pair_pos_grad`` and ``decode_aux``), the per-triangle
 tables, the flat pixel grid, the topology wrapper, and ``antialias``, a
-``torch.autograd.Function`` in instance mode. Its forward is kernel B7
+``torch.autograd.Function`` in instance and range mode and under a
+viewport. Its forward is kernel B7
 (``antialias_cuda.aa_forward``); its backward kernel B8
 (``antialias_cuda.aa_backward``), the reduction of the pairs' position
 gradients to triangle rows (kernel B10, ``scatter.scatter_add_by_id``)
@@ -250,8 +251,10 @@ def decode_aux(aux):
 def _build_tables(pos, tri, op_table, H, W):
     """Per-triangle screen tables (channel-major) + a dummy zero column.
 
-    Instance mode: pos [B, V, 4], tri/op_table [T, 3].
-    Returns (ftable [7, B*T+1], btable [9, B*T+1], R = B*T, T). ftable
+    pos [B, V, 4] (instance mode) or [V, 4] (range mode: one table),
+    tri/op_table [T, 3]; H: the full image height under a viewport.
+    Returns (ftable [7, B*T+1], btable [9, B*T+1], R = B*T, T), B = 1 in
+    range mode. ftable
     holds each triangle's screen vertices (SX*3, SY*3) and its wing-sign
     bitmask: the silhouette test is pixel-independent, so it is
     evaluated once per triangle. btable holds the raw clip (x, y, w).
@@ -262,8 +265,8 @@ def _build_tables(pos, tri, op_table, H, W):
     tri_l = tri.long()
     ov = torch.where(op_table >= 0, op_table, tri).long()
 
-    tv = pos[:, tri_l]  # [B, T, 3, 4]
-    o = pos[:, ov]
+    tv = pos[..., tri_l, :]  # [B, T, 3, 4] or [T, 3, 4]
+    o = pos[..., ov, :]
 
     def screen(q):
         iw = 1.0 / q[..., 3]
@@ -294,19 +297,23 @@ def _build_tables(pos, tri, op_table, H, W):
     return ftable, btable, R, T
 
 
-def _pixel_grid(B, H, W, T, device):
-    """(fx, fy, rofs, border_x, border_y) flat [N] tensors, instance mode.
+def _pixel_grid(B, H, W, T, device, viewport=None, ranged=False):
+    """(fx, fy, rofs, border_x, border_y) flat [N] tensors.
 
     fx, fy are image-centered pixel coordinates; rofs = b*T is the
-    table-row offset of each pixel's image.
+    table-row offset of each pixel's image (0 in range mode, one table).
+    viewport = (y0, full_height): the band holds rows [y0, y0 + H) of a
+    full_height image; fy is the full image's, and the band's top and
+    bottom rows fold as borders.
     """
+    y0, Hf = (0, H) if viewport is None else viewport
     N = B * H * W
     pix = torch.arange(N, dtype=torch.int32, device=device)
     colp = pix % W
     rowp = (pix // W) % H
     fx = colp.to(torch.float32) + (0.5 - 0.5 * W)
-    fy = rowp.to(torch.float32) + (0.5 - 0.5 * H)
-    rofs = (pix // (H * W)) * T
+    fy = (rowp + y0).to(torch.float32) + (0.5 - 0.5 * Hf)
+    rofs = torch.zeros_like(pix) if ranged else (pix // (H * W)) * T
     return fx, fy, rofs, colp >= W - 1, rowp >= H - 1
 
 
@@ -320,7 +327,7 @@ def channel_groups(C, width):
     return [(a, min(a + width, C)) for a in range(0, C, width)]
 
 
-def aa_fwd_groups(ct, idf, zw, ftable, shape, T):
+def aa_fwd_groups(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     """``antialias_cuda.aa_forward`` over channel groups of 8: (out
     [C, N], residuals). The residuals are the pairs' geometry, the same
     for every group."""
@@ -328,14 +335,16 @@ def aa_fwd_groups(ct, idf, zw, ftable, shape, T):
 
     outs = []
     for a, b in channel_groups(ct.shape[0], MAX_C):
-        out, res = aa_forward(ct[a:b].contiguous(), idf, zw, ftable, shape, T)
+        out, res = aa_forward(ct[a:b].contiguous(), idf, zw, ftable, shape, T, ranged,
+                              viewport)
         outs.append(out)
     return (outs[0] if len(outs) == 1 else torch.cat(outs)), res
 
 
 def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
-                need_pos=True):
-    """(g_color [C, N], g_pos [B, V, 4] or None) from the cotangent
+                need_pos=True, viewport=None):
+    """(g_color [C, N], g_pos (pos_shape: [B, V, 4], or [V, 4] in range
+    mode) or None) from the cotangent
     dy [C, N] of the antialiased image: kernel B8, then the pairs' rows
     reduced by kernel B10 and summed into vertices, times boost.
 
@@ -350,10 +359,11 @@ def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
     from .scatter import scatter_add_by_id
 
     T = tri.shape[0]
+    ranged = len(pos_shape) == 2
     g_color, gval2 = [], None
     for a, b in channel_groups(ct.shape[0], MAX_C):
         gc, rid2, gv = aa_backward(dy[a:b].contiguous(), ct[a:b].contiguous(), idf, vtbl,
-                                   residuals, shape, T)
+                                   residuals, shape, T, ranged, viewport)
         g_color.append(gc)
         gval2 = gv if gval2 is None else gval2 + gv
     g_color = g_color[0] if len(g_color) == 1 else torch.cat(g_color)
@@ -368,35 +378,36 @@ class _AntialiasFn(torch.autograd.Function):
     """antialias with its hand-written backward."""
 
     @staticmethod
-    def forward(ctx, color, rast, pos, tri, op_table, boost):
+    def forward(ctx, color, rast, pos, tri, op_table, boost, viewport):
         B, H, W, C = color.shape
         N = B * H * W
         T = tri.shape[0]
+        Hf = H if viewport is None else viewport[1]
         ct = color.reshape(N, C).T.contiguous()
         idf = rast[..., 3].reshape(N).contiguous()
         zw = rast[..., 2].reshape(N).contiguous()
-        ftable, vtbl, _, _ = _build_tables(pos, tri, op_table, H, W)
-        out, res = aa_fwd_groups(ct, idf, zw, ftable, (B, H, W), T)
+        ftable, vtbl, _, _ = _build_tables(pos, tri, op_table, Hf, W)
+        out, res = aa_fwd_groups(ct, idf, zw, ftable, (B, H, W), T, pos.ndim == 2, viewport)
         ctx.save_for_backward(ct, idf, vtbl, tri, *res)
-        ctx.meta = (tuple(color.shape), tuple(pos.shape), boost)
+        ctx.meta = (tuple(color.shape), tuple(pos.shape), boost, viewport)
         return out.T.reshape(B, H, W, C)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         ct, idf, vtbl, tri, *res = ctx.saved_tensors
-        (B, H, W, C), pos_shape, boost = ctx.meta
+        (B, H, W, C), pos_shape, boost, viewport = ctx.meta
         N = B * H * W
         g_color, g_pos = aa_bwd_flat(dy.reshape(N, C).T.contiguous(), ct, idf, vtbl, res,
                                      (B, H, W), tri, pos_shape, boost,
-                                     need_pos=ctx.needs_input_grad[2])
+                                     need_pos=ctx.needs_input_grad[2], viewport=viewport)
         g_color = g_color.T.reshape(B, H, W, C) if ctx.needs_input_grad[0] else None
-        return g_color, None, g_pos, None, None, None
+        return g_color, None, g_pos, None, None, None, None
 
 
 def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
               viewport=None):
-    """Antialias silhouette edges (instance mode).
+    """Antialias silhouette edges.
 
     Args:
         color: [minibatch, H, W, C] float32 image (C > 8 runs in groups
@@ -405,11 +416,15 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
             put on the default CUDA device, and raises RuntimeError where
             there is none.
         rast: [minibatch, H, W, 4] output of ``rasterize``.
-        pos: [minibatch, V, 4] clip-space positions used to rasterize.
+        pos: [minibatch, V, 4] (instance mode) or [V, 4] (range mode)
+            clip-space positions used to rasterize.
         tri: [T, 3] int32 triangles used to rasterize.
         topology_hash: optional ``TopologyHashWrapper`` for `tri`.
         pos_gradient_boost: multiplier of the gradients to `pos`.
-        viewport: row bands are not ported yet (ROADMAP A.9): must be None.
+        viewport: (y0, full_height): `color` and `rast` are rows
+            [y0, y0 + H) of a full_height-tall image. Pixel pairs across
+            the band's top and bottom edges are not evaluated (the band's
+            edge rows fold as borders).
 
     Returns:
         The antialiased image, shaped like `color`; differentiable with
@@ -417,9 +432,6 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
     """
     from .rasterize import as_device_tensor
 
-    if viewport is not None:
-        raise NotImplementedError("antialias: viewport bands are not ported yet "
-                                  "(ROADMAP A.9)")
     color = as_device_tensor(color, "antialias")
     dev = color.device
     rast = torch.as_tensor(rast, dtype=torch.float32, device=dev)
@@ -432,14 +444,10 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
     if color.shape[:3] != rast.shape[:3]:
         raise ValueError(f"antialias: color {tuple(color.shape)} and rast "
                          f"{tuple(rast.shape)} minibatch/resolution mismatch")
-    if pos.ndim == 2:
-        raise NotImplementedError(
-            "antialias: range mode (2-D pos) is not ported yet (ROADMAP A.9); pass "
-            "[minibatch, V, 4] positions")
-    if pos.ndim != 3 or pos.shape[-1] != 4:
-        raise ValueError(f"antialias: pos must be [minibatch, V, 4]; got "
+    if pos.ndim not in (2, 3) or pos.shape[-1] != 4:
+        raise ValueError(f"antialias: pos must be [V, 4] or [minibatch, V, 4]; got "
                          f"{tuple(pos.shape)}")
-    if pos.shape[0] != color.shape[0]:
+    if pos.ndim == 3 and pos.shape[0] != color.shape[0]:
         raise ValueError(f"antialias: instanced pos minibatch {pos.shape[0]} != "
                          f"color minibatch {color.shape[0]}")
     if tri.ndim != 2 or tri.shape[1] != 3:
@@ -453,4 +461,7 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
         op_table = topology_hash.op_table.to(dev)
     else:
         op_table = build_opposite_table(tri)
-    return _AntialiasFn.apply(color, rast, pos, tri, op_table, float(pos_gradient_boost))
+    if viewport is not None:
+        viewport = (int(viewport[0]), int(viewport[1]))
+    return _AntialiasFn.apply(color, rast, pos, tri, op_table, float(pos_gradient_boost),
+                              viewport)

@@ -2,7 +2,7 @@
 CUDA kernels (torch).
 
 Counterparts of ``nvdiffrast_tpu/ops/antialias_pallas.py`` (instance
-mode):
+and range mode, viewport bands):
 
 * ``aa_cols`` (kernel ``csrc/aa_fwd.cu``, B7 ``aa_forward_fused_cols``)
   reads a colour image [C, N] and the rasterizer's flat id and depth
@@ -16,7 +16,9 @@ mode):
   ``scatter.scatter_add_by_id`` reduces to triangle rows.
 
 ``aa_cols_plain`` and ``aa_backward_plain`` are the plain PyTorch twins,
-with the same arithmetic.
+with the same arithmetic. Every function takes `ranged` (range mode: one
+table [*, T+1] for all images) and `viewport` ((y0, full_height) of the
+band, or None).
 """
 
 import ctypes
@@ -32,23 +34,31 @@ MAX_C = 8  # channels served by the kernel (antialias_pallas._MAX_CHANNELS)
 KERNEL = _build.Kernel(
     "nvdr_aa_fwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2)
+    + [ctypes.c_int] * 6 + [ctypes.c_float] * 2)
 
 BWD_KERNEL = _build.Kernel(
     "nvdr_aa_bwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 5 + [ctypes.c_float] * 4)
+    + [ctypes.c_int] * 6 + [ctypes.c_float] * 4)
 
 
-def _check(ct, idf, zw, ftable, shape, T):
+def _geometry(shape, T, ranged, viewport):
+    """(table row stride per image RT, fy offset fyo, full height Hf)."""
+    H = shape[1]
+    y0, Hf = (0, H) if viewport is None else viewport
+    return (0 if ranged else T), y0 + 0.5 - 0.5 * Hf, Hf
+
+
+def _check(ct, idf, zw, ftable, shape, T, ranged=False):
     B, H, W = shape
     N = B * H * W
     C = ct.shape[0]
+    cols = (T if ranged else B * T) + 1
     if ct.ndim != 2 or ct.shape[1] != N or not 1 <= C <= MAX_C:
         raise ValueError(f"aa_forward: colour must be [C, {N}] with 1 <= C <= "
                          f"{MAX_C}; got {tuple(ct.shape)}")
-    if ftable.shape != (7, B * T + 1):
-        raise ValueError(f"aa_forward: ftable must be [7, {B * T + 1}]; got "
+    if ftable.shape != (7, cols):
+        raise ValueError(f"aa_forward: ftable must be [7, {cols}]; got "
                          f"{tuple(ftable.shape)}")
     if idf.shape != (N,) or zw.shape != (N,):
         raise ValueError("aa_forward: idf and zw must be flat [N]")
@@ -58,13 +68,15 @@ def _check(ct, idf, zw, ftable, shape, T):
     return C, N
 
 
-def aa_cols(ct, idf, zw, ftable, shape, T):
+def aa_cols(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     """Per-pixel AA pair analysis of a colour image.
 
     Args:
       ct: [C, N] colour, channel-major; idf, zw: flat [N] rasterizer id
-        and depth; ftable: [7, B*T+1] (antialias._build_tables);
-      shape: (B, H, W); T: triangles per image.
+        and depth; ftable: [7, B*T+1], or [7, T+1] when `ranged`
+        (antialias._build_tables);
+      shape: (B, H, W); T: triangles per image (per table);
+      viewport: (y0, full_height) of the band, or None.
 
     Returns (out, ct, negx, negy, al0, ax0, al1, ax1): out/negx/negy
     [C, N], the residuals [N] (the layout of shade_cols, for
@@ -72,11 +84,12 @@ def aa_cols(ct, idf, zw, ftable, shape, T):
     the kernel or raise.
     """
     if ct.device.type == "cpu":
-        return aa_cols_plain(ct, idf, zw, ftable, shape, T)
+        return aa_cols_plain(ct, idf, zw, ftable, shape, T, ranged, viewport)
     if ct.device.type != "cuda":
         raise ValueError(f"aa_cols: unsupported device {ct.device}")
-    C, N = _check(ct, idf, zw, ftable, shape, T)
+    C, N = _check(ct, idf, zw, ftable, shape, T, ranged)
     B, H, W = shape
+    RT, fyo, _ = _geometry(shape, T, ranged, viewport)
     ct, idf, zw, ftable = (t.contiguous() for t in (ct, idf, zw, ftable))
     dev = ct.device
     chans = [torch.empty((C, N), dtype=torch.float32, device=dev)
@@ -86,15 +99,15 @@ def aa_cols(ct, idf, zw, ftable, shape, T):
     KERNEL.launch(dev, _build.ptr(ct), _build.ptr(idf), _build.ptr(zw),
                   _build.ptr(ftable), ftable.shape[1],
                   *(_build.ptr(t) for t in chans + res),
-                  N, C, T, H, W, 0.5 - 0.5 * W, 0.5 - 0.5 * H)
+                  N, C, T, RT, H, W, 0.5 - 0.5 * W, fyo)
     return (chans[0], ct, chans[1], chans[2], *res)
 
 
-def aa_cols_plain(ct, idf, zw, ftable, shape, T):
+def aa_cols_plain(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     """Plain PyTorch twin of the AA forward kernel (same arithmetic)."""
-    _check(ct, idf, zw, ftable, shape, T)
+    _check(ct, idf, zw, ftable, shape, T, ranged)
     B, H, W = shape
-    fx, fy, rofs, bx, by = _pixel_grid(B, H, W, T, ct.device)
+    fx, fy, rofs, bx, by = _pixel_grid(B, H, W, T, ct.device, viewport, ranged)
     out = ct
     negs = []
     res = []
@@ -111,11 +124,12 @@ def aa_cols_plain(ct, idf, zw, ftable, shape, T):
     return (out, ct, negs[0], negs[1], *res)
 
 
-def aa_forward(ct, idf, zw, ftable, shape, T):
+def aa_forward(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     """Antialiased colour [C, N] and the residuals (al0, ax0, al1, ax1)
     flat [N] row-major, as ``antialias_pallas.aa_forward_fused_cols``
     (whose residuals are tile-ordered)."""
-    out, _, res = finish_shade(aa_cols(ct, idf, zw, ftable, shape, T), shape[2])
+    out, _, res = finish_shade(aa_cols(ct, idf, zw, ftable, shape, T, ranged, viewport),
+                               shape[2])
     return out, res
 
 
@@ -123,15 +137,16 @@ def aa_forward(ct, idf, zw, ftable, shape, T):
 # B8: backward.
 # ---------------------------------------------------------------------------
 
-def _check_bwd(dy, ct, idf, vtbl, residuals, shape, T):
+def _check_bwd(dy, ct, idf, vtbl, residuals, shape, T, ranged=False):
     B, H, W = shape
     N = B * H * W
     C = ct.shape[0]
+    cols = (T if ranged else B * T) + 1
     if ct.ndim != 2 or ct.shape[1] != N or not 1 <= C <= MAX_C or dy.shape != ct.shape:
         raise ValueError(f"aa_backward: dy and colour must be [C, {N}] with 1 <= C <= "
                          f"{MAX_C}; got {tuple(dy.shape)}, {tuple(ct.shape)}")
-    if vtbl.shape != (9, B * T + 1):
-        raise ValueError(f"aa_backward: vtbl must be [9, {B * T + 1}]; got "
+    if vtbl.shape != (9, cols):
+        raise ValueError(f"aa_backward: vtbl must be [9, {cols}]; got "
                          f"{tuple(vtbl.shape)}")
     if idf.shape != (N,) or any(r.shape != (N,) for r in residuals):
         raise ValueError("aa_backward: idf and the residuals must be flat [N]")
@@ -141,7 +156,7 @@ def _check_bwd(dy, ct, idf, vtbl, residuals, shape, T):
     return C, N
 
 
-def aa_backward(dy, ct, idf, vtbl, residuals, shape, T):
+def aa_backward(dy, ct, idf, vtbl, residuals, shape, T, ranged=False, viewport=None):
     """Antialias backward of a colour image.
 
     Args:
@@ -159,11 +174,12 @@ def aa_backward(dy, ct, idf, vtbl, residuals, shape, T):
     twin; CUDA tensors launch the kernel or raise.
     """
     if ct.device.type == "cpu":
-        return aa_backward_plain(dy, ct, idf, vtbl, residuals, shape, T)
+        return aa_backward_plain(dy, ct, idf, vtbl, residuals, shape, T, ranged, viewport)
     if ct.device.type != "cuda":
         raise ValueError(f"aa_backward: unsupported device {ct.device}")
-    C, N = _check_bwd(dy, ct, idf, vtbl, residuals, shape, T)
+    C, N = _check_bwd(dy, ct, idf, vtbl, residuals, shape, T, ranged)
     B, H, W = shape
+    RT, fyo, Hf = _geometry(shape, T, ranged, viewport)
     dy, ct, idf, vtbl = (t.contiguous() for t in (dy, ct, idf, vtbl))
     res = [t.contiguous() for t in residuals]
     dev = ct.device
@@ -173,17 +189,18 @@ def aa_backward(dy, ct, idf, vtbl, residuals, shape, T):
     BWD_KERNEL.launch(dev, _build.ptr(dy), _build.ptr(ct), _build.ptr(idf),
                       _build.ptr(vtbl), vtbl.shape[1], *(_build.ptr(t) for t in res),
                       _build.ptr(gcol), _build.ptr(rid2), _build.ptr(gval2),
-                      N, C, T, H, W, 0.5 - 0.5 * W, 0.5 - 0.5 * H, 0.5 * W, 0.5 * H)
+                      N, C, T, RT, H, W, 0.5 - 0.5 * W, fyo, 0.5 * W, 0.5 * Hf)
     return gcol, rid2, gval2
 
 
-def aa_backward_plain(dy, ct, idf, vtbl, residuals, shape, T):
+def aa_backward_plain(dy, ct, idf, vtbl, residuals, shape, T, ranged=False, viewport=None):
     """Plain PyTorch twin of the AA backward kernel (same arithmetic;
     antialias_pallas.py:380-404, the neighbours' blends added as
     pipeline_bwd_cuda.pipeline_bwd_plain adds them)."""
-    _check_bwd(dy, ct, idf, vtbl, residuals, shape, T)
+    _check_bwd(dy, ct, idf, vtbl, residuals, shape, T, ranged)
     B, H, W = shape
-    fx, fy, rofs, bx, by = _pixel_grid(B, H, W, T, ct.device)
+    Hf = H if viewport is None else viewport[1]
+    fx, fy, rofs, bx, by = _pixel_grid(B, H, W, T, ct.device, viewport, ranged)
     al0, ax0, al1, ax1 = residuals
     gc = dy
     rid2 = []
@@ -204,7 +221,7 @@ def aa_backward_plain(dy, ct, idf, vtbl, residuals, shape, T):
         dd = torch.where(active, dd, 0.0)
         keep = ok & (dd != 0.0) & (al.abs() < 0.5)
         t9 = torch.where(keep, vtbl[:, rid.long()], 0.0)
-        cols = pair_pos_grad(list(t9), dd, keep, di, is_t1, fx, fy, d, W, H)
+        cols = pair_pos_grad(list(t9), dd, keep, di, is_t1, fx, fy, d, W, Hf)
         rid2.append(rid)
         gval2.append(torch.stack(cols))
     a0m = _roll_next(al0, 1)

@@ -220,9 +220,10 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
     resolution = tuple(int(x) for x in resolution)
 
     if pos.ndim != 3:
-        raise NotImplementedError(
-            "render_pipeline: range mode (2-D pos) is not ported yet (ROADMAP "
-            "A.9); pass [minibatch, num_vertices, 4] positions")
+        # As the JAX package: its composed path calls rasterize without
+        # ranges, which refuses 2-D pos.
+        raise ValueError("render_pipeline: range mode requires `ranges` (pos is 2D); "
+                         "pass [minibatch, num_vertices, 4] positions")
     if atri.shape[0] != tri.shape[0]:
         raise ValueError(
             f"render_pipeline: attr_idx triangle count {atri.shape[0]} "

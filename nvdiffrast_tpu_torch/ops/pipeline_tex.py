@@ -241,10 +241,7 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
     resolution = tuple(int(x) for x in resolution)
     cube = boundary_mode == "cube"
 
-    if pos.ndim != 3:
-        raise NotImplementedError(
-            "render_pipeline_textured: range mode (2-D pos) is not ported yet "
-            "(ROADMAP A.9); pass [minibatch, num_vertices, 4] positions")
+    # 2-D pos raises ValueError (range mode without ranges), as in JAX.
     _check_rasterize_args(pos, tri, resolution)
     B = pos.shape[0]
     if uv_tri.shape != tri.shape:

@@ -1,16 +1,18 @@
 """The differentiable rasterize op and its helpers (torch).
 
-Counterpart of ``nvdiffrast_tpu/ops/rasterize.py`` in instance mode: the
+Counterpart of ``nvdiffrast_tpu/ops/rasterize.py``: the
 correctly-rounded edge coefficient product, the near-plane epsilon, the
-context class, the argument checks, and ``rasterize``, a
-``torch.autograd.Function``. Its forward is the rasterizer kernel with
-bary derivatives (``rasterize_cuda.rasterize_fused(emit_db=True)``); its
-backward gathers each pixel's clip-space vertex table column (kernel B9,
-``gather.table_take``), runs the per-pixel math of
+context class, the argument checks, ``rasterize``, a
+``torch.autograd.Function``, and ``DepthPeeler``. The forward is the
+rasterizer kernel with bary derivatives
+(``rasterize_cuda.rasterize_fused(emit_db=True)``) in instance or range
+mode, under a viewport, and with the peel depth of the previous layer;
+the backward gathers each pixel's clip-space vertex table column (kernel
+B9, ``gather.table_take``), runs the per-pixel math of
 ``_raster_grad_pixel_cols`` as tensor glue (it is XLA in the JAX package
 too), reduces the rows to triangles (kernel B10,
-``scatter.scatter_add_by_id``) and sums them into vertices. Range mode,
-depth peeling and viewports raise NotImplementedError (ROADMAP A.9).
+``scatter.scatter_add_by_id``) and sums them into vertices (in range
+mode into the one shared ``[V, 4]``, over all images).
 """
 
 import numpy as np
@@ -68,20 +70,14 @@ def _dop(a, b, c, d):
     return (a * b - c * d).to(torch.float32)
 
 
-def _check_rasterize_args(pos, tri, resolution):
-    """Shape, dtype and index checks of instance mode.
-
-    Raises ValueError for a malformed call and NotImplementedError for
-    range mode (2-D pos), which this port does not have yet.
-    """
-    if pos.ndim == 2:
-        raise NotImplementedError(
-            "rasterize: range mode (2-D pos) is not ported yet (ROADMAP A.9); "
-            "pass [minibatch, num_vertices, 4] positions")
-    if pos.ndim != 3 or pos.shape[-1] != 4 or pos.shape[-2] == 0:
+def _check_rasterize_args(pos, tri, resolution, ranges=None):
+    """Shape, dtype and index checks (rasterize.py:1001-1005 of the JAX
+    package): range mode (2-D pos) requires ranges [minibatch, 2].
+    Raises ValueError for a malformed call."""
+    if pos.ndim not in (2, 3) or pos.shape[-1] != 4 or pos.shape[-2] == 0:
         raise ValueError(
-            "rasterize: pos must be [minibatch, num_vertices, 4]; "
-            f"got {tuple(pos.shape)}")
+            "rasterize: pos must be [num_vertices, 4] (range mode) or "
+            f"[minibatch, num_vertices, 4] (instanced); got {tuple(pos.shape)}")
     if pos.dtype != torch.float32:
         raise ValueError(f"rasterize: pos must be float32; got {pos.dtype}")
     if tri.ndim != 2 or tri.shape[1] != 3:
@@ -96,6 +92,10 @@ def _check_rasterize_args(pos, tri, resolution):
     h, w = resolution
     if h <= 0 or w <= 0:
         raise ValueError(f"rasterize: invalid resolution {resolution}")
+    if pos.ndim == 2 and (ranges is None or ranges.ndim != 2 or ranges.shape[1] != 2):
+        raise ValueError(
+            "rasterize: range mode requires ranges [minibatch, 2]; "
+            f"got {None if ranges is None else tuple(ranges.shape)}")
     if tri.numel():
         tmin, tmax = (int(x) for x in torch.aminmax(tri))
         v = pos.shape[-2]
@@ -123,9 +123,10 @@ def as_device_tensor(x, what):
 # ---------------------------------------------------------------------------
 
 def vertex_table(pos, tri):
-    """[9, B*T+1] clip-space (x, y, w) of each triangle's vertices, row
-    3*k + c for vertex k, a zero column last."""
-    tbl = pos[:, tri.long()][..., [0, 1, 3]].reshape(-1, 9).T
+    """[9, B*T+1] (instance mode) or [9, T+1] (range mode, pos [V, 4])
+    clip-space (x, y, w) of each triangle's vertices, row 3*k + c for
+    vertex k, a zero column last."""
+    tbl = pos[..., tri.long(), :][..., [0, 1, 3]].reshape(-1, 9).T
     return torch.cat([tbl, tbl.new_zeros((9, 1))], dim=1).contiguous()
 
 
@@ -225,117 +226,154 @@ def pixel_rows(idf, T, hw, rows):
     return torch.where(valid, tid, rows)
 
 
-def pixel_centres(N, resolution, device):
-    """Clip-space centres (fx, fy) [N] of the flat pixels of B images."""
+def pixel_centres(N, resolution, device, viewport=None):
+    """Clip-space centres (fx, fy) [N] of the flat pixels of B images;
+    viewport (y0, full_height): the images are rows [y0, y0 + H) of
+    full_height-tall ones."""
     H, W = resolution
-    xs, xo, ys, yo = coord.pixel_scale_offset(H, W)
+    y0, Hf = (0, H) if viewport is None else viewport
+    xs, xo, ys, yo = coord.pixel_scale_offset(Hf, W)
     pix = torch.arange(N, dtype=torch.int32, device=device)
     fx = (pix % W).to(torch.float32) * xs + xo
-    fy = ((pix // W) % H).to(torch.float32) * ys + yo
+    fy = ((pix // W) % H + y0).to(torch.float32) * ys + yo
     return fx, fy
 
 
-def raster_grad_rows(vtbl, idf, dyx, dyy, ddb, resolution, T):
+def raster_grad_rows(vtbl, idf, dyx, dyy, ddb, resolution, T, viewport=None):
     """Per-pixel vertex-position gradient rows (``_raster_grad_pixel_cols``).
 
     Args:
-      vtbl: [9, B*T+1] ``vertex_table``; idf: [N] rast id channel.
+      vtbl: [9, B*T+1] ``vertex_table`` (instance mode) or [9, T+1]
+        (range mode: one table, rows are the global triangle ids);
+        idf: [N] rast id channel.
       dyx, dyy: [N] cotangents of rast channels 0-1; ddb: the 4 rast_db
         cotangent flats, or None without the db terms.
-      resolution: (H, W); T: triangles per image.
+      resolution: (H, W); T: triangles per image; viewport: (y0,
+        full_height) of the render, or None.
 
     Returns (g [9, N], rid [N] int32): the columns, zero where the pixel
     has no triangle or a value is not finite, and each pixel's table row
-    (B*T, out of range, where it has none). The 9-row gather is kernel B9
+    (out of range where it has none). The 9-row gather is kernel B9
     (``gather.table_take``); the rest is tensor glue.
     """
     from .gather import table_take
 
     H, W = resolution
     R = vtbl.shape[1] - 1
-    rid = pixel_rows(idf, T, H * W, R)
+    # One table (range mode, or one image): rows are the triangle ids.
+    rid = pixel_rows(idf, T, H * W if R != T else 0, R)
     t9 = table_take(vtbl, rid)
-    fx, fy = pixel_centres(idf.shape[0], resolution, idf.device)
-    g = torch.stack(raster_grad_math(list(t9), fx, fy, dyx, dyy, ddb, W, H))
+    fx, fy = pixel_centres(idf.shape[0], resolution, idf.device, viewport)
+    Hf = H if viewport is None else viewport[1]
+    g = torch.stack(raster_grad_math(list(t9), fx, fy, dyx, dyy, ddb, W, Hf))
     return torch.where((rid < R)[None] & torch.isfinite(g), g, 0.0), rid
 
 
-def raster_pos_grad(vtbl, tri, pos_shape, idf, dyx, dyy, ddb, resolution):
-    """g_pos [B, V, 4] of the rasterizer from its flat cotangents (vtbl:
-    ``vertex_table`` of the positions): the per-pixel rows, their
-    reduction to triangle rows (kernel B10, ``scatter.scatter_add_by_id``)
-    and the deterministic vertex sums."""
+def raster_pos_grad(vtbl, tri, pos_shape, idf, dyx, dyy, ddb, resolution, viewport=None):
+    """g_pos (pos_shape: [B, V, 4], or [V, 4] in range mode) of the
+    rasterizer from its flat cotangents (vtbl: ``vertex_table`` of the
+    positions): the per-pixel rows, their reduction to triangle rows
+    (kernel B10, ``scatter.scatter_add_by_id``) and the deterministic
+    vertex sums."""
     from .scatter import scatter_add_by_id
 
-    g, rid = raster_grad_rows(vtbl, idf, dyx, dyy, ddb, resolution, tri.shape[0])
+    g, rid = raster_grad_rows(vtbl, idf, dyx, dyy, ddb, resolution, tri.shape[0], viewport)
     return xyw_rows_to_vertices(scatter_add_by_id(rid, g, vtbl.shape[1] - 1), tri,
                                 pos_shape)
 
 
 def xyw_rows_to_vertices(gt, tri, pos_shape):
     """Per-triangle rows [B*T, 9] (x, y, w of each vertex) -> g_pos
-    [B, V, 4] (z gets none), by the render pipeline's deterministic
-    vertex sums."""
+    pos_shape, [B, V, 4] or, in range mode, [V, 4] (z gets none), by the
+    render pipeline's deterministic vertex sums."""
     from .pipeline import _corner_table, _vertex_sum
 
-    B, V = pos_shape[0], pos_shape[1]
+    B, V = (1, pos_shape[0]) if len(pos_shape) == 2 else pos_shape[:2]
     gv = _vertex_sum(gt.reshape(B, 3 * tri.shape[0], 3), _corner_table(tri, V))
     g_pos = gt.new_zeros((B, V, 4))
     g_pos[..., [0, 1, 3]] = gv
-    return g_pos
+    return g_pos.reshape(pos_shape)
 
 
 class _RasterizeFn(torch.autograd.Function):
-    """rasterize with its hand-written backward."""
+    """rasterize (and a depth peeling layer) with its hand-written
+    backward. Returns (rast, rast_db, zbuf); zbuf, made only for the
+    depth peeler (`emit_zbuf`) and None otherwise, is not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, pos, tri, resolution, grad_db):
+    def forward(ctx, pos, tri, resolution, grad_db, ranges, peel, viewport, emit_zbuf):
         from .rasterize_cuda import rasterize_fused
 
-        outs = rasterize_fused(pos, tri, resolution, emit_db=True)
+        outs = rasterize_fused(pos, tri, resolution, ranges, peel, viewport, emit_db=True,
+                               emit_zbuf=emit_zbuf)
         ctx.save_for_backward(pos, tri, outs[3])
-        ctx.meta = (resolution, grad_db)
+        ctx.meta = (resolution, grad_db, viewport)
         ctx.set_materialize_grads(False)
-        return torch.stack(outs[:4], dim=-1), torch.stack(outs[4:], dim=-1)
+        zbuf = outs[8] if emit_zbuf else None
+        if emit_zbuf:
+            ctx.mark_non_differentiable(zbuf)
+        return torch.stack(outs[:4], dim=-1), torch.stack(outs[4:8], dim=-1), zbuf
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, d_rast, d_db):
+    def backward(ctx, d_rast, d_db, _d_zbuf):
         pos, tri, idf = ctx.saved_tensors
-        resolution, grad_db = ctx.meta
+        resolution, grad_db, viewport = ctx.meta
         if not grad_db:
             d_db = None
         if d_rast is None and d_db is None:
-            return None, None, None, None
+            return (None,) * 8
         N = idf.numel()
         zero = idf.new_zeros(N)
         dy = (zero, zero) if d_rast is None else tuple(d_rast.reshape(N, 4).T[:2])
         ddb = None if d_db is None else tuple(d_db.reshape(N, 4).T)
         g_pos = raster_pos_grad(vertex_table(pos, tri), tri, tuple(pos.shape),
-                                idf.reshape(N), *dy, ddb, resolution)
-        return g_pos, None, None, None
+                                idf.reshape(N), *dy, ddb, resolution, viewport)
+        return (g_pos,) + (None,) * 7
+
+
+def _prepare(pos, tri, resolution, ranges, what):
+    """The checked tensors of a rasterize call: (pos, tri, resolution,
+    ranges); ranges is None in instance mode, where it is ignored."""
+    pos = as_device_tensor(pos, what)
+    tri = torch.as_tensor(tri, dtype=torch.int32, device=pos.device)
+    resolution = tuple(int(x) for x in resolution)
+    if pos.ndim == 2:
+        if ranges is None:
+            raise ValueError("range mode requires `ranges` (pos is 2D)")
+        ranges = torch.as_tensor(ranges, dtype=torch.int32, device=pos.device)
+    else:
+        ranges = None
+    _check_rasterize_args(pos, tri, resolution, ranges)
+    return pos, tri, resolution, ranges
 
 
 def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True, viewport=None):
-    """Rasterize triangles (instance mode).
+    """Rasterize triangles.
 
     Args:
         glctx: a ``RasterizeCudaContext`` or None (kept for API parity).
-        pos: [minibatch, V, 4] float32 clip-space positions. A tensor runs
-            on its device (CPU tensors on the plain twins); anything else
-            is put on the default CUDA device, and raises RuntimeError
-            where there is none.
+        pos: float32 clip-space positions, [minibatch, V, 4] (instance
+            mode) or [V, 4] (range mode, with `ranges`). A tensor runs on
+            its device (CPU tensors on the plain twins); anything else is
+            put on the default CUDA device, and raises RuntimeError where
+            there is none.
         tri: [T, 3] int32 triangles.
         resolution: (height, width).
-        ranges: range mode is not ported yet (ROADMAP A.9): must be None.
+        ranges: range mode only: [minibatch, 2] int32 (start, count) into
+            `tri`. Ignored in instance mode.
         grad_db: propagate the gradients of rast_db into pos.
-        viewport: row bands are not ported yet (ROADMAP A.9): must be None.
+        viewport: (y0, full_height): render rows [y0, y0 + height) of a
+            full_height-tall image, bit for bit the same rows of the full
+            render.
 
     Returns:
         (rast, rast_db), both [minibatch, H, W, 4]: rast = (u, v, z/w,
         triangle id + 1 as float), rast_db = (du/dX, du/dY, dv/dX, dv/dY).
         Differentiable with respect to pos through rast channels 0-1 and,
-        with grad_db, rast_db.
+        with grad_db, rast_db; in range mode the gradients of all images
+        sum into the one [V, 4].
     """
     if glctx is not None:
         if not isinstance(glctx, RasterizeCudaContext):
@@ -343,22 +381,69 @@ def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True, viewport=N
         if glctx.active_depth_peeler is not None:
             raise RuntimeError("Cannot call rasterize() during depth peeling "
                                "operation, use rasterize_next_layer() instead")
-    if ranges is not None or viewport is not None:
-        raise NotImplementedError(
-            "rasterize: range mode (ranges) and viewport bands are not ported yet "
-            "(ROADMAP A.9)")
     if grad_db is not True and grad_db is not False:
         raise ValueError("rasterize: grad_db must be True or False")
-    pos = as_device_tensor(pos, "rasterize")
-    tri = torch.as_tensor(tri, dtype=torch.int32, device=pos.device)
-    resolution = tuple(int(x) for x in resolution)
-    _check_rasterize_args(pos, tri, resolution)
-    return _RasterizeFn.apply(pos, tri, resolution, grad_db)
+    pos, tri, resolution, ranges = _prepare(pos, tri, resolution, ranges, "rasterize")
+    if viewport is not None:
+        viewport = (int(viewport[0]), int(viewport[1]))
+    rast, rast_db, _ = _RasterizeFn.apply(pos, tri, resolution, grad_db, ranges, None,
+                                          viewport, False)
+    return rast, rast_db
 
 
 class DepthPeeler:
-    """Depth peeling context of the reference API: not ported yet."""
+    """Depth peeling context manager (reference API: nvdiffrast/torch/ops.py
+    DepthPeeler; JAX package rasterize.py:1084-1155).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DepthPeeler: depth peeling is not ported yet (ROADMAP A.9)")
+    Each ``rasterize_next_layer`` rasterizes the next depth layer: it
+    culls the fragments at depths <= the previous layer's, compared on
+    the rounded quotient z/w the previous layer stored, so its winner
+    never reappears. Layers are differentiable to pos as ``rasterize``.
+    """
+
+    def __init__(self, glctx, pos, tri, resolution, ranges=None, grad_db=True):
+        if glctx is not None and not isinstance(glctx, RasterizeCudaContext):
+            raise TypeError("DepthPeeler: glctx must be a RasterizeCudaContext or None")
+        if grad_db is not True and grad_db is not False:
+            raise ValueError("DepthPeeler: grad_db must be True or False")
+        self.raster_ctx = glctx
+        self.pos, self.tri, self.resolution, self.ranges = _prepare(
+            pos, tri, resolution, ranges, "DepthPeeler")
+        self.grad_db = grad_db
+        self.peeling_idx = None
+        self._peel_depth = None
+
+    def __enter__(self):
+        if self.raster_ctx is None:
+            raise RuntimeError("Cannot re-enter a terminated depth peeling operation")
+        if self.raster_ctx.active_depth_peeler is not None:
+            raise RuntimeError("Cannot have multiple depth peelers active simultaneously "
+                               "in a rasterization context")
+        self.raster_ctx.active_depth_peeler = self
+        self.peeling_idx = 0
+        self._peel_depth = None
+        return self
+
+    def __exit__(self, *args):
+        assert self.raster_ctx.active_depth_peeler is self
+        self.raster_ctx.active_depth_peeler = None
+        self.raster_ctx = None
+        self.pos = None
+        self.tri = None
+        self.resolution = None
+        self.ranges = None
+        self.grad_db = None
+        self.peeling_idx = None
+        self._peel_depth = None
+        return None
+
+    def rasterize_next_layer(self):
+        """Rasterize the next depth layer: (rast, rast_db) as ``rasterize``."""
+        assert self.raster_ctx.active_depth_peeler is self
+        assert self.peeling_idx >= 0
+        rast, rast_db, zbuf = _RasterizeFn.apply(
+            self.pos, self.tri, self.resolution, self.grad_db, self.ranges,
+            self._peel_depth, None, True)
+        self._peel_depth = zbuf.detach()
+        self.peeling_idx += 1
+        return rast, rast_db

@@ -1,4 +1,5 @@
-"""Rasterizer: plain-tensor prepass + one CUDA kernel (torch).
+"""Rasterizer: plain-tensor prepass, per-tile binning and one CUDA kernel
+family (torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
 
@@ -7,19 +8,25 @@ Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
   functions, the z and w planes, id+1 or 1e30 when invalid) and a
   screen AABB that includes the coverage slop. Same formulas, same
   operation order; the edge rows come from the correctly-rounded
-  ``_dop`` and match the JAX records bit for bit.
+  ``_dop`` and match the JAX records bit for bit. Instance mode builds
+  one record set per image, range mode (2-D pos) one set that every
+  image reads; under a viewport the AABB rows are band-local.
+* **Binning** ``csrc/raster_bin.cu`` (``bin_records``): per-tile lists of
+  the records whose AABB meets the tile, ascending; the TPU's dense,
+  remap and CSR layouts are not carried over. Engaged when the
+  unbinned sweep's AABB tests (images x records x tiles) reach
+  ``BIN_MIN_WORK``.
 * **Kernel** ``csrc/rasterize.cu`` (``rasterize_records``): coverage with
   the exclusive tie rule and near-clip cut, the lexicographic (z/w, id)
   minimum with the lowest id winning ties, and the final shading to
-  (u, v, z/w, id), and with ``emit_db`` also the four bary pixel
+  (u, v, z/w, id); with ``emit_db`` also the four bary pixel
   derivatives (dudx, dudy, dvdx, dvdy) from the winner's edge
-  gradients. ``rasterize_records_plain`` is its plain PyTorch twin with
-  the same arithmetic in the same merge order (ascending id per pixel,
-  candidates rejected per 16x16 tile by AABB), so the two agree bit for
-  bit.
-
-Only instance mode is ported: range mode, depth peeling and viewports
-raise NotImplementedError.
+  gradients; range windows, the peel cull on the rounded depth, the
+  zbuf output and viewport rows as arguments. ``rasterize_records_plain``
+  is its plain PyTorch twin with the same arithmetic in the same merge
+  order (ascending id per pixel, candidates per 16x16 tile by AABB or
+  from the tile's list), so the two agree bit for bit; ``bin_records_plain``
+  builds the same lists as the binning kernels.
 """
 
 import ctypes
@@ -39,6 +46,14 @@ _CLIP_EPS = 1e-9
 # Tile edge of the kernel's per-tile AABB rejection (csrc/rasterize.cu TILE).
 RASTER_TILE = 16
 
+# The binned sweep is taken when images x records x tiles (the unbinned
+# sweep's AABB tests) reach this; below it the unbinned sweep needs no
+# binning glue and no host sync. On the H100 (chip_smoke.py phase 16,
+# PERF.md) the unbinned sweep wins at the bench scene's 65 M tests
+# (0.30 ms against 0.36-0.54 ms binned with its glue) and the binned one
+# at 130 M (0.35-0.49 ms against 0.59-0.60 ms); 2**26 lies between.
+BIN_MIN_WORK = 1 << 26
+
 # Fragments the plain twin evaluates at once (~150 bytes each).
 _TWIN_FRAGMENTS = 1 << 22
 
@@ -48,13 +63,35 @@ _SLOP_KAPPA = (1.01 + 3.0) * 2.0 ** -24
 _SLOP_ABS_FLOOR = 3.0 * 2.0 ** -126
 _SLOP_MARGIN = 1.25
 
-KERNEL = _build.Kernel(
-    "nvdr_rasterize_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4)
-# The emit_db variant (4 more output pointers).
-DB_KERNEL = _build.Kernel(
-    "nvdr_rasterize_fwd_db",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4)
+# One kernel family behind one entry point (csrc/rasterize.cu
+# nvdr_rasterize: rec, aabb, tile_start, tile_list, ranges, peel, 9
+# outputs; B, T, sets, H, W, y0; xs, xo, ys, yo), with one launch count
+# per mode. A launch counts under the first of: peel, range mode,
+# viewport band (each binned or not), binned, db, plain.
+_RASTER_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+
+
+def _raster_mode(name):
+    return _build.Kernel(name, _RASTER_ARGS, symbol="nvdr_rasterize")
+
+
+KERNEL = _raster_mode("nvdr_rasterize_fwd")          # unbinned, no db
+DB_KERNEL = _raster_mode("nvdr_rasterize_fwd_db")    # unbinned, db
+BINNED_KERNEL = _raster_mode("nvdr_rasterize_binned")
+PEEL_KERNEL = _raster_mode("nvdr_rasterize_peel")    # with a peel buffer
+RANGE_KERNEL = _raster_mode("nvdr_rasterize_range")  # range mode
+BAND_KERNEL = _raster_mode("nvdr_rasterize_band")    # viewport band
+# Binning (csrc/raster_bin.cu).
+BIN_COUNT_KERNEL = _build.Kernel(
+    "nvdr_bin_count", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+BIN_EMIT_KERNEL = _build.Kernel(
+    "nvdr_bin_emit", [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
+
+_KEY_BITS = 24  # record index bits of a binning key (T < 2^24)
+# List entries of one binning; the lists are indexed with int32.
+MAX_BIN_ENTRIES = 1 << 31
 
 
 def _f32(x, like):
@@ -154,11 +191,15 @@ def _near_clip_cols(x, y, w):
     return sx, sy, sw, valid
 
 
-def _aabb_union_cols(sx, sy, sw, svalid, ok_tri, slop, H, W):
+def _aabb_union_cols(sx, sy, sw, svalid, ok_tri, slop, H, W, y0=0, Hf=None):
     """Pixel-unit screen AABB of the clipped slots plus the half-pixel
-    guard band and the slop; empty (+BIG, -BIG) when culled."""
+    guard band and the slop; empty (+BIG, -BIG) when culled. Under a
+    viewport the band holds rows [y0, y0 + H) of an Hf-tall image and the
+    rows are band-local (rasterize_pallas._aabb_union_cols)."""
+    Hf = H if Hf is None else Hf
+    y0f = float(y0)
     gx = 0.5 + torch.clamp(slop * (W * 0.5), 0.0, 1e9)
-    gy = 0.5 + torch.clamp(slop * (H * 0.5), 0.0, 1e9)
+    gy = 0.5 + torch.clamp(slop * (Hf * 0.5), 0.0, 1e9)
 
     u = None
     for s in range(2):
@@ -168,7 +209,7 @@ def _aabb_union_cols(sx, sy, sw, svalid, ok_tri, slop, H, W):
             wv = torch.clamp(sw[s][v], min=1e-12)
             pxs.append(torch.clamp((sx[s][v] / wv + 1.0) * (W * 0.5) - 0.5,
                                    -1e9, 1e9))
-            pys.append(torch.clamp((sy[s][v] / wv + 1.0) * (H * 0.5) - 0.5,
+            pys.append(torch.clamp((sy[s][v] / wv + 1.0) * (Hf * 0.5) - 0.5 - y0f,
                                    -1e9, 1e9))
         xmin = torch.minimum(torch.minimum(pxs[0], pxs[1]), pxs[2]) - gx
         xmax = torch.maximum(torch.maximum(pxs[0], pxs[1]), pxs[2]) + gx
@@ -233,47 +274,27 @@ def _build_records_cm(pos, tri):
     return rec_cm, (sx, sy, sw, svalid), valid, slop
 
 
-def build_records(pos, tri, resolution):
-    """Kernel inputs: records [B, T, 16] and AABBs [B, T, 4], contiguous."""
+def build_records(pos, tri, resolution, viewport=None):
+    """Kernel inputs: records [S, T, 16] and AABBs [S, T, 4], contiguous;
+    S = B for instance-mode pos [B, V, 4], S = 1 for range-mode pos
+    [V, 4]. viewport = (y0, full_height): band-local AABB rows."""
     H, W = resolution
+    y0, Hf = (0, H) if viewport is None else (int(viewport[0]), int(viewport[1]))
+    if pos.ndim == 2:
+        pos = pos[None]
     rec_cm, (sx, sy, sw, svalid), valid, slop = _build_records_cm(pos, tri)
-    aabb = _aabb_union_cols(sx, sy, sw, svalid, valid, slop, H, W)
+    aabb = _aabb_union_cols(sx, sy, sw, svalid, valid, slop, H, W, y0, Hf)
     rec = rec_cm.transpose(-1, -2).contiguous()
     return rec, torch.stack(aabb, dim=-1).contiguous()
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper and its plain twin.
+# Binning (rasterize_pallas.py:414-637).
 # ---------------------------------------------------------------------------
 
-def rasterize_records(rec, aabb, resolution, emit_db=False):
-    """Rasterize prepass records: (u, v, zw, idf), each [B, H, W] f32,
-    followed by (dudx, dudy, dvdx, dvdy) when `emit_db`.
-
-    CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (built at first use) or raise.
-    """
-    if rec.device.type == "cpu":
-        return rasterize_records_plain(rec, aabb, resolution, emit_db)
-    if rec.device.type != "cuda":
-        raise ValueError(f"rasterize_records: unsupported device {rec.device}")
+def _tile_grid(resolution):
     H, W = resolution
-    B, T, nf = rec.shape
-    if (nf != 16 or rec.dtype != torch.float32 or aabb.shape != (B, T, 4)
-            or aabb.dtype != torch.float32 or aabb.device != rec.device):
-        raise ValueError("rasterize_records: expects rec [B, T, 16] and "
-                         "aabb [B, T, 4] float32 on one device")
-    rec = rec.contiguous()
-    aabb = aabb.contiguous()
-    if rec.data_ptr() % 16 or aabb.data_ptr() % 16:
-        raise ValueError("rasterize_records: inputs must be 16-byte aligned")
-    outs = [torch.empty((B, H, W), dtype=torch.float32, device=rec.device)
-            for _ in range(8 if emit_db else 4)]
-    xs, xo, ys, yo = coord.pixel_scale_offset(H, W)
-    kernel = DB_KERNEL if emit_db else KERNEL
-    kernel.launch(rec.device, _build.ptr(rec), _build.ptr(aabb),
-                  *(_build.ptr(o) for o in outs), B, T, H, W, xs, xo, ys, yo)
-    return tuple(outs)
+    return -(-W // RASTER_TILE), -(-H // RASTER_TILE)
 
 
 def _tile_span(lo, hi, n_tiles):
@@ -289,9 +310,183 @@ def _tile_span(lo, hi, n_tiles):
     return first, last
 
 
-def _merge_fragments(state, s, first, x0, y0, nx, cnt, T, resolution, scale):
-    """Evaluate the fragments of records [first, first + len(s)) and merge
-    them into `state` in the kernel's order (see rasterize_records_plain)."""
+def _check_entries(total):
+    if total >= MAX_BIN_ENTRIES:
+        raise ValueError(f"bin_records: {total} tile list entries; the lists hold fewer "
+                         f"than {MAX_BIN_ENTRIES}")
+
+
+def _segments(keys, n_seg):
+    """Sorted keys -> (tile_start [n_seg + 1] int32, tile_list [E] int32)."""
+    seg = keys >> _KEY_BITS
+    bounds = torch.arange(n_seg + 1, dtype=torch.int64, device=keys.device)
+    tile_start = torch.searchsorted(seg, bounds).to(torch.int32)
+    return tile_start, (keys & ((1 << _KEY_BITS) - 1)).to(torch.int32)
+
+
+def bin_records(aabb, resolution):
+    """Per-tile record lists of AABBs [S, T, 4]: (tile_start [S*tiles + 1],
+    tile_list [E]) int32. Segment set*tiles + ty*ntx + tx of 16x16 tiles
+    holds, ascending, the indices (within the set) of the records whose
+    AABB meets the tile by the kernel's test.
+
+    CPU tensors run the plain twin; CUDA tensors launch the count and
+    emit kernels (csrc/raster_bin.cu) with a scan, a sort of the unique
+    keys and a searchsorted as tensor glue. The total entry count is read
+    back to the host once (one sync) to allocate the keys.
+    """
+    if aabb.device.type == "cpu":
+        return bin_records_plain(aabb, resolution)
+    if aabb.device.type != "cuda":
+        raise ValueError(f"bin_records: unsupported device {aabb.device}")
+    S, T, _ = aabb.shape
+    if T >= (1 << _KEY_BITS) or aabb.dtype != torch.float32:
+        raise ValueError("bin_records: expects float32 AABBs of < 2**24 records a set")
+    ntx, nty = _tile_grid(resolution)
+    aabb = aabb.contiguous()
+    dev = aabb.device
+    n = S * T
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    BIN_COUNT_KERNEL.launch(dev, _build.ptr(aabb), n, ntx, nty, _build.ptr(counts))
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    offsets = ends - counts
+    total = int(ends[-1]) if n else 0  # the one host sync
+    _check_entries(total)
+    keys = torch.empty((total,), dtype=torch.int64, device=dev)
+    if total:
+        BIN_EMIT_KERNEL.launch(dev, _build.ptr(aabb), _build.ptr(offsets), n, T, ntx, nty,
+                               _build.ptr(keys))
+    return _segments(torch.sort(keys).values, S * ntx * nty)
+
+
+def bin_records_plain(aabb, resolution):
+    """Plain PyTorch twin of ``bin_records``: the same lists."""
+    S, T, _ = aabb.shape
+    ntx, nty = _tile_grid(resolution)
+    box = aabb.reshape(S * T, 4)
+    x0, x1 = _tile_span(box[:, 0], box[:, 2], ntx)
+    y0, y1 = _tile_span(box[:, 1], box[:, 3], nty)
+    nx = x1 - x0 + 1
+    cnt = nx * (y1 - y0 + 1)
+    _check_entries(int(cnt.sum()))
+    dev = aabb.device
+    own = torch.repeat_interleave(torch.arange(S * T, device=dev), cnt)
+    local = torch.arange(own.shape[0], device=dev) - (torch.cumsum(cnt, 0) - cnt)[own]
+    tx = x0[own] + local % nx[own]
+    ty = y0[own] + local // nx[own]
+    seg = ((own // T) * nty + ty) * ntx + tx
+    keys = (seg << _KEY_BITS) | (own % T)
+    return _segments(torch.sort(keys).values, S * ntx * nty)
+
+
+def binned_by_default(B, T, resolution):
+    """Whether ``rasterize_records`` bins: images x records x tiles at or
+    above BIN_MIN_WORK."""
+    ntx, nty = _tile_grid(resolution)
+    return B * T * ntx * nty >= BIN_MIN_WORK
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper and its plain twin.
+# ---------------------------------------------------------------------------
+
+def _modes(rec, aabb, resolution, ranges, peel, viewport):
+    """Checked mode arguments: (B, sets, y0, Hf, ranges)."""
+    H, W = resolution
+    S, T, nf = rec.shape
+    if (nf != 16 or rec.dtype != torch.float32 or aabb.shape != (S, T, 4)
+            or aabb.dtype != torch.float32 or aabb.device != rec.device):
+        raise ValueError("rasterize_records: expects rec [S, T, 16] and "
+                         "aabb [S, T, 4] float32 on one device")
+    if ranges is not None:
+        ranges = torch.as_tensor(ranges, dtype=torch.int32, device=rec.device)
+        if S != 1 or ranges.ndim != 2 or ranges.shape[1] != 2:
+            raise ValueError("rasterize_records: range mode takes one record set "
+                             "and ranges [B, 2]")
+        B = ranges.shape[0]
+    else:
+        B = S
+    if peel is not None and (peel.shape != (B, H, W) or peel.dtype != torch.float32
+                             or peel.device != rec.device):
+        raise ValueError(f"rasterize_records: peel must be float32 [{B}, {H}, {W}]")
+    y0, Hf = (0, H) if viewport is None else (int(viewport[0]), int(viewport[1]))
+    return B, S, y0, Hf, ranges
+
+
+def rasterize_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=None,
+                      viewport=None, emit_zbuf=False):
+    """Rasterize prepass records: (u, v, zw, idf), each [B, H, W] f32,
+    followed by (dudx, dudy, dvdx, dvdy) when `emit_db` and by zbuf
+    (pz/pw, +inf where empty) when `emit_zbuf`.
+
+    rec [S, T, 16], aabb [S, T, 4] from ``build_records``; ranges [B, 2]
+    int32 (range mode, S = 1); peel [B, H, W] the previous layer's zbuf;
+    viewport (y0, full_height) of the records' prepass. The sweep walks
+    the per-tile lists of ``bin_records`` when ``binned_by_default``.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel
+    (built at first use) or raise.
+    """
+    B = _modes(rec, aabb, resolution, ranges, peel, viewport)[0]
+    bins = None
+    if binned_by_default(B, rec.shape[1], resolution):
+        bins = bin_records(aabb, resolution)
+    run = rasterize_records_plain if rec.device.type == "cpu" else launch_records
+    return run(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel, viewport=viewport,
+               emit_zbuf=emit_zbuf, bins=bins)
+
+
+def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=None,
+                   viewport=None, emit_zbuf=False, bins=None):
+    """The kernel launch of ``rasterize_records`` on CUDA tensors: the
+    unbinned sweep, or the binned one over the lists `bins` of
+    ``bin_records(aabb, resolution)``."""
+    B, S, y0, Hf, ranges = _modes(rec, aabb, resolution, ranges, peel, viewport)
+    if rec.device.type != "cuda":
+        raise ValueError(f"rasterize_records: unsupported device {rec.device}")
+    H, W = resolution
+    T = rec.shape[1]
+    rec = rec.contiguous()
+    aabb = aabb.contiguous()
+    if rec.data_ptr() % 16 or aabb.data_ptr() % 16:
+        raise ValueError("rasterize_records: inputs must be 16-byte aligned")
+    dev = rec.device
+    outs = [torch.empty((B, H, W), dtype=torch.float32, device=dev)
+            for _ in range(4 + 4 * emit_db + emit_zbuf)]
+    ptrs = [_build.ptr(o) for o in outs[:4]]
+    ptrs += [_build.ptr(o) for o in outs[4:8]] if emit_db else [None] * 4
+    ptrs.append(_build.ptr(outs[-1]) if emit_zbuf else None)
+    start = lst = None
+    if bins is not None:
+        start, lst = bins
+        if lst.numel() == 0:  # no record meets a tile; the kernel reads none
+            lst = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if peel is not None:
+        kernel = PEEL_KERNEL
+    elif ranges is not None:
+        kernel = RANGE_KERNEL
+    elif viewport is not None:
+        kernel = BAND_KERNEL
+    elif lst is not None:
+        kernel = BINNED_KERNEL
+    else:
+        kernel = DB_KERNEL if emit_db else KERNEL
+    if peel is not None:
+        peel = peel.contiguous()
+    if ranges is not None:
+        ranges = ranges.contiguous()
+    xs, xo, ys, yo = coord.pixel_scale_offset(Hf, W)
+    opt = [None if t is None else _build.ptr(t) for t in (start, lst, ranges, peel)]
+    kernel.launch(dev, _build.ptr(rec), _build.ptr(aabb), *opt, *ptrs,
+                  B, T, S, H, W, y0, xs, xo, ys, yo)
+    return tuple(outs)
+
+
+def _merge_fragments(state, s, img, x0, y0, nx, cnt, resolution, fy0, scale, peel):
+    """Evaluate the fragments of records s [n, 19] over their pixel
+    rectangles (x0, y0, nx wide, cnt pixels) of images img [n], and merge
+    them into `state` in the kernel's order (see rasterize_records_plain).
+    fy0: the viewport's row offset; peel: flat [B*H*W] or None."""
     H, W = resolution
     xs, xo, ys, yo = scale
     az, aw, aid, apa = state
@@ -306,7 +501,7 @@ def _merge_fragments(state, s, first, x0, y0, nx, cnt, T, resolution, scale):
     py = y0[own] + local // nxo
     s = s[own]  # [F, 19]
     fx = px.to(torch.float32) * xs + xo
-    fy = py.to(torch.float32) * ys + yo
+    fy = (py + fy0).to(torch.float32) * ys + yo
 
     def aff(i):
         return (s[:, i] + s[:, i + 1] * fx) + s[:, i + 2] * fy
@@ -320,10 +515,14 @@ def _merge_fragments(state, s, first, x0, y0, nx, cnt, T, resolution, scale):
     idf = s[:, 15]
     ok = (inside(a0, 0) & inside(a1, 3) & inside(a2, 6) & (cutv >= 0)
           & (pw > 0) & (pz.abs() <= pw) & (idf < _ID_VALID_THRESH))
+    pix = (img[own] * H + py) * W + px
+    if peel is not None:
+        # Rounded-depth peel cull: the IEEE quotient the zbuf stores.
+        ok &= (pz / pw) > peel[pix]
     keep = ok.nonzero().squeeze(1)
     if keep.numel() == 0:
         return
-    pix = (((first + own[keep]) // T) * H + py[keep]) * W + px[keep]
+    pix = pix[keep]
     # The winner's (pa0, pa1, pa2), plus its six edge gradients with db.
     rows = [pz, pw, idf, a0, a1, a2]
     if apa.shape[0] == 9:
@@ -357,20 +556,65 @@ def _merge_fragments(state, s, first, x0, y0, nx, cnt, T, resolution, scale):
         start = end
 
 
-def rasterize_records_plain(rec, aabb, resolution, emit_db=False):
+def _candidates(rec, aabb, resolution, B, ranges, bins):
+    """The twin's candidate stream, in the kernel's order: (row into the
+    flat [S*T] records, image, pixel rectangle x0, y0, nx, ny) per
+    candidate. Unbinned, each image's records with their AABB's tiles;
+    binned, each image's tile segments, one 16x16 tile per entry. Range
+    mode drops the records outside the image's id window."""
+    H, W = resolution
+    S, T, _ = rec.shape
+    dev = rec.device
+    ntx, nty = _tile_grid(resolution)
+    if bins is None:
+        box = aabb.reshape(S * T, 4)
+        tx0, tx1 = _tile_span(box[:, 0], box[:, 2], ntx)
+        ty0, ty1 = _tile_span(box[:, 1], box[:, 3], nty)
+        rows = torch.arange(S * T, device=dev)
+    else:
+        tile_start, tile_list = bins
+        seg = torch.repeat_interleave(
+            torch.arange(S * ntx * nty, device=dev),
+            (tile_start[1:] - tile_start[:-1]).long())
+        tx0 = tx1 = seg % ntx
+        ty0 = ty1 = (seg // ntx) % nty
+        rows = (seg // (ntx * nty)) * T + tile_list.long()
+    x0 = tx0 * RASTER_TILE
+    y0 = ty0 * RASTER_TILE
+    nx = (torch.clamp((tx1 + 1) * RASTER_TILE, max=W) - x0).clamp(min=0)
+    ny = (torch.clamp((ty1 + 1) * RASTER_TILE, max=H) - y0).clamp(min=0)
+    if ranges is None:
+        img = rows // T
+        return rows, img, x0, y0, nx, ny
+    # Range mode: one set, every image masks ids against its window.
+    idf = rec.reshape(T, 16)[rows, 15]
+    parts = []
+    for b in range(B):
+        start_f = ranges[b, 0].to(torch.float32) + 1.0
+        end_f = start_f + ranges[b, 1].to(torch.float32)
+        sel = ((idf >= start_f) & (idf < end_f)).nonzero().squeeze(1)
+        parts.append((rows[sel], torch.full_like(sel, b), x0[sel], y0[sel], nx[sel],
+                      ny[sel]))
+    return tuple(torch.cat(c) for c in zip(*parts))
+
+
+def rasterize_records_plain(rec, aabb, resolution, emit_db=False, *, ranges=None,
+                            peel=None, viewport=None, emit_zbuf=False, bins=None):
     """Plain PyTorch twin of the rasterizer kernel (same arithmetic).
 
-    Fragments are enumerated per record over the pixels of the tiles its
-    AABB meets (the kernel's rejection), evaluated in bulk, and merged
-    per pixel in rounds: round r applies every pixel's r-th surviving
-    candidate in ascending id order, which is the kernel's sequential
-    merge order.
+    Fragments are enumerated per candidate over the pixels of its tiles
+    (the kernel's rejection: unbinned, the tiles its AABB meets; binned,
+    its tile of the lists `bins` from ``bin_records``), evaluated in
+    bulk, and merged per pixel in rounds: round r applies every pixel's
+    r-th surviving candidate in ascending id order, which is the
+    kernel's sequential merge order. Arguments as ``rasterize_records``.
     """
     H, W = resolution
-    B, T, _ = rec.shape
+    B, S, y0, Hf, ranges = _modes(rec, aabb, resolution, ranges, peel, viewport)
+    T = rec.shape[1]
     dev = rec.device
     N = B * H * W
-    scale = tuple(_f32(v, rec) for v in coord.pixel_scale_offset(H, W))
+    scale = tuple(_f32(v, rec) for v in coord.pixel_scale_offset(Hf, W))
 
     # Running (z, w, id) and winner edges (a0, a1, a2) per pixel, with db
     # also the winner's (cx0, cy0, cx1, cy1, cx2, cy2).
@@ -381,34 +625,28 @@ def rasterize_records_plain(rec, aabb, resolution, emit_db=False):
                          device=dev))
 
     # Records plus their near-clip cut line s12+c - eps*((s_c + s3+c) + s6+c).
-    r = rec.reshape(B * T, 16)
+    r = rec.reshape(S * T, 16)
     eps = _f32(_CLIP_EPS, r)
     cut = torch.stack(
         [r[:, 12 + c] - eps * ((r[:, c] + r[:, 3 + c]) + r[:, 6 + c])
          for c in range(3)], dim=1)
-    s_all = torch.cat([r, cut], dim=1)  # [B*T, 19]
+    s_all = torch.cat([r, cut], dim=1)  # [S*T, 19]
+    peel_flat = None if peel is None else peel.reshape(N)
 
-    # Tile rectangle of each record, clipped to the image.
-    box = aabb.reshape(B * T, 4)
-    tx0, tx1 = _tile_span(box[:, 0], box[:, 2], -(-W // RASTER_TILE))
-    ty0, ty1 = _tile_span(box[:, 1], box[:, 3], -(-H // RASTER_TILE))
-    x0 = tx0 * RASTER_TILE
-    y0 = ty0 * RASTER_TILE
-    nx = (torch.clamp((tx1 + 1) * RASTER_TILE, max=W) - x0).clamp(min=0)
-    ny = (torch.clamp((ty1 + 1) * RASTER_TILE, max=H) - y0).clamp(min=0)
+    rows, img, x0, y0r, nx, ny = _candidates(rec, aabb, resolution, B, ranges, bins)
     cnt = nx * ny
 
-    # Records in id order, a slice of about _TWIN_FRAGMENTS fragments at a
-    # time (bounds memory); slice after slice keeps each pixel's merge in
-    # ascending id order.
+    # Candidates in stream order, a slice of about _TWIN_FRAGMENTS
+    # fragments at a time (bounds memory); slice after slice keeps each
+    # pixel's merge in ascending id order.
     cum = torch.cumsum(cnt, 0)
-    lo = 0
-    while lo < B * T:
+    lo, n = 0, rows.shape[0]
+    while lo < n:
         base = int(cum[lo - 1]) if lo else 0
         hi = int(torch.searchsorted(cum, base + _TWIN_FRAGMENTS, right=True))
         hi = max(hi, lo + 1)
-        _merge_fragments(state, s_all[lo:hi], lo, x0[lo:hi], y0[lo:hi],
-                         nx[lo:hi], cnt[lo:hi], T, resolution, scale)
+        _merge_fragments(state, s_all[rows[lo:hi]], img[lo:hi], x0[lo:hi], y0r[lo:hi],
+                         nx[lo:hi], cnt[lo:hi], resolution, y0, scale, peel_flat)
         lo = hi
 
     az, aw, aid, apa = state
@@ -421,8 +659,8 @@ def rasterize_records_plain(rec, aabb, resolution, emit_db=False):
     bs = 1.0 / torch.clamp(b0 + b1, min=1.0)
     b0 = b0 * bs
     b1 = b1 * bs
-    zwv = torch.clamp(az / aw, -1.0, 1.0)
-    outs = [b0, b1, zwv, aid]
+    depth = az / aw
+    outs = [b0, b1, torch.clamp(depth, -1.0, 1.0), aid]
     if emit_db:
         # Bary pixel derivatives (rasterize_pallas.py final step, emit_db).
         xs, _, ys, _ = scale
@@ -435,25 +673,34 @@ def rasterize_records_plain(rec, aabb, resolution, emit_db=False):
         dfydy = ys * iw
         outs += [dfxdx * (b0 * datdx - da0dx), dfydy * (b0 * datdy - da0dy),
                  dfxdx * (b1 * datdx - da1dx), dfydy * (b1 * datdy - da1dy)]
-    return tuple(torch.where(valid, o, 0.0).reshape(B, H, W) for o in outs)
+    outs = [torch.where(valid, o, 0.0) for o in outs]
+    if emit_zbuf:
+        outs.append(torch.where(valid, depth, float("inf")))
+    return tuple(o.reshape(B, H, W) for o in outs)
 
 
 def rasterize_fused(pos, tri, resolution, ranges=None, peel_depth=None,
-                    viewport=None, emit_db=False):
+                    viewport=None, emit_db=False, emit_zbuf=False):
     """Rasterize forward: (u, v, zw, idf), each [B, H, W] float32,
     followed by the bary pixel derivatives (dudx, dudy, dvdx, dvdy) when
-    `emit_db` (rasterize_pallas.rasterize_fused(flat=True) without zbuf).
+    `emit_db` and the zbuf when `emit_zbuf`
+    (rasterize_pallas.rasterize_fused(flat=True)).
 
-    pos [B, V, 4] float32 clip-space positions, tri [T, 3] int32. Runs on
-    pos's device: the plain twin on the CPU, the CUDA kernel on a GPU.
-    Range mode, depth peeling and viewports are not ported yet and raise
-    NotImplementedError.
+    pos [B, V, 4] (instance mode; `ranges` is ignored) or [V, 4] (range
+    mode, with ranges [B, 2] int32 (start, count) into tri) float32
+    clip-space positions, tri [T, 3] int32; peel_depth [B, H, W] the
+    previous layer's zbuf; viewport (y0, full_height): rows [y0, y0 + H)
+    of a full_height-tall image, bit for bit the same rows of the full
+    render. Runs on pos's device: the plain twin on the CPU, the CUDA
+    kernels on a GPU.
     """
-    if ranges is not None or peel_depth is not None or viewport is not None:
-        raise NotImplementedError(
-            "rasterize_fused: range mode, depth peeling and viewports are "
-            "not ported yet (ROADMAP queue B, item 1)")
     resolution = tuple(int(x) for x in resolution)
-    _check_rasterize_args(pos, tri, resolution)
-    rec, aabb = build_records(pos, tri, resolution)
-    return rasterize_records(rec, aabb, resolution, emit_db)
+    if pos.ndim == 3:
+        ranges = None
+    else:
+        ranges = None if ranges is None else torch.as_tensor(
+            ranges, dtype=torch.int32, device=pos.device)
+    _check_rasterize_args(pos, tri, resolution, ranges)
+    rec, aabb = build_records(pos, tri, resolution, viewport)
+    return rasterize_records(rec, aabb, resolution, emit_db, ranges=ranges,
+                             peel=peel_depth, viewport=viewport, emit_zbuf=emit_zbuf)

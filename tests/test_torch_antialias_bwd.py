@@ -158,10 +158,12 @@ def test_antialias_forward_and_entry_checks():
     out = dr.antialias(c, r, p, t, topology_hash=dr.antialias_construct_topology_hash(t))
     assert torch.equal(out, dr.antialias(c, r, p, t))
     assert out.shape == c.shape and not torch.equal(out, c)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        dr.antialias(c, r, p[0], t)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        dr.antialias(c, r, p, t, viewport=(0, 80))
+    # Range mode: 2-D pos, one table for every image (image b's rows of
+    # a range render of its own positions are its instance render).
+    for b in range(p.shape[0]):
+        assert torch.equal(dr.antialias(c[b:b + 1], r[b:b + 1], p[b], t), out[b:b + 1])
+    # A viewport as tall as the image is the full image.
+    assert torch.equal(dr.antialias(c, r, p, t, viewport=(0, c.shape[1])), out)
     with pytest.raises(ValueError, match="minibatch"):
         dr.antialias(c, r, p[:1], t)
     with pytest.raises(ValueError, match="mismatch"):

@@ -28,7 +28,10 @@ KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL
            texture_bwd_cuda.BWD_KERNEL, texture_bwd_cuda.GRAD_KERNEL,
            pipeline_tex_bwd_cuda.KERNEL, interpolate_cuda.BWD_KERNEL,
            antialias_cuda.BWD_KERNEL, gather.KERNEL, scatter.KERNEL,
-           texture_cube_cuda.FWD_KERNEL, texture_cube_cuda.BWD_KERNEL]
+           texture_cube_cuda.FWD_KERNEL, texture_cube_cuda.BWD_KERNEL,
+           rasterize_cuda.BINNED_KERNEL, rasterize_cuda.PEEL_KERNEL,
+           rasterize_cuda.RANGE_KERNEL, rasterize_cuda.BAND_KERNEL,
+           rasterize_cuda.BIN_COUNT_KERNEL, rasterize_cuda.BIN_EMIT_KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -78,10 +81,10 @@ def test_cuda_sources_exist():
             "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu",
             "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu",
             "interpolate_bwd.cu", "aa_bwd.cu", "table_take.cu", "scatter_rows.cu",
-            "texture_cube.cu"} <= names
+            "texture_cube.cu", "raster_bin.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
-        assert f'extern "C" int {kernel.name}(' in text
+        assert f'extern "C" int {kernel.symbol}(' in text
     # The AA pair math lives in one header that the AA kernels use.
     assert (_build.SRC_DIR / "aa_pair.cuh").exists()
     for name in ("shade_fwd.cu", "aa_fwd.cu", "pipeline_bwd.cu", "aa_bwd.cu", "grad_scatter.cu"):
@@ -101,7 +104,7 @@ def test_kernel_argtypes_match_c_entry(kernel):
     """The ctypes binding passes as many arguments as the C entry takes
     (the stream, added at launch, is the last)."""
     text = "".join(p.read_text() for p in _build.sources())
-    start = text.index(f'extern "C" int {kernel.name}(')
+    start = text.index(f'extern "C" int {kernel.symbol}(')
     params = text[start:text.index(")", start)].split("(", 1)[1].split(",")
     assert params[-1].split() == ["void*", "stream"]
     assert len(kernel.argtypes) == len(params) - 1

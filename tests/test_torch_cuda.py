@@ -754,3 +754,126 @@ def test_earth_and_envphong_fit_on_gpu(dev):
     for _ in range(150):
         e.step()
     assert e.metrics()[0] < 0.03
+
+
+# ---------------------------------------------------------------------------
+# The rest of the rasterizer: peel, range mode, viewport bands, binning.
+# ---------------------------------------------------------------------------
+
+def _modes_scene(dev):
+    """B = 2 sphere views plus a random scene's triangles behind them, at
+    67x130: (pos [2, V, 4], tri, res) on `dev`."""
+    pos, tri, _, _ = sphere_scene(B=2, seed=4)
+    rpos, rtri = random_scene(5, B=2, V=80, T=120)
+    V = pos.shape[1]
+    pos = np.concatenate([pos, rpos], axis=1)
+    tri = np.concatenate([tri, rtri + V]).astype(np.int32)
+    return (*inputs_from_numpy(pos, tri, device=dev), (67, 130))
+
+
+@pytest.mark.parametrize("mode", ["peel", "range", "band", "binned", "binned_range",
+                                  "binned_peel", "binned_band"])
+def test_rasterize_mode_kernels_match_twin(dev, mode, monkeypatch):
+    p, t, res = _modes_scene(dev)
+    T = t.shape[0]
+    kw, kernel = {}, {"peel": rc.PEEL_KERNEL, "range": rc.RANGE_KERNEL,
+                      "band": rc.BAND_KERNEL, "binned_range": rc.RANGE_KERNEL,
+                      "binned_peel": rc.PEEL_KERNEL,
+                      "binned_band": rc.BAND_KERNEL}.get(mode, rc.BINNED_KERNEL)
+    monkeypatch.setattr(rc, "BIN_MIN_WORK", 0 if mode.startswith("binned") else 1 << 62)
+    pos = p
+    if "range" in mode:
+        pos = p[0]
+        kw["ranges"] = torch.tensor([[0, T], [40, 90], [T - 130, 130]], dtype=torch.int32,
+                                    device=dev)
+    if "peel" in mode:
+        kw["peel"] = rc.rasterize_fused(p, t, res, emit_zbuf=True)[4]
+    viewport = (20, 97) if "band" in mode else None
+    rec, aabb = rc.build_records(pos, t, res, viewport)
+    before = kernel.launches
+    got = rc.rasterize_records(rec, aabb, res, True, viewport=viewport, emit_zbuf=True, **kw)
+    ref = rc.rasterize_records_plain(rec, aabb, res, True, viewport=viewport,
+                                     emit_zbuf=True, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert len(got) == 9 and int((got[3] > 0).sum()) > 500
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_bin_kernels_match_twin(dev):
+    p, t, res = _modes_scene(dev)
+    rec, aabb = rc.build_records(p, t, res)
+    before = (rc.BIN_COUNT_KERNEL.launches, rc.BIN_EMIT_KERNEL.launches)
+    got = rc.bin_records(aabb, res)
+    ref = rc.bin_records_plain(aabb, res)
+    torch.cuda.synchronize()
+    assert (rc.BIN_COUNT_KERNEL.launches, rc.BIN_EMIT_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert got[1].numel() > t.shape[0]
+
+
+def test_bin_entry_limit_on_card(dev, monkeypatch):
+    p, t, res = _modes_scene(dev)
+    aabb = rc.build_records(p, t, res)[1]
+    monkeypatch.setattr(rc, "MAX_BIN_ENTRIES", rc.bin_records(aabb, res)[1].numel())
+    with pytest.raises(ValueError, match="tile list entries"):
+        rc.bin_records(aabb, res)
+
+
+@pytest.mark.parametrize("mode", ["range", "band"])
+def test_aa_mode_kernels_match_twins(dev, mode):
+    p, t, res = _modes_scene(dev)
+    T = t.shape[0]
+    B, C = 2, 3
+    ranged = mode == "range"
+    viewport = (20, 97) if mode == "band" else None
+    pos = p[0] if ranged else p
+    kw = {"ranges": torch.tensor([[0, T], [40, 90]], dtype=torch.int32, device=dev)} \
+        if ranged else {}
+    _, _, zw, idf = (x.reshape(-1) for x in rc.rasterize_fused(pos, t, res, viewport=viewport,
+                                                                **kw))
+    N = idf.numel()
+    rng = np.random.default_rng(7)
+    ct = torch.from_numpy(rng.random((C, N), dtype=np.float32)).to(dev)
+    dy = torch.from_numpy(rng.standard_normal((C, N)).astype(np.float32)).to(dev)
+    Hf = res[0] if viewport is None else viewport[1]
+    ftable, vtbl, _, _ = _build_tables(pos, t, build_opposite_table(t), Hf, res[1])
+    geo = ((B,) + res, T, ranged, viewport)
+    got = ac.aa_cols(ct, idf, zw, ftable, *geo)
+    ref = ac.aa_cols_plain(ct, idf, zw, ftable, *geo)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert int((got[4] != 0).sum()) > 10
+    _, res4 = ac.aa_forward(ct, idf, zw, ftable, *geo)
+    got = ac.aa_backward(dy, ct, idf, vtbl, res4, *geo)
+    ref = ac.aa_backward_plain(dy, ct, idf, vtbl, res4, *geo)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_depth_peeler_and_range_mode_gpu_match_cpu(dev):
+    p, t, res = _modes_scene("cpu")
+    T = t.shape[0]
+    ranges = torch.tensor([[0, T], [40, 90]], dtype=torch.int32)
+
+    def run(device):
+        pv = p.to(device).requires_grad_()
+        tt = t.to(device)
+        loss = 0.0
+        with dr.DepthPeeler(dr.RasterizeCudaContext(), pv, tt, res) as peeler:
+            for _ in range(3):
+                rast, db = peeler.rasterize_next_layer()
+                loss = loss + (rast[..., :2] ** 2).sum() + db.sum()
+        p2 = pv[0]
+        rast, _ = dr.rasterize(None, p2, tt, res, ranges=ranges.to(device))
+        loss = loss + (rast[..., :2] ** 2).sum()
+        return [x.cpu() for x in (rast, *torch.autograd.grad(loss, pv))]
+
+    gpu, cpu = run(dev), run("cpu")
+    assert torch.equal(gpu[0], cpu[0])
+    scale = float(cpu[1].abs().max())
+    assert scale > 0 and float((gpu[1] - cpu[1]).abs().max()) <= 1e-5 * scale

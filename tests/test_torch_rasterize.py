@@ -187,14 +187,24 @@ def test_dop_bitwise():
 
 
 def test_unported_modes_raise():
+    """The modes once refused are ported: instance mode ignores ranges,
+    a zero peel depth culls the fragments at or in front of z/w = 0, a
+    full-height viewport is the full render, and 2-D pos renders in
+    range mode. Only 2-D pos without ranges still raises (ValueError,
+    as the JAX package)."""
     pos, tri = random_scene(2, B=1)
     p, t = inputs_from_numpy(pos, tri)
-    for kw in ({"ranges": torch.zeros((1, 2), dtype=torch.int32)},
-               {"peel_depth": torch.zeros((1, 8, 8))},
-               {"viewport": (0, 8)}):
-        with pytest.raises(NotImplementedError):
-            rc.rasterize_fused(p, t, (8, 8), **kw)
-    with pytest.raises(NotImplementedError):
+    ref = rc.rasterize_fused(p, t, (8, 8), emit_zbuf=True)
+    got = rc.rasterize_fused(p, t, (8, 8), ranges=torch.zeros((1, 2), dtype=torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    got = rc.rasterize_fused(p, t, (8, 8), viewport=(0, 8))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    peeled = rc.rasterize_fused(p, t, (8, 8), peel_depth=torch.zeros((1, 8, 8)),
+                                emit_zbuf=True)
+    assert bool((peeled[4][peeled[3] > 0] > 0).all())
+    ranged = rc.rasterize_fused(p[0], t, (8, 8), ranges=torch.tensor([[0, t.shape[0]]]))
+    assert all(torch.equal(a, b) for a, b in zip(ranged, ref))
+    with pytest.raises(ValueError, match="range mode requires"):
         rc.rasterize_fused(p[0], t, (8, 8))
 
 

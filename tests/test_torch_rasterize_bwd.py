@@ -14,8 +14,9 @@ and the composed rasterize -> interpolate -> antialias chain.
   and g_attr bit for bit, g_pos within 1e-6 of its largest entry (the
   two sum the same per-pixel terms into vertices in other orders).
 * Entry checks: CPU tensors run the twins; a non-tensor input goes to
-  the GPU or raises; range mode and depth peeling raise
-  NotImplementedError.
+  the GPU or raises; ranges are ignored in instance mode, a viewport
+  band is the full render's rows, 2-D pos renders in range mode (and
+  needs ranges), and ``DepthPeeler``'s first layer is the plain render.
 """
 
 import functools
@@ -136,14 +137,19 @@ def test_rasterize_entry_checks():
     ref = rc.rasterize_fused(p, t, RES, emit_db=True)
     for k in range(4):
         assert torch.equal(rast[..., k], ref[k]) and torch.equal(db[..., k], ref[4 + k])
-    with pytest.raises(NotImplementedError, match="A.9"):
-        dr.rasterize(None, p, t, RES, ranges=torch.tensor([[0, 3]], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        dr.rasterize(None, p, t, RES, viewport=(0, 64))
-    with pytest.raises(NotImplementedError, match="A.9"):
+    got = dr.rasterize(None, p, t, RES, ranges=torch.tensor([[0, 3]], dtype=torch.int32))
+    assert torch.equal(got[0], rast) and torch.equal(got[1], db)
+    band = dr.rasterize(None, p, t, RES, viewport=(0, 64))
+    full = dr.rasterize(None, p, t, (64, RES[1]))
+    assert torch.equal(band[0], full[0][:, :RES[0]]) and torch.equal(band[1], full[1][:, :RES[0]])
+    with pytest.raises(ValueError, match="range mode requires"):
         dr.rasterize(None, p[0], t, RES)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        dr.DepthPeeler(dr.RasterizeCudaContext(), p, t, RES)
+    T = t.shape[0]
+    ranged = dr.rasterize(None, p[1], t, RES, ranges=torch.tensor([[0, T]], dtype=torch.int32))
+    assert torch.equal(ranged[0], rast[1:]) and torch.equal(ranged[1], db[1:])
+    with dr.DepthPeeler(dr.RasterizeCudaContext(), p, t, RES) as peeler:
+        first = peeler.rasterize_next_layer()
+    assert torch.equal(first[0], rast) and torch.equal(first[1], db)
     with pytest.raises(ValueError):
         dr.rasterize(None, p, t, RES, grad_db=1)
     with pytest.raises(TypeError):

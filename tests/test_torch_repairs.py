@@ -10,8 +10,6 @@ the JAX package: ``antialias`` and ``render_pipeline`` past 8 channels.
 * ``render_pipeline`` with A = 9 and 17 composes rasterize ->
   interpolate -> antialias, as JAX's fallback does: image within 1e-5,
   gradients at tests/test_pipeline.py's bar (atol 1e-5, rtol 1e-4).
-* Range mode (2-D pos) still raises NotImplementedError naming ROADMAP
-  A.9 in every entry point that takes it.
 The textured repairs are in test_torch_repairs_tex.py.
 """
 
@@ -87,20 +85,3 @@ def test_render_pipeline_past_8_attributes_matches_jax(A):
         assert np.abs(np.asarray(r)).max() > 0
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5, rtol=1e-4,
                                    err_msg=name)
-
-
-def test_range_mode_still_raises_naming_a9():
-    pos, tri, attr, aidx = sphere_scene(B=1, seed=1)
-    p2 = torch.from_numpy(pos[0])
-    t = torch.from_numpy(tri)
-    uv = torch.rand(p2.shape[0], 2)
-    tex = torch.rand(1, 8, 8, 3)
-    calls = [
-        lambda: dr.rasterize(None, p2, t, RES, ranges=torch.tensor([[0, 4]], dtype=torch.int32)),
-        lambda: dr.render_pipeline(p2, t, torch.from_numpy(attr[0]), RES),
-        lambda: dr.render_pipeline_textured(p2, t, uv, tex, RES),
-        lambda: dr.antialias(torch.rand(1, 16, 16, 3), torch.zeros(1, 16, 16, 4), p2, t),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A.9"):
-            call()
