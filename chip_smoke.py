@@ -9,15 +9,20 @@ CUDA toolkit:
 It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
   1. device: prints the card (nvidia-smi name and power limit) and the
      build time;
-  2. rasterizer kernel against its plain PyTorch twin on the card
-     (uv-sphere at 256^2 and 512^2, B = 1 and 2; random adversarial
-     scene at 67x130, B = 2), held to the z-fight parity bar;
+  2. the record setup kernel against build_records bit for bit (records,
+     AABBs, tile counts, chunk boxes) and the rasterizer kernel against
+     its plain PyTorch twin on the card (uv-sphere at 256^2 and 512^2,
+     B = 1 and 2; random adversarial scene at 67x130, B = 2; bench scene
+     at 2048^2 bit for bit), held to the z-fight parity bar; the setup,
+     the sweep and the forward's times beside the earlier design's, and the forward's
+     host syncs (none unbinned);
   3. shade_fwd kernel against its twin on the card, on the same
      rasterizer buffers at 2048^2, B = 1, within 1e-5 absolute;
   4. the slice: render_pipeline forward on the bench scene (uv-sphere
      32x64, 2048^2, A = 3): 8 requests with perturbed cameras and one
      B = 2 render, each finite, plausibly covered and bitwise
-     repeatable, through both kernels (launch counts), plus a small
+     repeatable, through the setup kernel (once a forward), the sweep
+     and shade_fwd (launch counts), plus a small
      render held against the CPU path; then the forward's time per
      frame and Mpix/s, and the twins' at 512^2;
   5. the backward kernels against their twins on the card, at 2048^2 on
@@ -34,10 +39,10 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
   7. the textured forward's kernels against their twins on the card, at
      2048^2 on the bench textured scene (bench.py:90-119: a 512x512x3
      texture from rand seed 0, spherical uvs, linear-mipmap-linear,
-     wrap): the rasterizer's db variant, interpolate, the texture sampler
-     and antialias, each bit for bit, with their times; F.grid_sample on
-     the base level (linear filter, clamp) as the sampler's library
-     yardstick;
+     wrap): the setup kernel, the rasterizer's db variant, interpolate,
+     the texture sampler and antialias, each bit for bit, with their
+     times; the sampler in linear, clamp, base level (the function
+     F.grid_sample computes) against F.grid_sample;
   8. the textured slice: render_pipeline_textured on 8 perturbed views
      and one B = 2 render, finite, plausibly covered, bitwise repeatable,
      B = 2 equal to two B = 1 renders, through all four kernels (launch
@@ -45,10 +50,14 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      Mpix/s;
   9. the textured backward's kernels against their twins at 2048^2 on
      the bench textured scene, with dy from mean(img**2): texture_bwd and
-     interp_raster_bwd_tex bit for bit, texture_grad within 1 ulp and
-     grad_scatter with da4 within 1e-6 of each row's largest entry; their
-     times, grid_sample's backward (to the grid, to the input) and
-     index_add_ as library yardsticks;
+     interp_raster_bwd_tex bit for bit, texture_grad within 1 ulp,
+     bitwise repeatable, its per-tile entries equal to their twin's and
+     at most one host sync (also on zero / clamp / per-image cases at
+     256^2), grad_scatter with da4 within 1e-6 of each row's largest
+     entry; their times (texture_grad stage by stage beside the earlier design's), and
+     in linear, clamp, base level texture_bwd and texture_grad against
+     grid_sample's backward (to the grid, to the input), index_add_ as
+     the scatter's yardstick;
  10. the textured training slice: gradients of mean(img**2) to pos, uv
      and the texture on the 8 views, finite, bitwise repeatable, B = 2
      g_pos equal to two B = 1 runs, at 256^2 within the CPU tests' bars
@@ -88,7 +97,8 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      loss fall) and at the test size (150 steps, RMSE < 0.03);
      EarthFitModel at the sample's defaults (200 steps: PSNR rises) and
      at the test size (50 steps, PSNR > 10 dB); ms per step;
- 16. the rest of the rasterizer at 2048^2: DepthPeeler on four
+ 16. the rest of the rasterizer at 2048^2, the setup kernel against
+     build_records bit for bit on each scene: DepthPeeler on four
      concentric bench spheres (15,872 triangles, B = 2, 4 layers;
      fwd + bwd through interpolate and antialias finite and bitwise
      repeatable, each layer's kernel bit for bit with its twin, layer 0
@@ -102,8 +112,10 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      full render's restricted to the band); the bench scene binned
      against unbinned; uv_sphere(512, 1024) (1,046,528 triangles): the
      binned kernel bit for bit with the unbinned one and with its twin
-     (also at uv_sphere(128, 320)), the forward split (prepass, binning
-     glue, kernel), render_pipeline fwd + bwd ms/step and peak memory.
+     (also at uv_sphere(128, 320)), the forward split (setup, binning
+     glue stage by stage, the kernel in longest-list-first and in grid
+     order) beside the earlier design's, one host sync, render_pipeline fwd + bwd
+     ms/step and peak memory.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s) and, last, the device line. Any failed
@@ -151,6 +163,13 @@ VP_BANDS = 4         # 512-row viewport bands of the 2048^2 bench render
 VP_GRAD_RTOL = 1e-6  # band gradients vs the full render's restricted to the band
 BIG_SPHERE = (512, 1024)  # 1,046,528 triangles (benchmarks/profile_bigmesh.py's largest)
 MID_SPHERE = (128, 320)   # 81,280 triangles: the binned kernel against its twin
+# Times of the earlier design of the rasterizer and the texture gradient
+# (PERF.md section 6 at commit cbbd73c, NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's as "before".
+BEFORE_MS = {"raster": "0.299", "raster_db": "0.324", "prepass": "5.0-7.4",
+          "peel": "0.363", "range": "0.622 (binned)", "band": "0.095",
+          "binned_1M": "2.446", "glue_1M": "0.419", "prepass_1M": "3.469-7.212",
+          "bin_glue_bench": "0.22-0.44", "texgrad": "0.311 + 6.421 glue"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -269,6 +288,173 @@ def equal_or_raise(got, ref, what):
     return 0.0
 
 
+def bits_equal(x, y):
+    """Bit for bit (NaN and signed zeros included)."""
+    import torch
+
+    return x.shape == y.shape and torch.equal(x.contiguous().view(torch.int32),
+                                              y.contiguous().view(torch.int32))
+
+
+def setup_equal_or_raise(rc, p, t, res, viewport, what):
+    """The record setup kernel against build_records (and the tile counts
+    and chunk boxes against their twins), bit for bit; returns the setup
+    (rec, aabb, counts, boxes) and the max |err| of rec and aabb."""
+    rec, aabb, counts, boxes = rc.setup_records(p, t, res, viewport)
+    r2, a2 = rc.build_records(p, t, res, viewport)
+    if not (bits_equal(rec, r2) and bits_equal(aabb, a2)
+            and bits_equal(counts, rc.tile_counts_plain(a2, res))
+            and bits_equal(boxes, rc.chunk_boxes_plain(a2))):
+        raise AssertionError(f"{what}: setup kernel differs from build_records")
+    log(f"[setup] {what}: setup kernel = build_records bit for bit ({rec.shape[0]} x "
+        f"{rec.shape[1]} records, {int((r2[..., 15] < 1e29).sum())} valid)")
+    err = max(float((rec - r2).abs().max()), float((aabb - a2).abs().max()))
+    return (rec, aabb, counts, boxes), err
+
+
+def host_syncs(torch, fn):
+    """Host synchronisations during fn() (torch's sync debug mode)."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def texgrad_check(torch, np, txb, args, what):
+    """texture_grad on the card: within 1 float32 ulp of its twin, bitwise
+    repeatable, and its per-tile entries, merged by (texel, tile), equal to
+    the plain twin's. Returns (max |err| of the gradient, entries, kept
+    taps, max |err| of the merged entries, the same over the entries of
+    tiles past the scratch's GRAD_CAP)."""
+    got = txb.texture_grad(*args)
+    again = txb.texture_grad(*args)
+    ref = txb.texture_grad_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"texture_grad {what}: not bitwise repeatable")
+    ulp = torch.from_numpy(np.spacing(ref.abs().cpu().numpy())).to(ref.device)
+    if not bool(((got - ref).abs() <= ulp).all()):
+        raise AssertionError(f"texture_grad {what}: beyond 1 ulp of its twin")
+    texel, part, counts = txb.grad_tile_entries(*args)
+    tt, tl, tp, tc = txb.tile_entries_plain(*args)
+    n_tiles = counts.numel()
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=ref.device), counts.long())
+    uk, inv = torch.unique(texel.long() * n_tiles + tile, return_inverse=True)
+    merged = torch.zeros_like(tp).index_add_(0, inv, part)
+    if not (torch.equal(uk, tt * n_tiles + tl)
+            and bool(((merged - tp).abs() <= 1e-10 * tp.abs() + 1e-300).all())):
+        raise AssertionError(f"texture_grad {what}: entries differ from the twin's")
+    diff = (merged - tp).abs()
+    over = (counts > txb.GRAD_CAP)[tl]
+    ent_err = float(diff.max()) if diff.numel() else 0.0
+    over_err = float(diff[over].max()) if bool(over.any()) else 0.0
+    err = float((got - ref).abs().max())
+    log(f"[9] texture_grad {what}: within 1 ulp of its twin (max|err| {err:.3g}), bitwise "
+        f"repeatable; {texel.numel()} entries (the twin's {tt.numel()}) for {int(tc.sum())} "
+        f"kept taps, {int((counts > txb.GRAD_CAP).sum())} tiles over {txb.GRAD_CAP}; the "
+        f"busiest texel {int(torch.bincount(texel.long()).max())} entries; merged entries "
+        f"within {ent_err:.3g} of the twin's ({over_err:.3g} in the tiles over the cap)")
+    return err, texel.numel(), int(tc.sum()), ent_err, over_err
+
+
+def texgrad_case(torch, np, tx, dev, boundary, filter_mode, D):
+    """A 256^2, B = 2 texture-gradient case: a 64x64x3 texture (one, or one
+    per image), uv over a disk and (0, 0) around it, flevels in [0, 2.5]."""
+    rng = np.random.default_rng(9 + D)
+    B, H, W = 2, SMALL, SMALL
+    N = B * H * W
+    tex = torch.from_numpy(rng.random((D, 64, 64, 3), dtype=np.float32)).to(dev)
+    meta, n_tex = tx._static_meta([tex] + tx.build_mip_stack(tex))
+    yy, xx = np.meshgrid(np.linspace(-1, 1, H), np.linspace(-1, 1, W), indexing="ij")
+    disk = np.tile((xx ** 2 + yy ** 2 < 0.5).reshape(-1), B)
+    u = np.where(disk, np.tile(xx.reshape(-1), B) * 0.7 + 0.5, 0.0).astype(np.float32)
+    v = np.where(disk, np.tile(yy.reshape(-1), B) * 0.7 + 0.5, 0.0).astype(np.float32)
+    fl = np.where(disk, rng.uniform(0, 2.5, N), 0.0).astype(np.float32)
+    gc = rng.standard_normal((3, N)).astype(np.float32)
+    ins = [torch.from_numpy(x).to(dev) for x in (u, v, fl, gc)]
+    return (*ins, meta, n_tex, (B, H, W), D > 1, boundary, filter_mode)
+
+
+def texgrad_stages(torch, txb, _build, args):
+    """CUDA-event times (ms) of texture_grad's stages on args, and the
+    measured max |err| of two of them: the compacted entries against the
+    first pass's scratch slots (the tiles within GRAD_CAP; bit for bit or
+    raise) and the segment starts against searchsorted (equal or raise)."""
+    from nvdiffrast_tpu_torch.ops.texture_cuda import BOUNDARY as BD, FILTER as FM
+
+    u, v, fl, gc, meta, n_tex, (B, H, W), per_image, bnd, filt = args
+    C, dev = gc.shape[0], gc.device
+    m = txb._meta_arg(meta)
+    modes = (B, H, W, C, len(meta), int(per_image), BD[bnd], FM[filt])
+    ins = [_build.ptr(x) for x in (u, v, fl, gc)] + [m]
+    n_tiles = txb._tile_blocks((B, H, W))[2]
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    ts = torch.empty((n_tiles * txb.GRAD_CAP,), dtype=torch.int32, device=dev)
+    ps = torch.empty((n_tiles * txb.GRAD_CAP, C), dtype=torch.float64, device=dev)
+
+    def pass1():
+        txb.GRAD_KERNEL.launch(dev, *ins, None, _build.ptr(counts), _build.ptr(ts),
+                               _build.ptr(ps), None, None, *modes)
+
+    pass1()
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    offs = ends - counts
+    E = int(ends[-1])
+    texel = torch.empty((E,), dtype=torch.int32, device=dev)
+    part = torch.empty((E, C), dtype=torch.float64, device=dev)
+
+    def pass2():
+        txb.GRAD_COMPACT_KERNEL.launch(dev, *ins, _build.ptr(offs), _build.ptr(counts),
+                                       _build.ptr(ts), _build.ptr(ps), _build.ptr(texel),
+                                       _build.ptr(part), *modes)
+
+    pass2()
+    cl = counts.long()
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev), cl)
+    direct = (cl <= txb.GRAD_CAP)[tile_of]
+    src = (tile_of * txb.GRAD_CAP + torch.arange(E, device=dev) - offs[tile_of])[direct]
+    if not (torch.equal(texel[direct], ts[src])
+            and torch.equal(part[direct].view(torch.int64), ps[src].view(torch.int64))):
+        raise AssertionError("texture_grad compact: entries differ from the scratch slots")
+    compact_err = float((part[direct] - ps[src]).abs().max()) if bool(direct.any()) else 0.0
+    stexel, perm = torch.sort(texel, stable=True)
+    starts = torch.empty((n_tex + 1,), dtype=torch.int32, device=dev)
+
+    def seg():
+        txb.GRAD_SEGMENT_KERNEL.launch(dev, _build.ptr(stexel), E, 0, n_tex, 4, None, None,
+                                       _build.ptr(starts), None)
+
+    seg()
+    ref_starts = torch.searchsorted(stexel, torch.arange(n_tex + 1, dtype=torch.int32,
+                                                         device=dev))
+    seg_err = float((starts.long() - ref_starts).abs().max())
+    if seg_err != 0.0:
+        raise AssertionError("texture_grad segment starts differ from searchsorted")
+    pp = torch.empty((max(E, 1), C), dtype=torch.float64, device=dev)
+    out = torch.empty((n_tex, C), dtype=torch.float32, device=dev)
+
+    def sums():
+        txb.GRAD_SUM_KERNEL.launch(dev, _build.ptr(stexel), _build.ptr(perm), E,
+                                   _build.ptr(starts), _build.ptr(part), _build.ptr(pp),
+                                   _build.ptr(out), n_tex, C)
+
+    return {"tiles pass 1": cuda_ms(torch, pass1, 20),
+            "scan": cuda_ms(torch, lambda: torch.cumsum(counts, 0, dtype=torch.int64), 20),
+            "sync": cuda_ms(torch, lambda: int(ends[-1]), 20),
+            "pass 2 (compact, tiles over the cap)": cuda_ms(torch, pass2, 20),
+            "stable sort": cuda_ms(torch, lambda: torch.sort(texel, stable=True), 20),
+            "segment starts": cuda_ms(torch, seg, 20),
+            "sums": cuda_ms(torch, sums, 20)}, (compact_err, seg_err)
+
+
 def bound(nbytes, ops):
     """(ms, "bytes" | "operations"): the least time for the work."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -362,8 +548,8 @@ def phase16(dev, card, entry):
     f32 = 4
     t_phase = time.perf_counter()
     raster_kernels = (rc.KERNEL, rc.DB_KERNEL, rc.BINNED_KERNEL, rc.PEEL_KERNEL,
-                      rc.RANGE_KERNEL, rc.BAND_KERNEL, rc.BIN_COUNT_KERNEL,
-                      rc.BIN_EMIT_KERNEL)
+                      rc.RANGE_KERNEL, rc.BAND_KERNEL, rc.SETUP_KERNEL, rc.BIN_EMIT_KERNEL,
+                      rc.BIN_SEGMENT_KERNEL)
     op_kernels = raster_kernels + (ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
                                    gather.KERNEL, scatter.KERNEL)
 
@@ -413,13 +599,17 @@ def phase16(dev, card, entry):
     plain = dr.rasterize(None, p, t, res)
     equal_or_raise(layers[0], plain, "peel layer 0 vs rasterize")
     # Each layer's kernel against its twin, on the previous layer's zbuf.
-    rec, aabb = rc.build_records(p, t, res)
-    bins = rc.bin_records(aabb, res)
-    prev, peel_in = None, None
+    (rec, aabb, pcounts, pboxes), _ = setup_equal_or_raise(rc, p, t, res, None,
+                                                           f"peel scene {RES}^2 B=2")
+    bins = rc.bin_records(aabb, res, pcounts)
+    prev, peel_in, peel_err = None, None, 0.0
     for k in range(PEEL_LAYERS):
         got = rc.launch_records(rec, aabb, res, True, peel=prev, emit_zbuf=True, bins=bins)
         ref = rc.rasterize_records_plain(rec, aabb, res, True, peel=prev, emit_zbuf=True)
-        equal_or_raise(got, ref, f"peel layer {k} kernel vs twin")
+        peel_err = max(peel_err, equal_or_raise(got, ref, f"peel layer {k} kernel vs twin"))
+        equal_or_raise(rc.launch_records(rec, aabb, res, True, peel=prev, emit_zbuf=True,
+                                         boxes=pboxes), ref,
+                       f"peel layer {k} unbinned kernel vs twin")
         equal_or_raise(got[:8], tuple(x for r in layers[k] for x in r.unbind(-1)),
                        f"peel layer {k} kernel vs DepthPeeler")
         covered = int((got[3] > 0).sum())
@@ -432,14 +622,22 @@ def phase16(dev, card, entry):
             if k == 1:
                 peel_in = prev
         prev, prev_ids = got[8], got[3]
-    peel_ms = cuda_ms(torch, lambda: rc.launch_records(rec, aabb, res, True, peel=peel_in,
-                                                       emit_zbuf=True, bins=bins), 20)
+    # The peel kernel in the sweep the binning rule picks for this scene, the
+    # other one beside it.
+    binned_peel = rc.binned_by_default(2, T4, res)
+    sweeps = {"binned": {"bins": bins}, "unbinned": {"boxes": pboxes}}
+    peel_ms, peel_other_ms = (cuda_ms(torch, lambda kw=sweeps[k]: rc.launch_records(
+        rec, aabb, res, True, peel=peel_in, emit_zbuf=True, **kw), 20)
+        for k in (("binned", "unbinned") if binned_peel else ("unbinned", "binned")))
     peel_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(
         rec, aabb, res, True, peel=peel_in, emit_zbuf=True), 2)
     layer0_ms = cuda_ms(torch, lambda: rc.launch_records(rec, aabb, res, True,
                                                          emit_zbuf=True, bins=bins), 20)
     peeler_ms = window_ms(torch, lambda: peel_step(p, a), [()])
-    log(f"[16] peeling {RES}^2 B=2, T={T4}: kernel {peel_ms:.3f} ms a peeled layer, "
+    log(f"[16] peeling {RES}^2 B=2, T={T4}: kernel {peel_ms:.3f} ms a peeled layer "
+        f"{'binned' if binned_peel else 'unbinned'}, the rule's sweep ("
+        f"{'unbinned' if binned_peel else 'binned'}: {peel_other_ms:.3f}; before: "
+        f"{BEFORE_MS['peel']} binned), "
         f"{layer0_ms:.3f} ms layer 0 (plain rasterize's sweep), twin {peel_plain_ms:.3f} ms; "
         f"{PEEL_LAYERS}-layer fwd+bwd step {peeler_ms:.3f} ms ({card})")
     n_peel = frag_count(aabb, RES, RES)
@@ -450,12 +648,15 @@ def phase16(dev, card, entry):
     p2 = p[0].contiguous()
     ranges = torch.tensor([[starts[b % 4], T4 // 4] for b in range(RANGE_B)],
                           dtype=torch.int32, device=dev)
-    rec1, aabb1 = rc.build_records(p2, t, res)
-    bins1 = rc.bin_records(aabb1, res)
+    (rec1, aabb1, rcounts, rboxes), _ = setup_equal_or_raise(
+        rc, p2, t, res, None, f"range scene {RES}^2 (2-D pos)")
+    bins1 = rc.bin_records(aabb1, res, rcounts)
     got = rc.launch_records(rec1, aabb1, res, True, ranges=ranges, emit_zbuf=True,
                             bins=bins1)
     ref = rc.rasterize_records_plain(rec1, aabb1, res, True, ranges=ranges, emit_zbuf=True)
-    equal_or_raise(got, ref, "range kernel vs twin")
+    range_err = equal_or_raise(got, ref, "range kernel vs twin")
+    equal_or_raise(rc.launch_records(rec1, aabb1, res, True, ranges=ranges, emit_zbuf=True,
+                                     boxes=rboxes), ref, "range unbinned kernel vs twin")
     for b in range(4):
         s0 = starts[b]
         one = rc.rasterize_fused(p2[None], t[s0:s0 + T4 // 4], res, emit_db=True,
@@ -473,6 +674,10 @@ def phase16(dev, card, entry):
         rec1, aabb1, res, True, ranges=ranges, bins=bins1), 20)
     range_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(
         rec1, aabb1, res, True, ranges=ranges), 2)
+    range_unbinned_ms = cuda_ms(torch, lambda: rc.launch_records(
+        rec1, aabb1, res, True, ranges=ranges, boxes=rboxes), 20)
+    range_fwd_ms = cuda_ms(torch, lambda: rc.rasterize_fused(p2, t, res, ranges=ranges,
+                                                             emit_db=True), 20)
     n_range = sum(frag_count(aabb1[0, s:s + T4 // 4], RES, RES)
                   for s in (starts[b % 4] for b in range(RANGE_B)))
     range_bound = bound((rec1.numel() + aabb1.numel() + 2 * RANGE_B
@@ -508,8 +713,10 @@ def phase16(dev, card, entry):
         log(f"[16] {SMALL}^2 range-mode {name} gradient, GPU vs CPU path: max|err| {err:.3g} "
             f"(max|g| {scale:.3g}, bar {GRAD_CPU_RTOL} x max|g|)")
     range_step_ms = window_ms(torch, lambda: range_step(p2, a, res, ranges), [()])
-    log(f"[16] range mode {RES}^2 B={RANGE_B}: kernel {range_ms:.3f} ms, twin "
-        f"{range_plain_ms:.3f} ms; composed fwd+bwd {range_step_ms:.3f} ms/step ({card})")
+    log(f"[16] range mode {RES}^2 B={RANGE_B}: binned kernel {range_ms:.3f} ms (before: "
+        f"{BEFORE_MS['range']}), unbinned {range_unbinned_ms:.3f} ms, twin {range_plain_ms:.3f} "
+        f"ms; rasterize_fused {range_fwd_ms:.3f} ms; composed fwd+bwd {range_step_ms:.3f} "
+        f"ms/step ({card})")
 
     # -- 16c. viewport bands: the bench render as four 512-row bands ------------
     bpos, btri, bcol, bcidx = sphere_scene(cameras(1, seed=0))
@@ -559,19 +766,23 @@ def phase16(dev, card, entry):
         f"bit; antialias equals them away from the folded band edges; band gradients within "
         f"{band_gerr:.3g} of scale of the full render's restricted to the band (bar "
         f"{VP_GRAD_RTOL})")
-    vrec, vaabb = rc.build_records(bp, bt, (band_h, RES), (band_h, RES))
-    vgot = rc.rasterize_records(vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES))
+    vsetup, _ = setup_equal_or_raise(rc, bp, bt, (band_h, RES), (band_h, RES),
+                                     f"viewport band rows {band_h}-{2 * band_h - 1}")
+    vrec, vaabb, _, vboxes = vsetup
+    vgot = rc.rasterize_records(vsetup, (band_h, RES), True, viewport=(band_h, RES))
     vref = rc.rasterize_records_plain(vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES))
-    equal_or_raise(vgot, vref, "band kernel vs twin")
-    band_ms = cuda_ms(torch, lambda: rc.rasterize_records(
-        vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES)), 20)
+    band_err = equal_or_raise(vgot, vref, "band kernel vs twin")
+    band_ms = cuda_ms(torch, lambda: rc.launch_records(
+        vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES), boxes=vboxes), 20)
     band_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(
         vrec, vaabb, (band_h, RES), True, viewport=(band_h, RES)), 3)
-    full_rec, full_aabb = rc.build_records(bp, bt, res)
-    full_ms = cuda_ms(torch, lambda: rc.launch_records(full_rec, full_aabb, res, True), 20)
+    full_rec, full_aabb, _, full_boxes = rc.setup_records(bp, bt, res)
+    full_ms = cuda_ms(torch, lambda: rc.launch_records(full_rec, full_aabb, res, True,
+                                                       boxes=full_boxes), 20)
     band_bound = bound((vrec.numel() + vaabb.numel() + 8 * band_h * RES) * f32,
                        34 * frag_count(vaabb, band_h, RES))
-    log(f"[16] band kernel (rows {band_h}-{2 * band_h - 1}): {band_ms:.3f} ms, twin "
+    log(f"[16] band kernel (rows {band_h}-{2 * band_h - 1}): {band_ms:.3f} ms (before: "
+        f"{BEFORE_MS['band']}), twin "
         f"{band_plain_ms:.3f} ms; the full {RES}^2 render's db kernel {full_ms:.3f} ms ({card})")
 
     # Binned against unbinned on scenes around the rule of BIN_MIN_WORK, in
@@ -581,68 +792,129 @@ def phase16(dev, card, entry):
                                ("bench", torch.cat([bp, p[1:, :bp.shape[1]]]), bt, RES),
                                ("peel", p, t, RES)):
         sres = (size, size)
-        srec_, saabb_ = rc.build_records(cp, ct, sres)
-        runs = {"unbinned": lambda: rc.launch_records(srec_, saabb_, sres),
+        srec_, saabb_, scounts_, sboxes_ = rc.setup_records(cp, ct, sres)
+        runs = {"unbinned": lambda: rc.launch_records(srec_, saabb_, sres, boxes=sboxes_),
                 "binned": lambda: rc.launch_records(srec_, saabb_, sres,
-                                                    bins=rc.bin_records(saabb_, sres))}
+                                                    bins=rc.bin_records(saabb_, sres,
+                                                                        scounts_))}
         equal_or_raise(runs["binned"](), runs["unbinned"](), f"{what} {size}^2 binned vs unbinned")
         ev_ms = {k: [] for k in runs}
         wall_ms = {k: [] for k in runs}
         for name in ("unbinned", "binned", "binned", "unbinned"):
             ev_ms[name].append(round(cuda_ms(torch, runs[name], 20), 4))
             wall_ms[name].append(round(window_ms(torch, runs[name], [()]), 4))
-        sbins_ = rc.bin_records(saabb_, sres)
+        sbins_ = rc.bin_records(saabb_, sres, scounts_)
         kern_ms = cuda_ms(torch, lambda: rc.launch_records(srec_, saabb_, sres, bins=sbins_), 20)
+        sglue_ms = cuda_ms(torch, lambda: rc.bin_records(saabb_, sres, scounts_), 20)
         tests = cp.shape[0] * ct.shape[0] * (-(-size // 16)) ** 2
         log(f"[16] binning rule, {what} scene {size}^2 B={cp.shape[0]} (T={ct.shape[0]}, "
             f"{tests} AABB tests unbinned, {sbins_[1].numel()} list entries): CUDA events "
             f"unbinned {ev_ms['unbinned']} ms, binned with its glue {ev_ms['binned']} ms "
-            f"(kernel alone {kern_ms:.4f}); host clock a call unbinned {wall_ms['unbinned']}, "
+            f"(kernel alone {kern_ms:.4f}, binning glue {sglue_ms:.4f}; bench glue before: "
+            f"{BEFORE_MS['bin_glue_bench']}); host clock a call unbinned {wall_ms['unbinned']}, "
             f"binned {wall_ms['binned']} ms ({card})")
+    # A peeled layer of the peel scene end to end through rasterize_fused
+    # (setup kernel; binned, also the binning glue and its host sync; the peel
+    # sweep), either sweep forced, in turns: what DepthPeeler pays a layer.
+    rule = rc.BIN_MIN_WORK
+    forced = {"unbinned": 1 << 62, "binned": 0}
+
+    def peel_fwd():
+        return rc.rasterize_fused(p, t, res, peel_depth=peel_in, emit_db=True, emit_zbuf=True)
+
+    try:
+        outs = {}
+        for name, work in forced.items():
+            rc.BIN_MIN_WORK = work
+            outs[name] = peel_fwd()
+        equal_or_raise(outs["binned"], outs["unbinned"], "peeled layer binned vs unbinned")
+        pev_ms = {k: [] for k in forced}
+        pwall_ms = {k: [] for k in forced}
+        for name in ("unbinned", "binned", "binned", "unbinned"):
+            rc.BIN_MIN_WORK = forced[name]
+            pev_ms[name].append(round(cuda_ms(torch, peel_fwd, 20), 4))
+            pwall_ms[name].append(round(window_ms(torch, peel_fwd, [()]), 4))
+    finally:
+        rc.BIN_MIN_WORK = rule
+    log(f"[16] a peeled layer through rasterize_fused, peel scene {RES}^2 B=2 (the rule "
+        f"picks {'binned' if rc.binned_by_default(2, T4, res) else 'unbinned'}): CUDA events "
+        f"unbinned {pev_ms['unbinned']} ms, binned {pev_ms['binned']} ms; host clock a call "
+        f"unbinned {pwall_ms['unbinned']}, binned {pwall_ms['binned']} ms; binned = unbinned "
+        f"bit for bit ({card})")
 
     # -- 16d. big mesh: uv_sphere(512, 1024), 1,046,528 triangles ---------------
     mpos, mtri, mcol = big_sphere(*BIG_SPHERE)
     mp, mt, ma = inputs_from_numpy(mpos, mtri, mcol, device=dev)
     TM = mt.shape[0]
-    mrec, maabb = rc.build_records(mp, mt, res)
-    mbins = rc.bin_records(maabb, res)
+    (mrec, maabb, mcounts, mboxes), setup_err = setup_equal_or_raise(rc, mp, mt, res, None,
+                                                                     f"1M sphere {RES}^2")
+    mbins = rc.bin_records(maabb, res, mcounts)
     before = rc.KERNEL.launches, rc.BINNED_KERNEL.launches
     mb = rc.launch_records(mrec, maabb, res, bins=mbins)
-    mu = rc.launch_records(mrec, maabb, res)
+    mu = rc.launch_records(mrec, maabb, res, boxes=mboxes)
     torch.cuda.synchronize()
     if (rc.KERNEL.launches, rc.BINNED_KERNEL.launches) != (before[0] + 1, before[1] + 1):
         raise AssertionError("big mesh: one launch each expected")
     equal_or_raise(mb, mu, f"binned vs unbinned kernel at T={TM}")
     cover = float((mb[3] > 0).float().mean())
+    lens = mbins[0][1:] - mbins[0][:-1]
     log(f"[16] T={TM} at {RES}^2: binned kernel = unbinned kernel bit for bit "
-        f"({mbins[1].numel()} list entries, covered {cover:.4f})")
+        f"({mbins[1].numel()} list entries, the longest list {int(lens.max())}, "
+        f"covered {cover:.4f})")
     mbin_ms = cuda_ms(torch, lambda: rc.launch_records(mrec, maabb, res, bins=mbins), 10)
-    munbin_ms = cuda_ms(torch, lambda: rc.launch_records(mrec, maabb, res), 2)
-    prepass_ms = cuda_ms(torch, lambda: rc.build_records(mp, mt, res), 5)
-    glue_ms = cuda_ms(torch, lambda: rc.bin_records(maabb, res), 10)
+    order_min = rc.ORDER_MIN_ENTRIES
+    rc.ORDER_MIN_ENTRIES = 1 << 62
+    mbin_unordered_ms = cuda_ms(torch, lambda: rc.launch_records(mrec, maabb, res, bins=mbins),
+                                10)
+    rc.ORDER_MIN_ENTRIES = order_min
+    munbin_ms = cuda_ms(torch, lambda: rc.launch_records(mrec, maabb, res, boxes=mboxes), 5)
+    prepass_ms = cuda_ms(torch, lambda: rc.setup_records(mp, mt, res), 20)
+    prepass_plain_ms = cuda_ms(torch, lambda: rc.build_records(mp, mt, res), 3)
+    glue_ms = cuda_ms(torch, lambda: rc.bin_records(maabb, res, mcounts), 10)
+    fwd_big_ms = cuda_ms(torch, lambda: rc.rasterize_fused(mp, mt, res), 10)
+    n_sync_big = host_syncs(torch, lambda: rc.rasterize_fused(mp, mt, res))
+    if n_sync_big != 1:
+        raise AssertionError(f"the binned 1M forward synced {n_sync_big} times")
     n_big = mrec.shape[1]
-    counts_t = torch.empty((n_big,), dtype=torch.int32, device=dev)
-    count_ms = cuda_ms(torch, lambda: rc.BIN_COUNT_KERNEL.launch(
-        dev, _build.ptr(maabb), n_big, RES // 16, RES // 16, _build.ptr(counts_t)), 20)
-    ends = torch.cumsum(counts_t, 0, dtype=torch.int64)
-    offs = ends - counts_t
-    keys = torch.empty((int(ends[-1]),), dtype=torch.int64, device=dev)
+    ntile = RES // 16
+    ends = torch.cumsum(mcounts, 0, dtype=torch.int64)
+    offs = ends - mcounts
+    n_keys = int(ends[-1])
+    nseg = ntile * ntile
+    seg_t = torch.empty((n_keys,), dtype=torch.int16 if nseg <= 2 ** 15 else torch.int32,
+                        device=dev)
+    kbytes = seg_t.element_size()
+    rec_at = torch.empty((n_keys,), dtype=torch.int32, device=dev)
     emit_ms = cuda_ms(torch, lambda: rc.BIN_EMIT_KERNEL.launch(
-        dev, _build.ptr(maabb), _build.ptr(offs), n_big, TM, RES // 16, RES // 16,
-        _build.ptr(keys)), 20)
+        dev, _build.ptr(maabb), _build.ptr(offs), n_big, TM, ntile, ntile, kbytes,
+        _build.ptr(seg_t), _build.ptr(rec_at)), 20)
+    sseg, sperm = torch.sort(seg_t, stable=True)
+    sort_ms = cuda_ms(torch, lambda: torch.sort(seg_t, stable=True), 10)
+    tstart = torch.empty((nseg + 1,), dtype=torch.int32, device=dev)
+    tlist = torch.empty((n_keys,), dtype=torch.int32, device=dev)
+    seg_ms = cuda_ms(torch, lambda: rc.BIN_SEGMENT_KERNEL.launch(
+        dev, _build.ptr(sseg), n_keys, 0, nseg, kbytes, _build.ptr(sperm), _build.ptr(rec_at),
+        _build.ptr(tstart), _build.ptr(tlist)), 20)
     bins_plain_ms = cuda_ms(torch, lambda: rc.bin_records_plain(maabb, res), 2)
-    equal_or_raise(rc.bin_records_plain(maabb, res), mbins, "bin kernels vs twin")
-    log(f"[16] T={TM} forward split: prepass {prepass_ms:.3f} ms, binning glue {glue_ms:.3f} "
-        f"ms (bin_count {count_ms:.4f}, bin_emit {emit_ms:.4f}, twin {bins_plain_ms:.3f}), "
-        f"binned kernel {mbin_ms:.3f} ms; the unbinned kernel {munbin_ms:.3f} ms ({card})")
+    bins_err = equal_or_raise(rc.bin_records_plain(maabb, res), mbins, "bin kernels vs twin")
+    seg_err = max(bins_err, equal_or_raise((tstart, tlist), mbins,
+                                           "segment starts kernel vs the lists"))
+    log(f"[16] T={TM} forward split: setup kernel {prepass_ms:.4f} ms (the torch prepass before: "
+        f"{BEFORE_MS['prepass_1M']}; its twin build_records {prepass_plain_ms:.3f}), binning "
+        f"glue {glue_ms:.3f} ms (before: {BEFORE_MS['glue_1M']}; bin_emit {emit_ms:.4f}, sort of "
+        f"{n_keys} int{8 * kbytes} segments (stable) {sort_ms:.4f}, segment starts "
+        f"{seg_ms:.4f}, twin {bins_plain_ms:.3f}), binned kernel {mbin_ms:.3f} ms with its "
+        f"longest-list-first order (before: {BEFORE_MS['binned_1M']}; in grid order "
+        f"{mbin_unordered_ms:.3f}); the unbinned kernel {munbin_ms:.3f} ms; rasterize_fused "
+        f"{fwd_big_ms:.3f} ms with {n_sync_big} host sync ({card})")
     # The binned kernel against its twin at uv_sphere(128, 320).
     spos, stri, _ = big_sphere(*MID_SPHERE)
     sp, st = inputs_from_numpy(spos, stri, device=dev)
-    srec, saabb = rc.build_records(sp, st, res)
-    sbins = rc.bin_records(saabb, res)
+    srec, saabb, scounts, _ = rc.setup_records(sp, st, res)
+    sbins = rc.bin_records(saabb, res, scounts)
     sgot = rc.launch_records(srec, saabb, res, bins=sbins)
     sref = rc.rasterize_records_plain(srec, saabb, res)
-    equal_or_raise(sgot, sref, f"binned kernel vs twin at T={st.shape[0]}")
+    binned_err = equal_or_raise(sgot, sref, f"binned kernel vs twin at T={st.shape[0]}")
     binned_mid_ms = cuda_ms(torch, lambda: rc.launch_records(srec, saabb, res, bins=sbins), 20)
     # The twin at 1 M triangles: one timed call, held to the kernel too.
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -651,7 +923,7 @@ def phase16(dev, card, entry):
     ev[1].record()
     torch.cuda.synchronize()
     binned_plain_ms = ev[0].elapsed_time(ev[1])
-    equal_or_raise(mb, mref, f"binned kernel vs twin at T={TM}")
+    binned_err = max(binned_err, equal_or_raise(mb, mref, f"binned kernel vs twin at T={TM}"))
     del mref
     log(f"[16] binned kernel = twin bit for bit at T={st.shape[0]} (kernel "
         f"{binned_mid_ms:.3f} ms) and at T={TM} (twin {binned_plain_ms:.3f} ms, one call) "
@@ -671,8 +943,8 @@ def phase16(dev, card, entry):
     big_launches = dict(counts(), **{k.name: k.launches
                                      for k in (pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)})
     log(f"[16] launches during the 1M-triangle render_pipeline step: {big_launches}")
-    for k in (rc.BINNED_KERNEL, rc.BIN_COUNT_KERNEL, rc.BIN_EMIT_KERNEL, pc.KERNEL,
-              pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+    for k in (rc.SETUP_KERNEL, rc.BINNED_KERNEL, rc.BIN_EMIT_KERNEL, rc.BIN_SEGMENT_KERNEL,
+              pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
         if k.launches <= 0:
             raise AssertionError(f"1M-triangle step: {k.name} never launched")
     check_grads(zip(("pos", "col"), g_big), "1M-triangle step")
@@ -691,33 +963,43 @@ def phase16(dev, card, entry):
     n_big_frag = frag_count(maabb, RES, RES)
     binned_bound = bound((mrec.numel() + mbins[0].numel() + mbins[1].numel()
                           + 4 * RES * RES) * f32, 34 * n_big_frag)
-    n_keys = mbins[1].numel()
-    count_bound = bound(n_big * (16 + 4), 0)
-    emit_bound = bound(n_big * (16 + 8) + n_keys * 8, 0)
+    # The setup reads pos (16 bytes a vertex) and tri (12 bytes a triangle)
+    # once and writes a record, an AABB and a count a triangle and a box a
+    # chunk, ~400 float operations a triangle; the emit reads an AABB and an
+    # offset a record and writes the keys; the segment starts read the
+    # sorted keys and write the starts and the list.
+    setup_bound = bound(mp.numel() * f32 + TM * 12 + n_big * (64 + 16 + 4)
+                        + mboxes.numel() * f32, 400 * n_big)
+    emit_bound = bound(n_big * (16 + 8) + n_keys * (kbytes + 4), 0)
+    segments_bound = bound(n_keys * (kbytes + 8 + 4 + 4) + (nseg + 1) * 4, 0)
     log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
     return [
         entry("rasterize_peel", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", peel_launches[rc.PEEL_KERNEL.name],
-              0.0, peel_ms, peel_plain_ms, peel_bound, None),
+              peel_err, peel_ms, peel_plain_ms, peel_bound, None),
         entry("rasterize_range", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
-              range_launches[rc.RANGE_KERNEL.name], 0.0, range_ms, range_plain_ms,
+              range_launches[rc.RANGE_KERNEL.name], range_err, range_ms, range_plain_ms,
               range_bound, None),
         entry("rasterize_band", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", band_launches[rc.BAND_KERNEL.name],
-              0.0, band_ms, band_plain_ms, band_bound, None),
+              band_err, band_ms, band_plain_ms, band_bound, None),
         entry("rasterize_binned", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
-              big_launches[rc.BINNED_KERNEL.name], 0.0, mbin_ms, binned_plain_ms, binned_bound,
-              None),
-        entry("bin_count", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              big_launches[rc.BINNED_KERNEL.name], binned_err, mbin_ms, binned_plain_ms,
+              binned_bound, None),
+        entry("raster_setup", "cuda", "nvdiffrast_tpu_torch/csrc/raster_setup.cu",
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1090",
+              big_launches[rc.SETUP_KERNEL.name], setup_err, prepass_ms, prepass_plain_ms,
+              setup_bound, None),
+        entry("bin_segments", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:527",
-              big_launches[rc.BIN_COUNT_KERNEL.name], 0.0, count_ms, bins_plain_ms,
-              count_bound, None),
+              big_launches[rc.BIN_SEGMENT_KERNEL.name], seg_err, seg_ms, bins_plain_ms,
+              segments_bound, None),
         entry("bin_emit", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:494",
-              big_launches[rc.BIN_EMIT_KERNEL.name], 0.0, emit_ms, bins_plain_ms,
+              big_launches[rc.BIN_EMIT_KERNEL.name], bins_err, emit_ms, bins_plain_ms,
               emit_bound, None),
     ]
 
@@ -778,8 +1060,9 @@ def main():
     scenes.append(("random 67x130 B=2", pos, tri, (67, 130)))
     for what, pos, tri, res in scenes:
         p, t = inputs_from_numpy(pos, tri, device=dev)
-        rec, aabb = rc.build_records(p, t, res)
-        got = rc.rasterize_records(rec, aabb, res)
+        setup = setup_equal_or_raise(rc, p, t, res, None, what)[0]
+        rec, aabb = setup[:2]
+        got = rc.rasterize_records(setup, res)
         ref = rc.rasterize_records_plain(rec, aabb, res)
         torch.cuda.synchronize()
         err, n_diff = zfight_check(ref, got, what)
@@ -792,16 +1075,29 @@ def main():
     pos, tri, col, cidx = sphere_scene(cameras(1, seed=0))
     p, t, a, c = inputs_from_numpy(pos, tri, col, cidx, device=dev)
     res = (RES, RES)
-    rec, aabb = rc.build_records(p, t, res)
-    got = rc.rasterize_records(rec, aabb, res)
+    recs = setup_equal_or_raise(rc, p, t, res, None, f"sphere {RES}^2 B=1")[0]
+    rec, aabb = recs[:2]
+    T0 = t.shape[0]
+    got = rc.rasterize_records(recs, res)
     ref = rc.rasterize_records_plain(rec, aabb, res)
     err, n_diff = zfight_check(ref, got, f"sphere {RES}^2 B=1")
+    equal_or_raise(got, ref, f"rasterize sphere {RES}^2 B=1 kernel vs twin")
     raster_err = max(raster_err, err)
-    log(f"[2] rasterize sphere {RES}^2 B=1: max|err| {err:.3g}, id mismatches {n_diff}")
-    raster_ms = cuda_ms(torch, lambda: rc.rasterize_records(rec, aabb, res), 20)
+    log(f"[2] rasterize sphere {RES}^2 B=1: equal to its twin bit for bit, max|err| {err:.3g}, "
+        f"id mismatches {n_diff}")
+    raster_ms = cuda_ms(torch, lambda: rc.launch_records(rec, aabb, res, boxes=recs[3]), 20)
     raster_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(rec, aabb, res), 3)
-    log(f"[2] rasterize {RES}^2: kernel {raster_ms:.3f} ms, twin {raster_plain_ms:.3f} ms "
-        f"({card})")
+    setup_ms = cuda_ms(torch, lambda: rc.setup_records(p, t, res), 50)
+    setup_plain_ms = cuda_ms(torch, lambda: rc.build_records(p, t, res), 5)
+    fwd_ms = cuda_ms(torch, lambda: rc.rasterize_fused(p, t, res), 20)
+    n_sync = host_syncs(torch, lambda: rc.rasterize_fused(p, t, res))
+    if n_sync != int(rc.binned_by_default(1, T0, res)):
+        raise AssertionError(f"the rasterize forward synced {n_sync} times")
+    log(f"[2] rasterize {RES}^2: sweep kernel {raster_ms:.3f} ms (before: {BEFORE_MS['raster']}), "
+        f"twin {raster_plain_ms:.3f} ms; setup kernel {setup_ms:.4f} ms, its twin "
+        f"build_records {setup_plain_ms:.3f} ms (the torch prepass before: "
+        f"{BEFORE_MS['prepass']}); "
+        f"rasterize_fused (setup + sweep) {fwd_ms:.3f} ms, {n_sync} host syncs ({card})")
 
     # -- 3. shade_fwd kernel vs twin (same raster buffers, 2048^2) ------------
     N = RES * RES
@@ -829,7 +1125,7 @@ def main():
     _, t8, a8, c8 = inputs_from_numpy(pos8[:1], tri8, col8, cidx8, device=dev)
     reqs = [inputs_from_numpy(pos8[i:i + 1], device=dev)[0] for i in range(8)]
     pos2 = inputs_from_numpy(pos8[:2], device=dev)[0]
-    for k in (rc.KERNEL, pc.KERNEL):
+    for k in (rc.KERNEL, pc.KERNEL, rc.SETUP_KERNEL):
         k.launches = 0
     with torch.no_grad():
         imgs = []
@@ -839,10 +1135,13 @@ def main():
             imgs.append((img, again))
         img2 = pl.render_pipeline(pos2, t8, a8, res, attr_idx=c8)
         torch.cuda.synchronize()
-    launches = {"rasterize": rc.KERNEL.launches, "shade_fwd": pc.KERNEL.launches}
+    launches = {"raster_setup": rc.SETUP_KERNEL.launches, "rasterize": rc.KERNEL.launches,
+                "shade_fwd": pc.KERNEL.launches}
     log(f"[4] launches during the slice: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if rc.SETUP_KERNEL.launches != 2 * len(reqs) + 1:
+        raise AssertionError("the record setup kernel did not run once a forward")
     for i, (img, again) in enumerate(imgs):
         if img.shape != (1, RES, RES, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"request {i}: bad output {tuple(img.shape)}")
@@ -964,14 +1263,15 @@ def main():
         loss = (img ** 2).mean(dim=(1, 2, 3)).sum()
         return torch.autograd.grad(loss, (pv, cv))
 
-    for k in (rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+    for k in (rc.SETUP_KERNEL, rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
         k.launches = 0
     g1 = [grads(reqs[i], a8, res) for i in range(2)]
     again = grads(reqs[0], a8, res)
     col2 = a8.expand(2, -1, -1).contiguous()  # per-image colours: per-image gradients
     g2 = grads(pos2, col2, res)
     torch.cuda.synchronize()
-    train_launches = {"rasterize": rc.KERNEL.launches, "shade_fwd": pc.KERNEL.launches,
+    train_launches = {"raster_setup": rc.SETUP_KERNEL.launches,
+                      "rasterize": rc.KERNEL.launches, "shade_fwd": pc.KERNEL.launches,
                       "pipeline_bwd": pb.BWD_KERNEL.launches,
                       "grad_scatter": pb.SCATTER_KERNEL.launches}
     log(f"[6] launches during the training slice: {train_launches}")
@@ -1026,7 +1326,7 @@ def main():
     offset = (0.05 * torch.randn(3, generator=gen).to(dev)).requires_grad_()
     opt = torch.optim.Adam([colour, offset], lr=0.02)
     losses = []
-    kernels_of_path = (rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)
+    kernels_of_path = (rc.SETUP_KERNEL, rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)
     for k in kernels_of_path:
         k.launches = 0
     for _ in range(ADAM_STEPS):
@@ -1043,26 +1343,29 @@ def main():
         raise AssertionError(f"Adam fit: the loss did not fall: {losses}")
     if min(fit_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {fit_launches}")
+    if fit_launches[rc.SETUP_KERNEL.name] != ADAM_STEPS:
+        raise AssertionError("the record setup kernel did not run once a forward")
 
     # -- 7. the textured forward's kernels vs twins (2048^2, bench scene) ----
     uvs = sphere_uv()
     tex_np = bench_texture()
     tpos, ttri, _, tcidx = sphere_scene(cameras(1, seed=0))
     p, t, tu, tuv, ttex = inputs_from_numpy(tpos, ttri, tcidx, uvs, tex_np, device=dev)
-    trec, taabb = rc.build_records(p, t, res)
-    got = rc.rasterize_records(trec, taabb, res, emit_db=True)
+    tsetup = setup_equal_or_raise(rc, p, t, res, None, f"textured bench {RES}^2")[0]
+    trec, taabb, _, tboxes = tsetup
+    got = rc.rasterize_records(tsetup, res, emit_db=True)
     ref = rc.rasterize_records_plain(trec, taabb, res, emit_db=True)
     torch.cuda.synchronize()
     db_err = equal_or_raise(got, ref, "rasterize db")
-    equal_or_raise(got[:4], rc.rasterize_records(trec, taabb, res), "rasterize db vs no db")
+    equal_or_raise(got[:4], rc.rasterize_records(tsetup, res), "rasterize db vs no db")
     log(f"[7] rasterize with db {RES}^2: equal to its twin bit for bit (8 outputs), "
         f"u, v, zw, id equal to the kernel without db; max|dudx| "
         f"{float(got[4].abs().max()):.3g}")
-    db_ms = cuda_ms(torch, lambda: rc.rasterize_records(trec, taabb, res, emit_db=True), 20)
+    db_ms = cuda_ms(torch, lambda: rc.launch_records(trec, taabb, res, True, boxes=tboxes), 20)
     db_plain_ms = cuda_ms(torch, lambda: rc.rasterize_records_plain(trec, taabb, res,
                                                                     emit_db=True), 3)
-    log(f"[7] rasterize with db {RES}^2: kernel {db_ms:.3f} ms, twin {db_plain_ms:.3f} ms "
-        f"({card})")
+    log(f"[7] rasterize with db {RES}^2: kernel {db_ms:.3f} ms (before: {BEFORE_MS['raster_db']}), "
+        f"twin {db_plain_ms:.3f} ms ({card})")
 
     u, v, zw, idf, *db = (x.reshape(N) for x in got)
     utbl = pl._attr_table(tuv, tu, 1, T)
@@ -1102,7 +1405,9 @@ def main():
                              align_corners=False)
 
     gs_err = float((library_sample().reshape(3, N) - lin).abs().max())
+    lin_err = equal_or_raise((lin,), (tc.sample_plain(*largs),), "texture_fwd linear+clamp")
     lin_ms = cuda_ms(torch, lambda: tc.sample(*largs), 50)
+    lin_plain_ms = cuda_ms(torch, lambda: tc.sample_plain(*largs), 5)
     tex_lib_ms = cuda_ms(torch, library_sample, 50)
     log(f"[7] texture_fwd {RES}^2: kernel {tex_ms:.3f} ms, twin {tex_plain_ms:.3f} ms; "
         f"linear+clamp: kernel {lin_ms:.3f} ms, F.grid_sample {tex_lib_ms:.3f} ms "
@@ -1126,7 +1431,7 @@ def main():
         n_active += int(pair_ids(idf, q.reshape(N), zw, zw, T)[2].sum())
 
     # -- 8. the textured slice: render_pipeline_textured forward -------------
-    tkernels = (rc.DB_KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL)
+    tkernels = (rc.SETUP_KERNEL, rc.DB_KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL)
 
     def render_tex(view, size=res, tex=ttex):
         with torch.no_grad():
@@ -1209,7 +1514,10 @@ def main():
               "clamp", "linear")
     lgu = txb.texture_bwd(*lbargs)[0]
     gs_bwd_diff = float((library_bwd([False, True])[1][..., 0].reshape(N) * 2.0 - lgu).abs().max())
+    lin_bwd_err = equal_or_raise(txb.texture_bwd(*lbargs), txb.texture_bwd_plain(*lbargs),
+                                 "texture_bwd linear+clamp")
     lin_bwd_ms = cuda_ms(torch, lambda: txb.texture_bwd(*lbargs), 50)
+    lin_bwd_plain_ms = cuda_ms(torch, lambda: txb.texture_bwd_plain(*lbargs), 5)
     texbwd_lib_ms = cuda_ms(torch, lambda: library_bwd([False, True]), 50)
     log(f"[9] texture_bwd {RES}^2: equal to its twin bit for bit; max|gu| "
         f"{float(gu9.abs().max()):.3g}, max|gfl| {float(gfl9.abs().max()):.3g}; kernel "
@@ -1219,35 +1527,36 @@ def main():
 
     n_tex9 = flat9.shape[0]
     gargs9 = (uv9[0], uv9[1], fl9, gc9, tmeta, n_tex9, shape1, False, BOUNDARY, FILTER)
-    gtex9 = txb.texture_grad(*gargs9)
-    gtex9b = txb.texture_grad(*gargs9)
-    gtex_ref = txb.texture_grad_plain(*gargs9)
-    torch.cuda.synchronize()
-    if not torch.equal(gtex9, gtex9b):
-        raise AssertionError("texture_grad kernel not repeatable")
-    ulp = torch.from_numpy(np.spacing(gtex_ref.abs().cpu().numpy())).to(dev)
-    if not bool(((gtex9 - gtex_ref).abs() <= ulp).all()):
-        raise AssertionError("texture_grad kernel beyond 1 ulp of its twin")
-    texgrad_err = float((gtex9 - gtex_ref).abs().max())
-    ent9 = txb.grad_entries(uv9[0], uv9[1], fl9, tmeta, n_tex9, shape1, False, BOUNDARY, FILTER)
-    n_taps = int(ent9[0].shape[0])
-    hot = int((ent9[1][1:] - ent9[1][:-1]).max())
-    log(f"[9] texture_grad {RES}^2 ({n_tex9} texels): within 1 ulp of its twin (max|err| "
-        f"{texgrad_err:.3g}), bitwise repeatable; {n_taps} taps in {ent9[3]} pieces, the "
-        f"busiest texel {hot} taps")
-    texgrad_ms = cuda_ms(torch, lambda: txb.grad_from_entries(
-        *ent9, uv9[0], uv9[1], fl9, gc9, tmeta, shape1, False, BOUNDARY, FILTER), 20)
-    texgrad_glue_ms = cuda_ms(torch, lambda: txb.grad_entries(
-        uv9[0], uv9[1], fl9, tmeta, n_tex9, shape1, False, BOUNDARY, FILTER), 10)
+    texgrad_err, n_ent9, n_taps, ent_err9, over_err9 = texgrad_check(
+        torch, np, txb, gargs9, f"bench textured {RES}^2")
+    for case, (bnd, filt, D) in (("zero", ("zero", FILTER, 1)), ("clamp", ("clamp", "linear", 1)),
+                                 ("per-image", ("wrap", FILTER, 2))):
+        texgrad_check(torch, np, txb, texgrad_case(torch, np, tx, dev, bnd, filt, D),
+                      f"{case} {SMALL}^2 B=2 ({bnd}, {filt}, D={D})")
+    st9, (compact_err9, seg_err9) = texgrad_stages(torch, txb, _build, gargs9)
+    log(f"[9] texture_grad stages {RES}^2: the compacted entries equal the first pass's "
+        f"scratch slots bit for bit (max|err| {compact_err9:.3g}; the tiles over the cap "
+        f"within {over_err9:.3g} of the twin after merging), the segment starts equal "
+        f"searchsorted's (max|err| {seg_err9:.3g})")
+    texgrad_ms = st9["tiles pass 1"]
+    texgrad_all_ms = cuda_ms(torch, lambda: txb.texture_grad(*gargs9), 20)
     texgrad_plain_ms = cuda_ms(torch, lambda: txb.texture_grad_plain(*gargs9), 3)
     lgargs = (uv9[0], uv9[1], fl9, gc9, tmeta[:1], TEX_SIZE * TEX_SIZE, shape1, False,
               "clamp", "linear")
+    lin_grad_err, n_ent_lin, n_taps_lin = texgrad_check(torch, np, txb, lgargs,
+                                                        f"linear+clamp {RES}^2")[:3]
     lin_grad_ms = cuda_ms(torch, lambda: txb.texture_grad(*lgargs), 10)
+    lin_grad_plain_ms = cuda_ms(torch, lambda: txb.texture_grad_plain(*lgargs), 3)
+    entries_plain_ms = cuda_ms(torch, lambda: txb.tile_entries_plain(*gargs9), 3)
     texgrad_lib_ms = cuda_ms(torch, lambda: library_bwd([True, False]), 20)
-    log(f"[9] texture_grad {RES}^2: kernel {texgrad_ms:.3f} ms + index glue (keys, sort) "
-        f"{texgrad_glue_ms:.3f} ms, twin {texgrad_plain_ms:.3f} ms; linear+clamp: kernel with "
-        f"glue {lin_grad_ms:.3f} ms, grid_sample backward to the input {texgrad_lib_ms:.3f} ms "
-        f"({card})")
+    n_sync9 = host_syncs(torch, lambda: txb.texture_grad(*gargs9))
+    if n_sync9 > 1:
+        raise AssertionError(f"texture_grad synced with the host {n_sync9} times")
+    log(f"[9] texture_grad {RES}^2: {texgrad_all_ms:.3f} ms in all "
+        f"(before: {BEFORE_MS['texgrad']} ms), {n_sync9} host sync; stages "
+        + ", ".join(f"{k} {v:.4f}" for k, v in st9.items())
+        + f" ms; twin {texgrad_plain_ms:.3f} ms; linear+clamp: all {lin_grad_ms:.3f} ms, "
+        f"grid_sample backward to the input {texgrad_lib_ms:.3f} ms ({card})")
 
     gda9 = tx.level_vjp(da9, gfl9, TEX_SIZE, TEX_SIZE, len(tmeta))[0]
     iargs9 = (pl._attr_table(tuv, tu, 1, T), vtbl9, idf9, gu9, gv9, gda9, torch.stack(db9),
@@ -1293,7 +1602,8 @@ def main():
         f"{da4_ms:.3f} ms, twin {da4_plain_ms:.3f} ms, index_add_ {da4_lib_ms:.3f} ms ({card})")
 
     # -- 10. the textured training slice: fwd + bwd at 2048^2 -----------------
-    tbwd_kernels = (txb.BWD_KERNEL, txb.GRAD_KERNEL, ptb.KERNEL, pb.SCATTER_KERNEL)
+    tbwd_kernels = (txb.BWD_KERNEL, txb.GRAD_KERNEL, txb.GRAD_COMPACT_KERNEL,
+                    txb.GRAD_SEGMENT_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL, pb.SCATTER_KERNEL)
 
     def tgrads(view, size=res, uvs_=tuv, tex=ttex, boost=1.0):
         xs = [x.detach().clone().requires_grad_() for x in (view, uvs_, tex)]
@@ -1894,7 +2204,25 @@ def main():
     # covered pixel; grad_scatter with da4 as phase 5's, with 4 more floats
     # an own-pixel entry.
     texbwd_bound = bound(((3 + C + 3) * N + n_tex9 * C) * f32, 2 * N * (40 + 14 * C))
-    texgrad_bound = bound(((3 + C) * N + n_tex9 * C) * f32, n_taps * (30 + 3 * C))
+    # texture_grad's first pass reads u, v, flevel and C cotangents of every
+    # pixel and writes the tile counts and the entries (texel and C float64
+    # partials), ~(30 + 3C) operations a kept tap; the second pass moves the
+    # entries (read and write); the segment starts read the sorted texels
+    # and write n_texels + 1 starts; the sums read each entry's texel, row
+    # and partials and write the gradient. The linear+clamp yardstick, the
+    # same on its own inputs.
+    n_tiles9 = (RES // 16) ** 2
+    ent_bytes = 4 + 8 * C
+    texgrad_bound = bound(((3 + C) * N + n_tiles9) * f32 + n_ent9 * ent_bytes,
+                          n_taps * (30 + 3 * C))
+    lin_grad_bound = bound(((3 + C) * N + n_tiles9) * f32 + n_ent_lin * ent_bytes,
+                           n_taps_lin * (30 + 3 * C))
+    compact_bound = bound(2 * n_ent9 * ent_bytes + n_tiles9 * 12, 0)
+    segments_bound = bound((n_ent9 + n_tex9 + 1) * f32, 0)
+    sums_bound = bound(n_ent9 * (ent_bytes + 8) + (n_tex9 + 1) * f32 + n_tex9 * C * f32,
+                       n_ent9 * C)
+    lin_bound = bound((3 * N + TEX_SIZE * TEX_SIZE * C + C * N) * f32, N * (30 + 8 * C))
+    lin_bwd_bound = bound(((3 + C + 3) * N + TEX_SIZE * TEX_SIZE * C) * f32, N * (40 + 14 * C))
     b14_bound = bound((iargs9[0].numel() + vtbl9.numel() + 16 * N + 10 * n_valid9) * f32,
                       220 * n_valid9)
     da4_bound = bound((n_own9 * (2 + 9 + 3 + 4) + n_aa9 * 3 + 9 * (R9 + 1) + (R9 + 1)
@@ -1954,16 +2282,38 @@ def main():
               interp_err, interp_ms, interp_plain_ms, interp_bound, None),
         entry("texture_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_fwd.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:894", tex_launches[tc.KERNEL.name],
-              tex_err, tex_ms, tex_plain_ms, tex_bound, tex_lib_ms),
+              tex_err, tex_ms, tex_plain_ms, tex_bound, None),
+        entry("texture_fwd_linear_clamp", "cuda", "nvdiffrast_tpu_torch/csrc/texture_fwd.cu",
+              "nvdiffrast_tpu/ops/texture_pallas.py:894", lin_launches[tc.KERNEL.name],
+              lin_err, lin_ms, lin_plain_ms, lin_bound, tex_lib_ms),
         entry("aa_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/aa_fwd.cu",
               "nvdiffrast_tpu/ops/antialias_pallas.py:149", tex_launches[ac.KERNEL.name],
               aa_err, aa_ms, aa_plain_ms, aa_bound, None),
         entry("texture_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_bwd.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:894", ttrain_launches[txb.BWD_KERNEL.name],
-              texbwd_err, texbwd_ms, texbwd_plain_ms, texbwd_bound, texbwd_lib_ms),
+              texbwd_err, texbwd_ms, texbwd_plain_ms, texbwd_bound, None),
+        entry("texture_bwd_linear_clamp", "cuda", "nvdiffrast_tpu_torch/csrc/texture_bwd.cu",
+              "nvdiffrast_tpu/ops/texture_pallas.py:894", lin_launches[txb.BWD_KERNEL.name],
+              lin_bwd_err, lin_bwd_ms, lin_bwd_plain_ms, lin_bwd_bound, texbwd_lib_ms),
         entry("texture_grad", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
               "nvdiffrast_tpu/ops/lattice_scatter.py:179", ttrain_launches[txb.GRAD_KERNEL.name],
-              texgrad_err, texgrad_ms, texgrad_plain_ms, texgrad_bound, texgrad_lib_ms),
+              ent_err9, texgrad_ms, entries_plain_ms, texgrad_bound, None),
+        entry("texture_grad_compact", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
+              "nvdiffrast_tpu/ops/lattice_scatter.py:179",
+              ttrain_launches[txb.GRAD_COMPACT_KERNEL.name], max(compact_err9, over_err9),
+              st9["pass 2 (compact, tiles over the cap)"], entries_plain_ms, compact_bound,
+              None),
+        entry("texture_grad_segments", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              "nvdiffrast_tpu/ops/lattice_scatter.py:179",
+              ttrain_launches[txb.GRAD_SEGMENT_KERNEL.name], seg_err9, st9["segment starts"],
+              texgrad_plain_ms, segments_bound, None),
+        entry("texture_grad_sum", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
+              "nvdiffrast_tpu/ops/lattice_scatter.py:179",
+              ttrain_launches[txb.GRAD_SUM_KERNEL.name], texgrad_err, st9["sums"],
+              texgrad_plain_ms, sums_bound, None),
+        entry("texture_grad_linear_clamp", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
+              "nvdiffrast_tpu/ops/lattice_scatter.py:179", lin_launches[txb.GRAD_KERNEL.name],
+              lin_grad_err, lin_grad_ms, lin_grad_plain_ms, lin_grad_bound, texgrad_lib_ms),
         entry("interp_raster_bwd_tex", "cuda",
               "nvdiffrast_tpu_torch/csrc/interp_raster_bwd_tex.cu",
               "nvdiffrast_tpu/ops/pipeline_tex_pallas.py:113", ttrain_launches[ptb.KERNEL.name],

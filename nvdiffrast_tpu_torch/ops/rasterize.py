@@ -15,6 +15,8 @@ too), reduces the rows to triangles (kernel B10,
 mode into the one shared ``[V, 4]``, over all images).
 """
 
+import weakref
+
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
@@ -96,13 +98,41 @@ def _check_rasterize_args(pos, tri, resolution, ranges=None):
         raise ValueError(
             "rasterize: range mode requires ranges [minibatch, 2]; "
             f"got {None if ranges is None else tuple(ranges.shape)}")
-    if tri.numel():
-        tmin, tmax = (int(x) for x in torch.aminmax(tri))
-        v = pos.shape[-2]
-        if tmin < 0 or tmax >= v:
-            raise ValueError(
-                f"rasterize: triangle indices out of range [0, {v}): "
-                f"min {tmin}, max {tmax}")
+    _check_indices(tri, pos.shape[-2])
+
+
+# Device tri tensors whose indices were found in range: id -> (weak
+# reference, version counter, storage address, V). The check reads tri's
+# range back to the host (a sync); a tensor that is still the same object
+# on the same storage, unmodified since (torch's in-place writes bump
+# _version), against the same V, needs no new one.
+_CHECKED_TRI = {}
+
+
+def _check_indices(tri, v):
+    """Raise ValueError unless every index of tri lies in [0, v).
+
+    A device tensor is checked once and then trusted while it keeps its
+    version and storage: indices written into it by other means than
+    torch ops (a foreign kernel, DLPack, ctypes) are not seen, and must
+    not be written while it is in use. The setup kernel still makes a
+    triangle with an index outside [0, V) invalid, but the torch gathers
+    of the tables and the backward index pos with tri unchecked."""
+    if not tri.numel():
+        return
+    seen = _CHECKED_TRI.get(id(tri))
+    if (tri.device.type != "cpu" and seen is not None and seen[0]() is tri
+            and seen[1:] == (tri._version, tri.data_ptr(), v)):
+        return
+    tmin, tmax = (int(x) for x in torch.aminmax(tri))
+    if tmin < 0 or tmax >= v:
+        raise ValueError(
+            f"rasterize: triangle indices out of range [0, {v}): "
+            f"min {tmin}, max {tmax}")
+    if tri.device.type != "cpu":
+        if len(_CHECKED_TRI) >= 64:
+            _CHECKED_TRI.clear()
+        _CHECKED_TRI[id(tri)] = (weakref.ref(tri), tri._version, tri.data_ptr(), v)
 
 
 def as_device_tensor(x, what):
@@ -359,7 +389,9 @@ def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True, viewport=N
             its device (CPU tensors on the plain twins); anything else is
             put on the default CUDA device, and raises RuntimeError where
             there is none.
-        tri: [T, 3] int32 triangles.
+        tri: [T, 3] int32 triangles. On a GPU its index range is checked
+            once per tensor (a host sync) and trusted while torch sees no
+            write to it; do not write it by other means than torch ops.
         resolution: (height, width).
         ranges: range mode only: [minibatch, 2] int32 (start, count) into
             `tri`. Ignored in instance mode.

@@ -1,22 +1,27 @@
-"""Rasterizer: plain-tensor prepass, per-tile binning and one CUDA kernel
-family (torch).
+"""Rasterizer: record setup, per-tile binning and one sweep kernel family
+(torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
 
-* **Prepass** (plain tensor code, as the JAX package's XLA prepass):
-  per triangle one 16-float record (3 winding-normalized affine edge
-  functions, the z and w planes, id+1 or 1e30 when invalid) and a
-  screen AABB that includes the coverage slop. Same formulas, same
-  operation order; the edge rows come from the correctly-rounded
-  ``_dop`` and match the JAX records bit for bit. Instance mode builds
-  one record set per image, range mode (2-D pos) one set that every
-  image reads; under a viewport the AABB rows are band-local.
+* **Record setup** ``csrc/raster_setup.cu`` (``setup_records``): per
+  triangle one 16-float record (3 winding-normalized affine edge
+  functions, the z and w planes, id+1 or 1e30 when invalid) and a screen
+  AABB that includes the coverage slop, as the JAX package's XLA prepass
+  computes them inside ``rasterize_fused``; also the tiles each AABB
+  meets (for binning) and the union box of each 256-record chunk (for
+  the unbinned sweep). ``build_records`` is its plain twin (same
+  formulas, same float32 operation order, edge rows from the
+  correctly-rounded ``_dop``; bit for bit the kernel's, and the edge rows
+  bit for bit the JAX records). Instance mode builds one record set per
+  image, range mode (2-D pos) one set that every image reads; under a
+  viewport the AABB rows are band-local.
 * **Binning** ``csrc/raster_bin.cu`` (``bin_records``): per-tile lists of
   the records whose AABB meets the tile, ascending; the TPU's dense,
-  remap and CSR layouts are not carried over. Engaged when the
-  unbinned sweep's AABB tests (images x records x tiles) reach
-  ``BIN_MIN_WORK``.
-* **Kernel** ``csrc/rasterize.cu`` (``rasterize_records``): coverage with
+  remap and CSR layouts are not carried over. A scan of the setup's
+  counts, one host sync for the total, the emit kernel, a stable sort of
+  the entries' segments and the segment-starts kernel. Engaged when the unbinned sweep's
+  AABB tests (images x records x tiles) reach ``BIN_MIN_WORK``.
+* **Sweep** ``csrc/rasterize.cu`` (``rasterize_records``): coverage with
   the exclusive tie rule and near-clip cut, the lexicographic (z/w, id)
   minimum with the lowest id winning ties, and the final shading to
   (u, v, z/w, id); with ``emit_db`` also the four bary pixel
@@ -24,9 +29,15 @@ Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
   gradients; range windows, the peel cull on the rounded depth, the
   zbuf output and viewport rows as arguments. ``rasterize_records_plain``
   is its plain PyTorch twin with the same arithmetic in the same merge
-  order (ascending id per pixel, candidates per 16x16 tile by AABB or
-  from the tile's list), so the two agree bit for bit; ``bin_records_plain``
-  builds the same lists as the binning kernels.
+  order (ascending id per pixel; candidates per 8x4 pixel block of a
+  warp whose AABB test they pass, from the tile's records or its list),
+  so the two agree bit for bit; ``bin_records_plain`` builds the same
+  lists as the binning kernels.
+
+Host syncs of a forward (``rasterize_fused``): the binned path reads the
+list total back once; the triangle-index check reads tri's range once
+per tri tensor (``rasterize._check_indices``), so repeated calls with
+the same tri add none, and the unbinned path then has no sync.
 """
 
 import ctypes
@@ -47,12 +58,21 @@ _CLIP_EPS = 1e-9
 RASTER_TILE = 16
 
 # The binned sweep is taken when images x records x tiles (the unbinned
-# sweep's AABB tests) reach this; below it the unbinned sweep needs no
-# binning glue and no host sync. On the H100 (chip_smoke.py phase 16,
-# PERF.md) the unbinned sweep wins at the bench scene's 65 M tests
-# (0.30 ms against 0.36-0.54 ms binned with its glue) and the binned one
-# at 130 M (0.35-0.49 ms against 0.59-0.60 ms); 2**26 lies between.
-BIN_MIN_WORK = 1 << 26
+# sweep's per-tile AABB tests, before the chunk boxes skip most) reach
+# this; below it the unbinned sweep needs no binning glue and no host
+# sync. On the H100 (chip_smoke.py phase 16, four calls; PERF.md) the
+# unbinned sweep wins at the bench scene's 65 M tests (0.12-0.13 ms
+# against 0.23-0.32 ms binned with its glue), at 130 M (bench, B = 2:
+# 0.25-0.26 against 0.31-0.52 ms) and at 520 M (peel scene: 0.45-0.49
+# against 0.44-0.62 ms, behind in one call of four); the binned one wins
+# at 1 M triangles (17 G: 1.4 + 0.2 ms against 2.3 ms). Range mode's
+# eight images over 15,872 records (2.1 G) stay binned. 2**30 lies
+# between. At the peel scene a peeled layer through rasterize_fused
+# (setup, glue, the peel sweep; phase 16, in turns, two calls) is no
+# faster binned: CUDA events 0.520-0.527 ms unbinned against 0.497-0.618
+# binned, host clock 0.516-0.520 against 0.539-0.617, so DepthPeeler's
+# layers there stay unbinned and sync-free.
+BIN_MIN_WORK = 1 << 30
 
 # Fragments the plain twin evaluates at once (~150 bytes each).
 _TWIN_FRAGMENTS = 1 << 22
@@ -64,11 +84,11 @@ _SLOP_ABS_FLOOR = 3.0 * 2.0 ** -126
 _SLOP_MARGIN = 1.25
 
 # One kernel family behind one entry point (csrc/rasterize.cu
-# nvdr_rasterize: rec, aabb, tile_start, tile_list, ranges, peel, 9
-# outputs; B, T, sets, H, W, y0; xs, xo, ys, yo), with one launch count
-# per mode. A launch counts under the first of: peel, range mode,
-# viewport band (each binned or not), binned, db, plain.
-_RASTER_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+# nvdr_rasterize: rec, aabb, boxes, tile_start, tile_list, tile_order,
+# ranges, peel, 9 outputs; B, T, sets, H, W, y0; xs, xo, ys, yo), with one
+# launch count per mode. A launch counts under the first of: peel, range
+# mode, viewport band (each binned or not), binned, db, plain.
+_RASTER_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
 
 
 def _raster_mode(name):
@@ -81,15 +101,33 @@ BINNED_KERNEL = _raster_mode("nvdr_rasterize_binned")
 PEEL_KERNEL = _raster_mode("nvdr_rasterize_peel")    # with a peel buffer
 RANGE_KERNEL = _raster_mode("nvdr_rasterize_range")  # range mode
 BAND_KERNEL = _raster_mode("nvdr_rasterize_band")    # viewport band
+# Record setup (csrc/raster_setup.cu).
+SETUP_KERNEL = _build.Kernel(
+    "nvdr_raster_setup", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
 # Binning (csrc/raster_bin.cu).
-BIN_COUNT_KERNEL = _build.Kernel(
-    "nvdr_bin_count", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
 BIN_EMIT_KERNEL = _build.Kernel(
-    "nvdr_bin_emit", [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
-    + [ctypes.c_void_p])
+    "nvdr_bin_emit", [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p] * 2)
+SEGMENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int] + [ctypes.c_void_p] * 4
+BIN_SEGMENT_KERNEL = _build.Kernel("nvdr_bin_segments", SEGMENT_ARGS,
+                                   symbol="nvdr_segment_starts")
 
-_KEY_BITS = 24  # record index bits of a binning key (T < 2^24)
+# The binned sweep launches the tiles longest list first (one sort of the
+# tile list lengths) when the lists hold at least this many entries, so
+# that the few long lists of a big mesh (5,730 entries at a pole tile of
+# the 1 M-triangle sphere against a median of 85) start in the first wave.
+ORDER_MIN_ENTRIES = 1 << 20
+
+# Records a chunk box covers (csrc/raster_setup.cu CHUNK, rasterize.cu NT).
+CHUNK = 256
+# Pixel block of one warp of the sweep (csrc/rasterize.cu WX, WY): a
+# candidate is evaluated on a block only when its AABB meets the block.
+# (RASTER_TILE, RASTER_TILE) is the rule of a sweep without that test,
+# which gives the same bits because the AABBs are conservative.
+CULL = (8, 4)
+
+_KEY_BITS = 24  # record index bits of a plain binning key (T < 2^24)
 # List entries of one binning; the lists are indexed with int32.
 MAX_BIN_ENTRIES = 1 << 31
 
@@ -100,7 +138,7 @@ def _f32(x, like):
 
 
 # ---------------------------------------------------------------------------
-# Prepass (rasterize_pallas.py:177-411).
+# Record setup (rasterize_pallas.py:177-411) and its plain twin.
 # ---------------------------------------------------------------------------
 
 def _gather_tri_cols(pos, tri):
@@ -275,9 +313,10 @@ def _build_records_cm(pos, tri):
 
 
 def build_records(pos, tri, resolution, viewport=None):
-    """Kernel inputs: records [S, T, 16] and AABBs [S, T, 4], contiguous;
-    S = B for instance-mode pos [B, V, 4], S = 1 for range-mode pos
-    [V, 4]. viewport = (y0, full_height): band-local AABB rows."""
+    """Plain PyTorch twin of the record setup kernel, and its CPU path:
+    records [S, T, 16] and AABBs [S, T, 4], contiguous; S = B for
+    instance-mode pos [B, V, 4], S = 1 for range-mode pos [V, 4].
+    viewport = (y0, full_height): band-local AABB rows."""
     H, W = resolution
     y0, Hf = (0, H) if viewport is None else (int(viewport[0]), int(viewport[1]))
     if pos.ndim == 2:
@@ -286,6 +325,66 @@ def build_records(pos, tri, resolution, viewport=None):
     aabb = _aabb_union_cols(sx, sy, sw, svalid, valid, slop, H, W, y0, Hf)
     rec = rec_cm.transpose(-1, -2).contiguous()
     return rec, torch.stack(aabb, dim=-1).contiguous()
+
+
+def tile_counts_plain(aabb, resolution):
+    """Tiles [S * T] int32 that each AABB meets by the sweep's tile test
+    (the setup kernel's counts)."""
+    S, T, _ = aabb.shape
+    ntx, nty = _tile_grid(resolution)
+    box = aabb.reshape(S * T, 4)
+    x0, x1 = _tile_span(box[:, 0], box[:, 2], ntx)
+    y0, y1 = _tile_span(box[:, 1], box[:, 3], nty)
+    return ((x1 - x0 + 1) * (y1 - y0 + 1)).to(torch.int32)
+
+
+def chunk_boxes_plain(aabb):
+    """Union AABB [S, ceil(T / CHUNK), 4] of each chunk of CHUNK records
+    (the setup kernel's boxes; min / max are exact in any order)."""
+    S, T, _ = aabb.shape
+    n = -(-T // CHUNK)
+    pad = aabb.new_tensor([_BIG, _BIG, -_BIG, -_BIG]).expand(S, n * CHUNK - T, 4)
+    box = torch.cat([aabb, pad], dim=1).reshape(S, n, CHUNK, 4)
+    return torch.cat([box[..., :2].amin(2), box[..., 2:].amax(2)], dim=-1).contiguous()
+
+
+def setup_records(pos, tri, resolution, viewport=None):
+    """Record setup: (rec [S, T, 16], aabb [S, T, 4] float32, counts
+    [S * T] int32, boxes [S, ceil(T / CHUNK), 4] float32), arguments as
+    ``build_records``; counts and boxes feed the binning and the
+    unbinned sweep.
+
+    CPU tensors run the plain twins; CUDA tensors launch the setup kernel
+    (csrc/raster_setup.cu) or raise. Triangle indices must lie in
+    [0, V) (``rasterize._check_indices``); the kernel makes any other
+    triangle invalid rather than read outside pos.
+    """
+    if pos.device.type == "cpu":
+        rec, aabb = build_records(pos, tri, resolution, viewport)
+        return rec, aabb, tile_counts_plain(aabb, resolution), chunk_boxes_plain(aabb)
+    if pos.device.type != "cuda":
+        raise ValueError(f"setup_records: unsupported device {pos.device}")
+    H, W = resolution
+    y0, Hf = (0, H) if viewport is None else (int(viewport[0]), int(viewport[1]))
+    p3 = pos[None] if pos.ndim == 2 else pos
+    if (pos.dtype != torch.float32 or tri.dtype != torch.int32 or tri.device != pos.device
+            or tri.ndim != 2 or tri.shape[1] != 3 or p3.ndim != 3 or p3.shape[-1] != 4):
+        raise ValueError("setup_records: expects float32 pos [B, V, 4] or [V, 4] and int32 "
+                         "tri [T, 3] on one device")
+    p3 = p3.contiguous()
+    tri = tri.contiguous()
+    S, V, _ = p3.shape
+    T = tri.shape[0]
+    dev = pos.device
+    rec = torch.empty((S, T, 16), dtype=torch.float32, device=dev)
+    aabb = torch.empty((S, T, 4), dtype=torch.float32, device=dev)
+    counts = torch.empty((S * T,), dtype=torch.int32, device=dev)
+    boxes = torch.empty((S, -(-T // CHUNK), 4), dtype=torch.float32, device=dev)
+    if T:
+        SETUP_KERNEL.launch(dev, _build.ptr(p3), _build.ptr(tri), _build.ptr(rec),
+                            _build.ptr(aabb), _build.ptr(counts), _build.ptr(boxes),
+                            S, V, T, H, W, y0, Hf)
+    return rec, aabb, counts, boxes
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +396,14 @@ def _tile_grid(resolution):
     return -(-W // RASTER_TILE), -(-H // RASTER_TILE)
 
 
-def _tile_span(lo, hi, n_tiles):
-    """Tiles [first, last] whose pixel range [16t, 16t+15] meets [lo, hi]
-    (the kernel's per-tile AABB test, exact in f64)."""
+def _tile_span(lo, hi, n_tiles, size=RASTER_TILE):
+    """Blocks [first, last] of `size` pixels whose pixel range
+    [size*t, size*t + size - 1] meets [lo, hi] (the kernel's per-tile and
+    per-warp AABB tests, exact in f64)."""
     lo = lo.to(torch.float64)
     hi = hi.to(torch.float64)
-    first = torch.ceil((lo - (RASTER_TILE - 1)) / RASTER_TILE).clamp(0, n_tiles)
-    last = torch.floor(hi / RASTER_TILE).clamp(-1, n_tiles - 1)
+    first = torch.ceil((lo - (size - 1)) / size).clamp(0, n_tiles)
+    last = torch.floor(hi / size).clamp(-1, n_tiles - 1)
     empty = ~(first <= last)  # also catches NaN bounds
     first = torch.where(empty, 0.0, first).long()
     last = torch.where(empty, -1.0, last).long()
@@ -317,23 +417,27 @@ def _check_entries(total):
 
 
 def _segments(keys, n_seg):
-    """Sorted keys -> (tile_start [n_seg + 1] int32, tile_list [E] int32)."""
+    """Sorted plain keys -> (tile_start [n_seg + 1] int32, tile_list [E] int32)."""
     seg = keys >> _KEY_BITS
     bounds = torch.arange(n_seg + 1, dtype=torch.int64, device=keys.device)
     tile_start = torch.searchsorted(seg, bounds).to(torch.int32)
     return tile_start, (keys & ((1 << _KEY_BITS) - 1)).to(torch.int32)
 
 
-def bin_records(aabb, resolution):
+def bin_records(aabb, resolution, counts):
     """Per-tile record lists of AABBs [S, T, 4]: (tile_start [S*tiles + 1],
     tile_list [E]) int32. Segment set*tiles + ty*ntx + tx of 16x16 tiles
     holds, ascending, the indices (within the set) of the records whose
-    AABB meets the tile by the kernel's test.
+    AABB meets the tile by the kernel's test. counts: the setup's tile
+    counts [S * T] int32 (``setup_records``).
 
-    CPU tensors run the plain twin; CUDA tensors launch the count and
-    emit kernels (csrc/raster_bin.cu) with a scan, a sort of the unique
-    keys and a searchsorted as tensor glue. The total entry count is read
-    back to the host once (one sync) to allocate the keys.
+    CPU tensors run the plain twin, which counts the tiles itself; CUDA
+    tensors scan the counts, read the total back to the host once (the one
+    host sync) to allocate the entries, launch the emit kernel
+    (csrc/raster_bin.cu: each entry's segment and record, record-major),
+    sort the segments stably (index glue; int16 when they fit) and launch
+    the segment-starts kernel, which gathers the records through the
+    sort's permutation.
     """
     if aabb.device.type == "cpu":
         return bin_records_plain(aabb, resolution)
@@ -342,21 +446,31 @@ def bin_records(aabb, resolution):
     S, T, _ = aabb.shape
     if T >= (1 << _KEY_BITS) or aabb.dtype != torch.float32:
         raise ValueError("bin_records: expects float32 AABBs of < 2**24 records a set")
+    n = S * T
+    if (not isinstance(counts, torch.Tensor) or counts.shape != (n,)
+            or counts.dtype != torch.int32 or counts.device != aabb.device):
+        raise ValueError("bin_records: counts must be the setup's int32 [S * T] tile counts "
+                         "on the AABBs' device")
     ntx, nty = _tile_grid(resolution)
     aabb = aabb.contiguous()
     dev = aabb.device
-    n = S * T
-    counts = torch.empty((n,), dtype=torch.int32, device=dev)
-    BIN_COUNT_KERNEL.launch(dev, _build.ptr(aabb), n, ntx, nty, _build.ptr(counts))
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    offsets = ends - counts
     total = int(ends[-1]) if n else 0  # the one host sync
     _check_entries(total)
-    keys = torch.empty((total,), dtype=torch.int64, device=dev)
+    n_seg = S * ntx * nty
+    seg_type = torch.int16 if n_seg <= 2 ** 15 else torch.int32
+    seg = torch.empty((total,), dtype=seg_type, device=dev)
+    rec_at = torch.empty((total,), dtype=torch.int32, device=dev)
     if total:
-        BIN_EMIT_KERNEL.launch(dev, _build.ptr(aabb), _build.ptr(offsets), n, T, ntx, nty,
-                               _build.ptr(keys))
-    return _segments(torch.sort(keys).values, S * ntx * nty)
+        BIN_EMIT_KERNEL.launch(dev, _build.ptr(aabb), _build.ptr(ends - counts), n, T, ntx,
+                               nty, seg.element_size(), _build.ptr(seg), _build.ptr(rec_at))
+    seg, perm = torch.sort(seg, stable=True)
+    tile_start = torch.empty((n_seg + 1,), dtype=torch.int32, device=dev)
+    tile_list = torch.empty((total,), dtype=torch.int32, device=dev)
+    BIN_SEGMENT_KERNEL.launch(dev, _build.ptr(seg), total, 0, n_seg, seg.element_size(),
+                              _build.ptr(perm), _build.ptr(rec_at), _build.ptr(tile_start),
+                              _build.ptr(tile_list))
+    return tile_start, tile_list
 
 
 def bin_records_plain(aabb, resolution):
@@ -413,34 +527,39 @@ def _modes(rec, aabb, resolution, ranges, peel, viewport):
     return B, S, y0, Hf, ranges
 
 
-def rasterize_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=None,
+def rasterize_records(setup, resolution, emit_db=False, *, ranges=None, peel=None,
                       viewport=None, emit_zbuf=False):
     """Rasterize prepass records: (u, v, zw, idf), each [B, H, W] f32,
     followed by (dudx, dudy, dvdx, dvdy) when `emit_db` and by zbuf
     (pz/pw, +inf where empty) when `emit_zbuf`.
 
-    rec [S, T, 16], aabb [S, T, 4] from ``build_records``; ranges [B, 2]
-    int32 (range mode, S = 1); peel [B, H, W] the previous layer's zbuf;
-    viewport (y0, full_height) of the records' prepass. The sweep walks
-    the per-tile lists of ``bin_records`` when ``binned_by_default``.
+    setup: the tuple (rec [S, T, 16], aabb [S, T, 4], counts, boxes) of
+    ``setup_records``; ranges [B, 2] int32 (range mode, S = 1); peel
+    [B, H, W] the previous layer's zbuf; viewport (y0, full_height) of the
+    records' setup. The sweep walks the per-tile lists of ``bin_records``
+    when ``binned_by_default``, else the chunk boxes.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel
     (built at first use) or raise.
     """
+    rec, aabb, counts, boxes = setup
     B = _modes(rec, aabb, resolution, ranges, peel, viewport)[0]
     bins = None
     if binned_by_default(B, rec.shape[1], resolution):
-        bins = bin_records(aabb, resolution)
-    run = rasterize_records_plain if rec.device.type == "cpu" else launch_records
-    return run(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel, viewport=viewport,
-               emit_zbuf=emit_zbuf, bins=bins)
+        bins = bin_records(aabb, resolution, counts)
+    if rec.device.type == "cpu":
+        return rasterize_records_plain(rec, aabb, resolution, emit_db, ranges=ranges,
+                                       peel=peel, viewport=viewport, emit_zbuf=emit_zbuf,
+                                       bins=bins)
+    return launch_records(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel,
+                          viewport=viewport, emit_zbuf=emit_zbuf, bins=bins, boxes=boxes)
 
 
 def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=None,
-                   viewport=None, emit_zbuf=False, bins=None):
+                   viewport=None, emit_zbuf=False, bins=None, boxes=None):
     """The kernel launch of ``rasterize_records`` on CUDA tensors: the
-    unbinned sweep, or the binned one over the lists `bins` of
-    ``bin_records(aabb, resolution)``."""
+    binned sweep over the lists `bins` of ``bin_records``, or else the
+    unbinned one over the chunk boxes `boxes` of ``setup_records``."""
     B, S, y0, Hf, ranges = _modes(rec, aabb, resolution, ranges, peel, viewport)
     if rec.device.type != "cuda":
         raise ValueError(f"rasterize_records: unsupported device {rec.device}")
@@ -456,11 +575,20 @@ def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=No
     ptrs = [_build.ptr(o) for o in outs[:4]]
     ptrs += [_build.ptr(o) for o in outs[4:8]] if emit_db else [None] * 4
     ptrs.append(_build.ptr(outs[-1]) if emit_zbuf else None)
-    start = lst = None
+    start = lst = order = None
     if bins is not None:
         start, lst = bins
+        if lst.numel() >= ORDER_MIN_ENTRIES and S == B:
+            order = torch.argsort(start[1:] - start[:-1], descending=True).to(torch.int32)
         if lst.numel() == 0:  # no record meets a tile; the kernel reads none
             lst = torch.zeros((1,), dtype=torch.int32, device=dev)
+    elif boxes is None:
+        raise ValueError("rasterize_records: the unbinned sweep needs the setup's chunk boxes")
+    if boxes is not None:
+        boxes = boxes.contiguous()
+        if boxes.shape != (S, -(-T // CHUNK), 4) or boxes.data_ptr() % 16:
+            raise ValueError("rasterize_records: boxes must be [S, ceil(T / 256), 4], "
+                             "16-byte aligned")
     if peel is not None:
         kernel = PEEL_KERNEL
     elif ranges is not None:
@@ -476,7 +604,8 @@ def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=No
     if ranges is not None:
         ranges = ranges.contiguous()
     xs, xo, ys, yo = coord.pixel_scale_offset(Hf, W)
-    opt = [None if t is None else _build.ptr(t) for t in (start, lst, ranges, peel)]
+    opt = [None if t is None else _build.ptr(t)
+           for t in (boxes, start, lst, order, ranges, peel)]
     kernel.launch(dev, _build.ptr(rec), _build.ptr(aabb), *opt, *ptrs,
                   B, T, S, H, W, y0, xs, xo, ys, yo)
     return tuple(outs)
@@ -559,30 +688,40 @@ def _merge_fragments(state, s, img, x0, y0, nx, cnt, resolution, fy0, scale, pee
 def _candidates(rec, aabb, resolution, B, ranges, bins):
     """The twin's candidate stream, in the kernel's order: (row into the
     flat [S*T] records, image, pixel rectangle x0, y0, nx, ny) per
-    candidate. Unbinned, each image's records with their AABB's tiles;
-    binned, each image's tile segments, one 16x16 tile per entry. Range
-    mode drops the records outside the image's id window."""
+    candidate. Unbinned, each image's records with the CULL blocks
+    (the warps' pixel blocks) their AABB meets; binned, each image's tile
+    segments, one entry per tile with the CULL blocks of that tile the
+    record's AABB meets. Range mode drops the records outside the image's
+    id window."""
     H, W = resolution
     S, T, _ = rec.shape
     dev = rec.device
     ntx, nty = _tile_grid(resolution)
+    bw, bh = CULL
+    nbx, nby = -(-W // bw), -(-H // bh)
+    box = aabb.reshape(S * T, 4)
     if bins is None:
-        box = aabb.reshape(S * T, 4)
-        tx0, tx1 = _tile_span(box[:, 0], box[:, 2], ntx)
-        ty0, ty1 = _tile_span(box[:, 1], box[:, 3], nty)
         rows = torch.arange(S * T, device=dev)
     else:
         tile_start, tile_list = bins
         seg = torch.repeat_interleave(
             torch.arange(S * ntx * nty, device=dev),
             (tile_start[1:] - tile_start[:-1]).long())
-        tx0 = tx1 = seg % ntx
-        ty0 = ty1 = (seg // ntx) % nty
         rows = (seg // (ntx * nty)) * T + tile_list.long()
-    x0 = tx0 * RASTER_TILE
-    y0 = ty0 * RASTER_TILE
-    nx = (torch.clamp((tx1 + 1) * RASTER_TILE, max=W) - x0).clamp(min=0)
-    ny = (torch.clamp((ty1 + 1) * RASTER_TILE, max=H) - y0).clamp(min=0)
+        box = box[rows]
+    bx0, bx1 = _tile_span(box[:, 0], box[:, 2], nbx, bw)
+    by0, by1 = _tile_span(box[:, 1], box[:, 3], nby, bh)
+    if bins is not None:
+        # The blocks of the entry's own tile.
+        tx, ty = seg % ntx, (seg // ntx) % nty
+        bx0 = torch.maximum(bx0, tx * (RASTER_TILE // bw))
+        bx1 = torch.minimum(bx1, (tx + 1) * (RASTER_TILE // bw) - 1)
+        by0 = torch.maximum(by0, ty * (RASTER_TILE // bh))
+        by1 = torch.minimum(by1, (ty + 1) * (RASTER_TILE // bh) - 1)
+    x0 = bx0 * bw
+    y0 = by0 * bh
+    nx = (torch.clamp((bx1 + 1) * bw, max=W) - x0).clamp(min=0)
+    ny = (torch.clamp((by1 + 1) * bh, max=H) - y0).clamp(min=0)
     if ranges is None:
         img = rows // T
         return rows, img, x0, y0, nx, ny
@@ -602,12 +741,13 @@ def rasterize_records_plain(rec, aabb, resolution, emit_db=False, *, ranges=None
                             peel=None, viewport=None, emit_zbuf=False, bins=None):
     """Plain PyTorch twin of the rasterizer kernel (same arithmetic).
 
-    Fragments are enumerated per candidate over the pixels of its tiles
-    (the kernel's rejection: unbinned, the tiles its AABB meets; binned,
-    its tile of the lists `bins` from ``bin_records``), evaluated in
-    bulk, and merged per pixel in rounds: round r applies every pixel's
-    r-th surviving candidate in ascending id order, which is the
-    kernel's sequential merge order. Arguments as ``rasterize_records``.
+    Fragments are enumerated per candidate over the pixels of the warp
+    blocks (CULL) its AABB meets (the kernel's rejection: unbinned, of
+    every tile; binned, of its tile of the lists `bins` from
+    ``bin_records``), evaluated in bulk, and merged per pixel in rounds:
+    round r applies every pixel's r-th surviving candidate in ascending
+    id order, which is the kernel's sequential merge order. Arguments as
+    ``rasterize_records``.
     """
     H, W = resolution
     B, S, y0, Hf, ranges = _modes(rec, aabb, resolution, ranges, peel, viewport)
@@ -701,6 +841,6 @@ def rasterize_fused(pos, tri, resolution, ranges=None, peel_depth=None,
         ranges = None if ranges is None else torch.as_tensor(
             ranges, dtype=torch.int32, device=pos.device)
     _check_rasterize_args(pos, tri, resolution, ranges)
-    rec, aabb = build_records(pos, tri, resolution, viewport)
-    return rasterize_records(rec, aabb, resolution, emit_db, ranges=ranges,
-                             peel=peel_depth, viewport=viewport, emit_zbuf=emit_zbuf)
+    return rasterize_records(setup_records(pos, tri, resolution, viewport), resolution,
+                             emit_db, ranges=ranges, peel=peel_depth, viewport=viewport,
+                             emit_zbuf=emit_zbuf)

@@ -11,17 +11,22 @@ Counterparts of the 2-D texture backward of
   sums them; this kernel gathers the corners again instead, which reads
   less than the stash would move. ``texture_bwd_plain`` is its twin, bit
   for bit.
-* ``texture_grad`` (kernel ``csrc/texture_grad.cu``): the gradient of
+* ``texture_grad`` (kernels ``csrc/texture_grad.cu``): the gradient of
   the packed pyramid, every (pixel, slot, corner) tap's
   ``lw * vw * gc * uw`` summed into the texel its corner resolves to
   (wrap by modulo, clamp by clamping, zero by dropping). That is
   ``lattice_scatter.lattice_scatter_grad`` (the separable scatter on the
   apron pyramid and its border fold) for one texture, and the generic
-  scatter path for per-image textures. The taps are keyed by texel and
-  stable-sorted (index glue, ``grad_entries``); the kernel sums each
-  texel's taps in float64 in a fixed order and rounds once, with no
-  float atomics. ``texture_grad_plain`` expands the taps and sums them
-  with ``index_add_`` in float64; the two agree within 1 float32 ulp.
+  scatter path for per-image textures. The taps are pre-reduced per
+  16x16 screen tile (``grad_tile_entries``: one float64 partial sum per
+  lattice cell a tile's taps fall on, made and summed in shared memory),
+  the few hundred thousand entries are sorted by (texel, tile), and each
+  texel's entries
+  are summed in float64 in that order and rounded once, with no float
+  atomics and one host sync (the entry count).
+  ``tile_entries_plain`` is the plain twin of the entries;
+  ``texture_grad_plain`` expands the taps and sums them with
+  ``index_add_`` in float64; kernel and twin agree within 1 float32 ulp.
 
 CPU tensors run the twins; CUDA tensors launch the kernels or raise.
 """
@@ -32,6 +37,7 @@ import torch
 
 from .. import _build
 from .pipeline_bwd_cuda import _device_of
+from .rasterize_cuda import SEGMENT_ARGS
 from .texture_cuda import (BOUNDARY, FILTER, _check, level_corners,
                            level_tables, level_weights)
 
@@ -40,10 +46,20 @@ BWD_KERNEL = _build.Kernel(
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
 
 GRAD_KERNEL = _build.Kernel(
-    "nvdr_texture_grad",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10)
+    "nvdr_texture_grad_tiles", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8)
+# The second pass of the same entry: the scratch moved into place, and
+# the tiles of more than GRAD_CAP entries computed again.
+GRAD_COMPACT_KERNEL = _build.Kernel("nvdr_texture_grad_compact", GRAD_KERNEL.argtypes,
+                                    symbol="nvdr_texture_grad_tiles")
+GRAD_SEGMENT_KERNEL = _build.Kernel("nvdr_texture_grad_segments", SEGMENT_ARGS,
+                                    symbol="nvdr_segment_starts")
+GRAD_SUM_KERNEL = _build.Kernel(
+    "nvdr_texture_grad_sum",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 2)
 
-PIECE = 256  # taps per piece of a texel's segment (csrc/texture_grad.cu)
+GRAD_TILE = 16  # screen tile of the pre-reduction (csrc/texture_grad.cu TILE)
+GRAD_CAP = 64   # entries a tile keeps in the first pass's scratch (csrc/texture_grad.cu CAP)
 
 
 def _slots(flevel, L, filter_mode):
@@ -192,68 +208,105 @@ def lattice_taps(u, v, flevel, meta, shape, per_image, boundary_mode, filter_mod
     return taps
 
 
-def grad_entries(u, v, flevel, meta, n_texels, shape, per_image, boundary_mode,
-                 filter_mode):
-    """Index glue of the texture_grad kernel.
+def _tile_blocks(shape):
+    """(tiles in x, tiles in y, tiles in all) of the 16x16 screen tiles."""
+    B, H, W = shape
+    ntx, nty = -(-W // GRAD_TILE), -(-H // GRAD_TILE)
+    return ntx, nty, B * ntx * nty
 
-    Returns (codes [M] int32, off [n_texels+1] int32, first [n_texels+1]
-    int32, n_pieces): codes tap*N + p of the taps with a non-zero weight
-    factor, stable-sorted by texel, so each texel's taps are in code
-    order; texel t holds codes[off[t]:off[t+1]], split into pieces of
-    PIECE taps numbered first[t] .. first[t+1]-1. A tap whose factors
-    are 0 adds exactly 0 to a sum that starts at +0, so leaving it out
-    changes no bit.
-    """
-    N = u.shape[0]
-    keys = []
-    for texel, lwv, uw, ok in lattice_taps(u, v, flevel, meta, shape, per_image,
-                                           boundary_mode, filter_mode):
-        keep = ok & (lwv != 0.0) & (uw != 0.0)
-        keys.append(torch.where(keep, texel, n_texels).to(torch.int32))
-    keys = torch.cat(keys)
-    if keys.shape[0] >= 2 ** 31:
-        raise ValueError(f"texture_grad: {keys.shape[0]} taps exceed the int32 "
-                         "codes (8*N < 2**31)")
-    keys, order = torch.sort(keys, stable=True)
-    texels = torch.arange(n_texels + 1, dtype=torch.int32, device=u.device)
-    off = torch.searchsorted(keys, texels, out_int32=True)
-    codes = order[:int(off[-1])].to(torch.int32)
-    counts = (off[1:] - off[:-1] + (PIECE - 1)) // PIECE
-    first = torch.cat([off.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
-    return codes, off, first, int(first[-1])
+
+def grad_tile_entries(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
+                      filter_mode):
+    """The per-tile pre-reduction on CUDA tensors (csrc/texture_grad.cu
+    tiles, two passes): (texel [E] int32, partial [E, C] float64, counts
+    [tiles] int32), tile-major: tile (b * nty + ty) * ntx + tx of the
+    16x16 screen tiles holds counts[tile] entries, one per run of equal
+    sort keys in its sort (one unwrapped lattice cell). The first pass
+    keeps up to GRAD_CAP entries a tile in a scratch; the entry count is
+    read back to the host once (the one host sync) to allocate the rest."""
+    B, H, W = shape
+    C = gc.shape[0]
+    L = len(meta)
+    dev = gc.device
+    _, _, n_tiles = _tile_blocks(shape)
+    m = _meta_arg(meta)
+    modes = (B, H, W, C, L, int(bool(per_image)), BOUNDARY[boundary_mode],
+             FILTER[filter_mode])
+    ins = [_build.ptr(x) for x in (u, v, flevel, gc)] + [m]
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    texel_s = torch.empty((n_tiles * GRAD_CAP,), dtype=torch.int32, device=dev)
+    part_s = torch.empty((n_tiles * GRAD_CAP, C), dtype=torch.float64, device=dev)
+    GRAD_KERNEL.launch(dev, *ins, None, _build.ptr(counts), _build.ptr(texel_s),
+                       _build.ptr(part_s), None, None, *modes)
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(ends[-1])  # the one host sync
+    if total >= 2 ** 31:
+        raise ValueError(f"texture_grad: {total} entries; at most 2**31 - 1")
+    texel = torch.empty((total,), dtype=torch.int32, device=dev)
+    partial = torch.empty((total, C), dtype=torch.float64, device=dev)
+    if total:
+        GRAD_COMPACT_KERNEL.launch(dev, *ins, _build.ptr(ends - counts), _build.ptr(counts),
+                                   _build.ptr(texel_s), _build.ptr(part_s), _build.ptr(texel),
+                                   _build.ptr(partial), *modes)
+    return texel, partial, counts
 
 
 def texture_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
                  filter_mode):
     """Gradient of the packed pyramid [n_texels, C] float32 from the
-    colour cotangent gc [C, N] (u, v, flevel flat [N] as sampled)."""
+    colour cotangent gc [C, N] (u, v, flevel flat [N] as sampled).
+
+    CPU tensors run ``texture_grad_plain``; CUDA tensors launch the
+    pre-reduction (``grad_tile_entries``), sort the entries stably by
+    texel (index glue) and launch the segment-starts and sum kernels."""
     if _device_of(gc, "texture_grad") == "cpu":
         return texture_grad_plain(u, v, flevel, gc, meta, n_texels, shape, per_image,
                                   boundary_mode, filter_mode)
     u, v, flevel, gc = (t.contiguous() for t in (u, v, flevel, gc))
-    _check_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
-                filter_mode)
-    codes, off, first, n_pieces = grad_entries(u, v, flevel, meta, n_texels, shape,
-                                               per_image, boundary_mode, filter_mode)
-    return grad_from_entries(codes, off, first, n_pieces, u, v, flevel, gc, meta,
-                             shape, per_image, boundary_mode, filter_mode)
-
-
-def grad_from_entries(codes, off, first, n_pieces, u, v, flevel, gc, meta, shape,
-                      per_image, boundary_mode, filter_mode):
-    """Launch the texture_grad kernel on entries from ``grad_entries``."""
-    B, H, W = shape
-    C, N = gc.shape
-    n_texels = off.shape[0] - 1
+    C = _check_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
+                    filter_mode)[0]
+    texel, partial, _ = grad_tile_entries(u, v, flevel, gc, meta, n_texels, shape, per_image,
+                                          boundary_mode, filter_mode)
     dev = gc.device
-    partial = torch.empty((max(n_pieces, 1), C), dtype=torch.float64, device=dev)
+    E = texel.shape[0]
+    stexel, perm = torch.sort(texel, stable=True)
+    starts = torch.empty((n_texels + 1,), dtype=torch.int32, device=dev)
+    GRAD_SEGMENT_KERNEL.launch(dev, _build.ptr(stexel), E, 0, n_texels, 4, None, None,
+                               _build.ptr(starts), None)
+    pp = torch.empty((max(E, 1), C), dtype=torch.float64, device=dev)
     out = torch.empty((n_texels, C), dtype=torch.float32, device=dev)
-    GRAD_KERNEL.launch(dev, _build.ptr(codes), _build.ptr(off), _build.ptr(first),
-                       _build.ptr(u), _build.ptr(v), _build.ptr(flevel), _build.ptr(gc),
-                       _meta_arg(meta), _build.ptr(partial), _build.ptr(out),
-                       n_texels, n_pieces, B, H, W, C, len(meta), int(bool(per_image)),
-                       BOUNDARY[boundary_mode], FILTER[filter_mode])
+    GRAD_SUM_KERNEL.launch(dev, _build.ptr(stexel), _build.ptr(perm), E, _build.ptr(starts),
+                           _build.ptr(partial), _build.ptr(pp), _build.ptr(out), n_texels, C)
     return out
+
+
+def tile_entries_plain(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
+                       filter_mode):
+    """Plain twin of the pre-reduced index structure: (texel [E], tile
+    [E] int64, partial [E, C] float64, taps [E] int64), one entry per
+    (texel, 16x16 screen tile) that a kept tap falls on, sorted by
+    (texel, tile): the float64 sum of those taps' values and their count.
+    The kernel's entries are per lattice cell, so a texel that two cells
+    of a tile resolve to (the wrap seam, a clamped border) has two there,
+    which add up to the twin's one; each is summed in another fixed
+    order, so the partials agree to float64 rounding."""
+    B, H, W = shape
+    N = B * H * W
+    ntx, nty, n_tiles = _tile_blocks(shape)
+    p = torch.arange(N, device=gc.device)
+    y, x = (p // W) % H, p % W
+    tile = ((p // (H * W)) * nty + y // GRAD_TILE) * ntx + x // GRAD_TILE
+    keys, vals = [], []
+    for texel, lwv, uw, ok in lattice_taps(u, v, flevel, meta, shape, per_image,
+                                           boundary_mode, filter_mode):
+        keep = ok & (lwv != 0.0) & (uw != 0.0)
+        keys.append((texel * n_tiles + tile)[keep])
+        vals.append(((lwv * gc) * uw).T[keep].double())
+    ukeys, inv = torch.unique(torch.cat(keys), return_inverse=True)
+    partial = torch.zeros((ukeys.shape[0], gc.shape[0]), dtype=torch.float64,
+                          device=gc.device).index_add_(0, inv, torch.cat(vals))
+    return (ukeys // n_tiles, ukeys % n_tiles, partial,
+            torch.bincount(inv, minlength=ukeys.shape[0]))
 
 
 def _check_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,

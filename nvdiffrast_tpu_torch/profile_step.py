@@ -104,8 +104,8 @@ def _training(pos, tri, cidx, col, res):
     T = tri.shape[0]
     N = H * W
     op = build_opposite_table(tri)
-    rec, aabb = rc.build_records(pos, tri, res)
-    u, v, zw, idf = (x.reshape(N) for x in rc.rasterize_records(rec, aabb, res))
+    setup = rc.setup_records(pos, tri, res)
+    u, v, zw, idf = (x.reshape(N) for x in rc.rasterize_records(setup, res))
     atbl = pl._attr_table(col, cidx, 1, T)
     ftable, vtbl, _, _ = _build_tables(pos, tri, op, H, W)
     cols = pc.shade_cols(atbl, ftable, u, v, zw, idf, res, T)
@@ -119,8 +119,8 @@ def _training(pos, tri, cidx, col, res):
     rows = torch.cat([gt[:, 9:].reshape(1, 3 * T, 3), gaa.reshape(1, 3 * T, 3)], 2)
     return step, [
         ("fwd: topology table", lambda: build_opposite_table(tri)),
-        ("fwd: raster prepass", lambda: rc.build_records(pos, tri, res)),
-        ("fwd: rasterize kernel", lambda: rc.rasterize_records(rec, aabb, res)),
+        ("fwd: raster setup kernel", lambda: rc.setup_records(pos, tri, res)),
+        ("fwd: rasterize kernel", lambda: rc.rasterize_records(setup, res)),
         ("fwd: attr + AA tables", lambda: (pl._attr_table(col, cidx, 1, T),
                                            _build_tables(pos, tri, op, H, W))),
         ("fwd: shade_fwd kernel", lambda: pc.shade_cols(atbl, ftable, u, v, zw, idf, res, T)),
@@ -151,8 +151,8 @@ def _ops(pos, tri, cidx, col, res):
     T = tri.shape[0]
     N = H * W
     op = build_opposite_table(tri)
-    rec, aabb = rc.build_records(pos, tri, res)
-    outs = rc.rasterize_records(rec, aabb, res, emit_db=True)
+    setup = rc.setup_records(pos, tri, res)
+    outs = rc.rasterize_records(setup, res, emit_db=True)
     u, v, zw, idf = (x.reshape(N) for x in outs[:4])
     atbl = pl._attr_table(col, cidx, 1, T)
     ct, _ = ic.interp_forward(atbl, u, v, idf, None, ())
@@ -173,9 +173,8 @@ def _ops(pos, tri, cidx, col, res):
 
     return step, [
         ("fwd: topology table", lambda: build_opposite_table(tri)),
-        ("fwd: raster prepass", lambda: rc.build_records(pos, tri, res)),
-        ("fwd: rasterize kernel (db)", lambda: rc.rasterize_records(rec, aabb, res,
-                                                                    emit_db=True)),
+        ("fwd: raster setup kernel", lambda: rc.setup_records(pos, tri, res)),
+        ("fwd: rasterize kernel (db)", lambda: rc.rasterize_records(setup, res, emit_db=True)),
         ("fwd: rast, rast_db images", lambda: (torch.stack(outs[:4], -1),
                                                torch.stack(outs[4:], -1))),
         ("fwd: attr table", lambda: pl._attr_table(col, cidx, 1, T)),
@@ -223,9 +222,9 @@ def _textured(pos, tri, cidx, vtxp, res):
     T = tri.shape[0]
     N = H * W
     op = build_opposite_table(tri)
-    rec, aabb = rc.build_records(pos, tri, res)
+    setup = rc.setup_records(pos, tri, res)
     u, v, zw, idf, *db = (x.reshape(N) for x in
-                          rc.rasterize_records(rec, aabb, res, emit_db=True))
+                          rc.rasterize_records(setup, res, emit_db=True))
     levels = [tex] + tx.build_mip_stack(tex)
     meta, _ = tx._static_meta(levels)
     flat = tx._pack_pyramid(levels)
@@ -248,10 +247,8 @@ def _textured(pos, tri, cidx, vtxp, res):
     gc, dd2, rid2 = ptb.aa_bwd_slim(dy, color, idf, res4, shape, T)
     bwd_args = (flat, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])
     gu, gv, gfl = tb.texture_bwd(*bwd_args)
-    entries = tb.grad_entries(uvc[0], uvc[1], fl, meta, flat.shape[0], shape, False,
-                              *mode[::-1])
-    g_flat = tb.grad_from_entries(*entries, uvc[0], uvc[1], fl, gc, meta, shape, False,
-                                  *mode[::-1])
+    grad_args = (uvc[0], uvc[1], fl, gc, meta, flat.shape[0], shape, False, *mode[::-1])
+    g_flat = tb.texture_grad(*grad_args)
     gda4 = tx.level_vjp(da, gfl, 512, 512, len(levels))[0]
     atbl = pl._attr_table(uv, cidx, 1, T)
     db4 = torch.stack(db)
@@ -263,8 +260,8 @@ def _textured(pos, tri, cidx, vtxp, res):
 
     return step, [
         ("topology table", lambda: build_opposite_table(tri)),
-        ("raster prepass", lambda: rc.build_records(pos, tri, res)),
-        ("rasterize kernel (db)", lambda: rc.rasterize_records(rec, aabb, res, emit_db=True)),
+        ("raster setup kernel", lambda: rc.setup_records(pos, tri, res)),
+        ("rasterize kernel (db)", lambda: rc.rasterize_records(setup, res, emit_db=True)),
         ("mip pyramid + packing", pyramid),
         ("uv table", lambda: pl._attr_table(uv, cidx, 1, T)),
         ("interp_fwd kernel", lambda: ic.interp_forward(utbl, u, v, idf, tuple(db), (0, 1))),
@@ -276,10 +273,9 @@ def _textured(pos, tri, cidx, vtxp, res):
         ("neighbour adds + NHWC", lambda: pc.finish_shade(cols, W)[0].T.reshape(1, H, W, 3)),
         ("bwd: slim AA (glue)", lambda: ptb.aa_bwd_slim(dy, color, idf, res4, shape, T)),
         ("bwd: texture_bwd kernel", lambda: tb.texture_bwd(*bwd_args)),
-        ("bwd: texture_grad index glue (keys, sort)", lambda: tb.grad_entries(
-            uvc[0], uvc[1], fl, meta, flat.shape[0], shape, False, *mode[::-1])),
-        ("bwd: texture_grad kernel", lambda: tb.grad_from_entries(
-            *entries, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])),
+        ("bwd: texture_grad per-tile entries (2 passes, 1 sync)",
+         lambda: tb.grad_tile_entries(*grad_args)),
+        ("bwd: texture_grad in all", lambda: tb.texture_grad(*grad_args)),
         ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 1, 3)),
         ("bwd: mip-level vjp", lambda: tx.level_vjp(da, gfl, 512, 512, len(levels))[0]),
         ("bwd: interp_raster_bwd_tex kernel",

@@ -31,7 +31,9 @@ KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL
            texture_cube_cuda.FWD_KERNEL, texture_cube_cuda.BWD_KERNEL,
            rasterize_cuda.BINNED_KERNEL, rasterize_cuda.PEEL_KERNEL,
            rasterize_cuda.RANGE_KERNEL, rasterize_cuda.BAND_KERNEL,
-           rasterize_cuda.BIN_COUNT_KERNEL, rasterize_cuda.BIN_EMIT_KERNEL]
+           rasterize_cuda.SETUP_KERNEL, rasterize_cuda.BIN_EMIT_KERNEL,
+           rasterize_cuda.BIN_SEGMENT_KERNEL, texture_bwd_cuda.GRAD_COMPACT_KERNEL,
+           texture_bwd_cuda.GRAD_SEGMENT_KERNEL, texture_bwd_cuda.GRAD_SUM_KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -81,7 +83,7 @@ def test_cuda_sources_exist():
             "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu",
             "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu",
             "interpolate_bwd.cu", "aa_bwd.cu", "table_take.cu", "scatter_rows.cu",
-            "texture_cube.cu", "raster_bin.cu"} <= names
+            "texture_cube.cu", "raster_bin.cu", "raster_setup.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
         assert f'extern "C" int {kernel.symbol}(' in text

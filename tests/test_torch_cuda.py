@@ -46,9 +46,10 @@ SCENES = [
 def test_rasterize_kernel_matches_twin(dev, name, make):
     pos, tri, res = make()
     p, t = inputs_from_numpy(pos, tri, device=dev)
-    rec, aabb = rc.build_records(p, t, res)
+    setup = rc.setup_records(p, t, res)
+    rec, aabb = setup[:2]
     before = rc.KERNEL.launches
-    got = rc.rasterize_records(rec, aabb, res)
+    got = rc.rasterize_records(setup, res)
     ref = rc.rasterize_records_plain(rec, aabb, res)
     torch.cuda.synchronize()
     assert rc.KERNEL.launches == before + 1
@@ -68,8 +69,9 @@ def test_rasterize_kernel_matches_twin(dev, name, make):
 def test_rasterize_kernel_random_stress(dev, seed, B, T, res):
     pos, tri = random_scene(seed, B=B, V=300, T=T)
     p, t = inputs_from_numpy(pos, tri, device=dev)
-    rec, aabb = rc.build_records(p, t, res)
-    got = rc.rasterize_records(rec, aabb, res)
+    setup = rc.setup_records(p, t, res)
+    rec, aabb = setup[:2]
+    got = rc.rasterize_records(setup, res)
     ref = rc.rasterize_records_plain(rec, aabb, res)
     assert int((got[3] > 0).sum()) > 100
     for a, b in zip(got, ref):
@@ -190,11 +192,12 @@ def test_render_pipeline_grads_gpu_repeatable_and_match_cpu(dev):
 def test_rasterize_db_kernel_matches_twin(dev, name, make):
     pos, tri, res = make()
     p, t = inputs_from_numpy(pos, tri, device=dev)
-    rec, aabb = rc.build_records(p, t, res)
+    setup = rc.setup_records(p, t, res)
+    rec, aabb = setup[:2]
     before = rc.DB_KERNEL.launches
-    got = rc.rasterize_records(rec, aabb, res, emit_db=True)
+    got = rc.rasterize_records(setup, res, emit_db=True)
     ref = rc.rasterize_records_plain(rec, aabb, res, emit_db=True)
-    plain = rc.rasterize_records(rec, aabb, res)
+    plain = rc.rasterize_records(setup, res)
     torch.cuda.synchronize()
     assert rc.DB_KERNEL.launches == before + 1
     assert len(got) == 8
@@ -359,10 +362,49 @@ def test_texture_grad_kernel_matches_twin(dev, D, boundary_mode, filter_mode, ho
     # float64 sums in two orders, each rounded once: within 1 ulp.
     ulp = torch.from_numpy(np.spacing(np.abs(ref.cpu().numpy()))).to(dev)
     assert bool(((got - ref).abs() <= ulp).all())
-    if hot:  # the hot texels' segments span many pieces
-        _, off, _, _ = tb.grad_entries(u, v, fl, meta, n_tex, shape, D > 1,
-                                       boundary_mode, filter_mode)
-        assert int((off[1:] - off[:-1]).max()) > 4 * tb.PIECE
+    if hot:  # whole tiles on uv = (0, 0): their hot texels collect an entry from each
+        texel, _, counts = tb.grad_tile_entries(*args)
+        assert int(torch.bincount(texel.long()).max()) >= 4
+        assert int((counts == 0).sum()) < counts.numel()
+
+
+@pytest.mark.parametrize("boundary_mode,filter_mode,D", [
+    ("wrap", "linear-mipmap-linear", 1), ("zero", "linear", 2),
+    ("clamp", "linear-mipmap-linear", 2)])
+def test_texture_grad_entries_match_twin(dev, boundary_mode, filter_mode, D):
+    """The kernels' per-tile entries, merged by (texel, tile), equal the
+    plain twin's (float64 partials to rounding); a 512^2 frame that is
+    mostly background gives the uv = (0, 0) texels more than 32 x 16
+    entries each, the texels pass's whole-warp path."""
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
+    rng = np.random.default_rng(5)
+    B, H, W = 2 if D > 1 else 1, 512, 512
+    N = B * H * W
+    tex = torch.from_numpy(rng.random((D, 64, 64, 3), dtype=np.float32)).to(dev)
+    levels = [tex] + tx.build_mip_stack(tex)
+    meta, n_tex = tx._static_meta(levels)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, H), np.linspace(-1, 1, W), indexing="ij")
+    disk = np.tile((xx ** 2 + yy ** 2 < 0.2).reshape(-1), B)
+    u = np.where(disk, np.tile(xx.reshape(-1), B) * 0.6 + 0.5, 0.0).astype(np.float32)
+    v = np.where(disk, np.tile(yy.reshape(-1), B) * 0.6 + 0.5, 0.0).astype(np.float32)
+    fl = np.where(disk, rng.uniform(0, 2.5, N), 0.0).astype(np.float32)
+    gc = rng.standard_normal((3, N)).astype(np.float32)
+    u, v, fl, gc = inputs_from_numpy(u, v, fl, gc, device=dev)
+    args = (u, v, fl, gc, meta, n_tex, (B, H, W), D > 1, boundary_mode, filter_mode)
+    got = tb.texture_grad(*args)
+    ref = tb.texture_grad_plain(*args)
+    assert torch.equal(got, tb.texture_grad(*args))
+    ulp = torch.from_numpy(np.spacing(np.abs(ref.cpu().numpy()))).to(dev)
+    assert bool(((got - ref).abs() <= ulp).all())
+    texel, part, counts = tb.grad_tile_entries(*args)
+    tt, tl, tp, _ = tb.tile_entries_plain(*args)
+    n_tiles = counts.numel()
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev), counts.long())
+    uk, inv = torch.unique(texel.long() * n_tiles + tile, return_inverse=True)
+    merged = torch.zeros((uk.numel(), 3), dtype=torch.float64, device=dev).index_add_(0, inv, part)
+    assert torch.equal(uk, tt * n_tiles + tl)
+    assert bool(((merged - tp).abs() <= 1e-10 * tp.abs() + 1e-300).all())
+    assert int(torch.bincount(texel.long()).max()) > 32 * 16
 
 
 def _textured_bwd_case(dev, B, seed):
@@ -772,7 +814,7 @@ def _modes_scene(dev):
 
 
 @pytest.mark.parametrize("mode", ["peel", "range", "band", "binned", "binned_range",
-                                  "binned_peel", "binned_band"])
+                                  "binned_peel", "binned_band", "binned_ordered"])
 def test_rasterize_mode_kernels_match_twin(dev, mode, monkeypatch):
     p, t, res = _modes_scene(dev)
     T = t.shape[0]
@@ -788,10 +830,13 @@ def test_rasterize_mode_kernels_match_twin(dev, mode, monkeypatch):
                                     device=dev)
     if "peel" in mode:
         kw["peel"] = rc.rasterize_fused(p, t, res, emit_zbuf=True)[4]
+    if mode == "binned_ordered":  # the longest lists first
+        monkeypatch.setattr(rc, "ORDER_MIN_ENTRIES", 0)
     viewport = (20, 97) if "band" in mode else None
-    rec, aabb = rc.build_records(pos, t, res, viewport)
+    setup = rc.setup_records(pos, t, res, viewport)
+    rec, aabb = setup[:2]
     before = kernel.launches
-    got = rc.rasterize_records(rec, aabb, res, True, viewport=viewport, emit_zbuf=True, **kw)
+    got = rc.rasterize_records(setup, res, True, viewport=viewport, emit_zbuf=True, **kw)
     ref = rc.rasterize_records_plain(rec, aabb, res, True, viewport=viewport,
                                      emit_zbuf=True, **kw)
     torch.cuda.synchronize()
@@ -801,14 +846,69 @@ def test_rasterize_mode_kernels_match_twin(dev, mode, monkeypatch):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("mode", ["instance", "sphere", "range", "viewport"])
+def test_setup_kernel_matches_build_records(dev, mode):
+    """The record setup kernel against its plain twin bit for bit: the
+    random scene's near-plane crossers and duplicate-vertex triangles in
+    instance, range (2-D pos) and viewport mode, and a sphere; also the
+    tile counts and chunk boxes."""
+    if mode == "sphere":
+        p, t = inputs_from_numpy(*sphere_scene(B=2, seed=4)[:2], device=dev)
+        res = (130, 96)
+    else:
+        p, t, res = _modes_scene(dev)
+    viewport = (20, 97) if mode == "viewport" else None
+    pos = p[0] if mode == "range" else p
+    before = rc.SETUP_KERNEL.launches
+    rec, aabb, counts, boxes = rc.setup_records(pos, t, res, viewport)
+    r2, a2 = rc.build_records(pos, t, res, viewport)
+    torch.cuda.synchronize()
+    assert rc.SETUP_KERNEL.launches == before + 1
+    assert torch.equal(rec.view(torch.int32), r2.view(torch.int32))
+    assert torch.equal(aabb.view(torch.int32), a2.view(torch.int32))
+    assert torch.equal(counts, rc.tile_counts_plain(a2, res))
+    assert torch.equal(boxes.view(torch.int32), rc.chunk_boxes_plain(a2).view(torch.int32))
+    if mode != "sphere":  # the random scene holds culled triangles
+        assert bool((r2[..., 15] >= 1e29).any())
+
+
+@pytest.mark.parametrize("binned", [False, True])
+def test_rasterize_forward_runs_setup_kernel_and_syncs_at_most_once(dev, binned,
+                                                                     monkeypatch):
+    """On the card the forward never runs build_records, launches the
+    setup kernel once, and synchronizes with the host at most once
+    (binned: the list total; unbinned: none once tri has been checked)."""
+    import warnings
+    p, t, res = _modes_scene(dev)
+    monkeypatch.setattr(rc, "BIN_MIN_WORK", 0 if binned else 1 << 62)
+
+    def no_twin(*a, **k):
+        raise AssertionError("build_records ran on the CUDA path")
+
+    monkeypatch.setattr(rc, "build_records", no_twin)
+    rc.rasterize_fused(p, t, res)  # checks tri once
+    torch.cuda.synchronize()
+    before = rc.SETUP_KERNEL.launches
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rc.rasterize_fused(p, t, res, emit_db=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert rc.SETUP_KERNEL.launches == before + 1
+    assert len(syncs) == (1 if binned else 0), [str(w.message) for w in syncs]
+
+
 def test_bin_kernels_match_twin(dev):
     p, t, res = _modes_scene(dev)
-    rec, aabb = rc.build_records(p, t, res)
-    before = (rc.BIN_COUNT_KERNEL.launches, rc.BIN_EMIT_KERNEL.launches)
-    got = rc.bin_records(aabb, res)
+    rec, aabb, counts, _ = rc.setup_records(p, t, res)
+    before = (rc.BIN_SEGMENT_KERNEL.launches, rc.BIN_EMIT_KERNEL.launches)
+    got = rc.bin_records(aabb, res, counts)
     ref = rc.bin_records_plain(aabb, res)
     torch.cuda.synchronize()
-    assert (rc.BIN_COUNT_KERNEL.launches, rc.BIN_EMIT_KERNEL.launches) == (
+    assert (rc.BIN_SEGMENT_KERNEL.launches, rc.BIN_EMIT_KERNEL.launches) == (
         before[0] + 1, before[1] + 1)
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
@@ -817,10 +917,26 @@ def test_bin_kernels_match_twin(dev):
 
 def test_bin_entry_limit_on_card(dev, monkeypatch):
     p, t, res = _modes_scene(dev)
-    aabb = rc.build_records(p, t, res)[1]
-    monkeypatch.setattr(rc, "MAX_BIN_ENTRIES", rc.bin_records(aabb, res)[1].numel())
+    _, aabb, counts, _ = rc.setup_records(p, t, res)
+    monkeypatch.setattr(rc, "MAX_BIN_ENTRIES", rc.bin_records(aabb, res, counts)[1].numel())
     with pytest.raises(ValueError, match="tile list entries"):
-        rc.bin_records(aabb, res)
+        rc.bin_records(aabb, res, counts)
+
+
+def test_sweep_and_binning_need_the_setup_outputs(dev):
+    """On the card nothing recomputes the setup kernel's outputs: the
+    unbinned sweep without the chunk boxes and the binning without the
+    tile counts raise ValueError."""
+    p, t, res = _modes_scene(dev)
+    rec, aabb, counts, boxes = rc.setup_records(p, t, res)
+    with pytest.raises(ValueError, match="chunk boxes"):
+        rc.launch_records(rec, aabb, res)
+    with pytest.raises(ValueError, match="tile counts"):
+        rc.bin_records(aabb, res, None)
+    with pytest.raises(ValueError, match="tile counts"):
+        rc.bin_records(aabb, res, counts[:-1])
+    with pytest.raises(ValueError, match="chunk boxes"):
+        rc.rasterize_records((rec, aabb, counts, None), res)
 
 
 @pytest.mark.parametrize("mode", ["range", "band"])

@@ -230,13 +230,14 @@ def test_kernel_wrapper_device_dispatch():
     (never a silent fallback)."""
     pos, tri = random_scene(3, B=1)
     p, t = inputs_from_numpy(pos, tri)
-    rec, aabb = rc.build_records(p, t, (16, 24))
+    setup = rc.setup_records(p, t, (16, 24))
+    rec, aabb = setup[:2]
     before = rc.KERNEL.launches
     for db in (False, True):
-        got = rc.rasterize_records(rec, aabb, (16, 24), emit_db=db)
+        got = rc.rasterize_records(setup, (16, 24), emit_db=db)
         ref = rc.rasterize_records_plain(rec, aabb, (16, 24), emit_db=db)
         assert len(got) == (8 if db else 4)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert rc.KERNEL.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        rc.rasterize_records(rec.to("meta"), aabb.to("meta"), (16, 24))
+        rc.rasterize_records(tuple(x.to("meta") for x in setup), (16, 24))

@@ -323,9 +323,9 @@ def test_binned_twin_equals_unbinned(monkeypatch):
     monkeypatch.setattr(rc, "BIN_MIN_WORK", 1 << 62)
     ref = rc.rasterize_fused(p, t, res, emit_db=True, emit_zbuf=True)
     monkeypatch.setattr(rc, "BIN_MIN_WORK", 0)
-    rec, aabb = rc.build_records(p, t, res)
+    _, aabb, counts, _ = rc.setup_records(p, t, res)
     assert rc.binned_by_default(1, t.shape[0], res)
-    start, lst = rc.bin_records(aabb, res)
+    start, lst = rc.bin_records(aabb, res, counts)
     assert start.shape == (48 + 1,) and int(start[-1]) == lst.numel() > t.shape[0]
     got = rc.rasterize_fused(p, t, res, emit_db=True, emit_zbuf=True)
     assert int((got[3] > 0).sum()) > 3000
@@ -339,13 +339,13 @@ def test_bin_entry_limit(monkeypatch):
     pos, tri = _big_sphere()
     p, t = _t(pos, tri)
     res = (96, 128)
-    aabb = rc.build_records(p, t, res)[1]
-    n = rc.bin_records(aabb, res)[1].numel()
+    _, aabb, counts, _ = rc.setup_records(p, t, res)
+    n = rc.bin_records(aabb, res, counts)[1].numel()
     monkeypatch.setattr(rc, "MAX_BIN_ENTRIES", n + 1)
-    assert rc.bin_records(aabb, res)[1].numel() == n
+    assert rc.bin_records(aabb, res, counts)[1].numel() == n
     monkeypatch.setattr(rc, "MAX_BIN_ENTRIES", n)
     with pytest.raises(ValueError, match="tile list entries"):
-        rc.bin_records(aabb, res)
+        rc.bin_records(aabb, res, counts)
     monkeypatch.setattr(rc, "BIN_MIN_WORK", 0)
     with pytest.raises(ValueError, match="tile list entries"):
         rc.rasterize_fused(p, t, res)

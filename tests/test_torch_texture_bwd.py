@@ -183,31 +183,44 @@ def test_texture_grad_twin_matches_f64_and_jax(filter_mode, boundary_mode, D):
 
 
 def test_texture_grad_entries_and_dispatch():
-    """The kernel's index glue lists every tap with a non-zero weight
-    factor once, grouped by texel in code order; the wrapper runs the twin
-    on CPU tensors without touching the kernel."""
+    """The kernel's index structure, the per-tile pre-reduced entries of
+    the plain twin, holds every tap with a non-zero weight factor once:
+    one entry per (texel, 16x16 tile) the kept taps fall on, sorted, with
+    the taps' count and their float64 sum; the wrapper runs the twin on
+    CPU tensors without touching the kernels."""
     (flat, u, v, fl, gc), smeta = _port_args(2, "linear-mipmap-linear", "zero")
     n_tex = flat.shape[0]
     N = u.shape[0]
-    args = (u, v, fl, smeta, n_tex, SHAPE, True, "zero", "linear-mipmap-linear")
-    codes, off, first, n_pieces = tb.grad_entries(*args)
+    args = (u, v, fl, gc, smeta, n_tex, SHAPE, True, "zero", "linear-mipmap-linear")
+    texel, tile, partial, count = tb.tile_entries_plain(*args)
     taps = tb.lattice_taps(u, v, fl, smeta, SHAPE, True, "zero", "linear-mipmap-linear")
-    keep = torch.cat([ok & (lwv != 0) & (uw != 0) for _, lwv, uw, ok in taps])
-    texel = torch.cat([t for t, _, _, _ in taps])
-    assert sorted(codes.tolist()) == torch.nonzero(keep)[:, 0].tolist()
-    assert int(off[0]) == 0 and int(off[-1]) == codes.shape[0] <= 8 * N
-    seg = torch.repeat_interleave(torch.arange(n_tex), (off[1:] - off[:-1]).long())
-    assert torch.equal(texel[codes.long()], seg)
-    assert bool((codes[1:] > codes[:-1])[seg[1:] == seg[:-1]].all())
-    counts = (off[1:] - off[:-1] + tb.PIECE - 1) // tb.PIECE
-    assert n_pieces == int(counts.sum()) and torch.equal(first[1:] - first[:-1], counts)
-    before = tb.GRAD_KERNEL.launches, tb.BWD_KERNEL.launches
-    tb.texture_grad(u, v, fl, gc, *args[3:])
+    B, H, W = SHAPE
+    p = torch.arange(N)
+    ntx, nty = -(-W // tb.GRAD_TILE), -(-H // tb.GRAD_TILE)
+    ptile = ((p // (H * W)) * nty + (p // W) % H // tb.GRAD_TILE) * ntx + p % W // tb.GRAD_TILE
+    keys, vals = [], []
+    for t, lwv, uw, ok in taps:
+        keep = ok & (lwv != 0) & (uw != 0)
+        keys.append((t * nty * ntx * B + ptile)[keep])
+        vals.append(((lwv * gc) * uw).T[keep].double())
+    keys = torch.cat(keys)
+    n_kept = keys.shape[0]
+    assert 0 < n_kept <= 8 * N and int(count.sum()) == n_kept
+    ekeys = texel * (nty * ntx * B) + tile
+    assert bool((ekeys[1:] > ekeys[:-1]).all())  # sorted, unique
+    uk, inv, cnt = torch.unique(keys, return_inverse=True, return_counts=True)
+    assert torch.equal(uk, ekeys) and torch.equal(cnt, count)
+    want = torch.zeros_like(partial).index_add_(0, inv, torch.cat(vals))
+    np.testing.assert_allclose(partial.numpy(), want.numpy(), rtol=1e-12, atol=1e-300)
+    before = (tb.GRAD_KERNEL.launches, tb.GRAD_COMPACT_KERNEL.launches,
+              tb.GRAD_SUM_KERNEL.launches, tb.BWD_KERNEL.launches)
+    tb.texture_grad(*args)
     tb.texture_bwd(flat, u, v, fl, gc, smeta, SHAPE, True, "zero", "linear-mipmap-linear")
-    assert (tb.GRAD_KERNEL.launches, tb.BWD_KERNEL.launches) == before
+    assert (tb.GRAD_KERNEL.launches, tb.GRAD_COMPACT_KERNEL.launches,
+            tb.GRAD_SUM_KERNEL.launches, tb.BWD_KERNEL.launches) == before
     with pytest.raises(ValueError, match="unsupported device"):
         tb.texture_grad(u.to("meta"), v.to("meta"), fl.to("meta"), gc.to("meta"),
-                        *args[3:])
+                        *args[4:])
     with pytest.raises(ValueError):  # cotangent of the wrong channel count
         tb.texture_bwd(flat, u, v, fl, gc[:2], smeta, SHAPE, True, "zero",
                        "linear-mipmap-linear")
