@@ -28,8 +28,14 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
   5. the backward kernels against their twins on the card, at 2048^2 on
      the bench scene with dy from the forward's real loss mean(img**2):
      pipeline_bwd bit for bit, grad_scatter within 1e-6 of each row's
-     largest entry; their times, and index_add_ over the expanded rows
-     as the scatter's library yardstick;
+     largest entry, bitwise repeatable, at most one host sync, its stages
+     timed (the tiles pass, scan, sync, compact, sort, segment starts,
+     sums) with the second run's partials equal to the first run's
+     scratch and the segment starts to searchsorted's; its per-tile
+     partials bit for bit with tile_partials_plain at 256^2 (plain and
+     da4); a quad of two triangles filling 2048^2 (the hot row), with and
+     without da4; their times, and index_add_ over the expanded rows as
+     the scatter's library yardstick;
   6. the training slice: gradients of mean(render_pipeline(...)**2) to
      pos and the vertex colours at 2048^2, finite, non-zero, bitwise
      repeatable, B = 2 equal to two B = 1 runs, at 256^2 within 1e-5 of
@@ -54,7 +60,8 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      bitwise repeatable, its per-tile entries equal to their twin's and
      at most one host sync (also on zero / clamp / per-image cases at
      256^2), grad_scatter with da4 within 1e-6 of each row's largest
-     entry; their times (texture_grad stage by stage beside the earlier design's), and
+     entry and at most one host sync; their times (texture_grad and
+     grad_scatter stage by stage beside the earlier designs'), and
      in linear, clamp, base level texture_bwd and texture_grad against
      grid_sample's backward (to the grid, to the input), index_add_ as
      the scatter's yardstick;
@@ -68,8 +75,11 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      on the bench scene, each fed the cotangent of the stage after it
      (dy of mean(img**2)): aa_bwd, interp_bwd and table_take bit for bit,
      scatter_rows within 1 ulp of its float64 twin and bitwise repeatable
-     on the rasterize backward's rows and with a hot row of every other
-     covered pixel; their times, index_select and index_add_ as yardsticks;
+     on the rasterize backward's rows, with a hot row of every other
+     covered pixel and on random ids, at most one host sync, its stages
+     timed, its per-chunk partials bit for bit with chunk_partials_plain
+     on 65,536 columns (rows and random ids); their times, index_select
+     and index_add_ as yardsticks;
  12. the composed ops' training slice, rasterize -> interpolate ->
      antialias, gradients of mean(img**2) to pos and the colours on the 8
      views: finite, non-zero, bitwise repeatable, B = 2 equal to two B = 1
@@ -84,8 +94,9 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      sphere's 8 views, reflection vectors (interpolate with diff_attrs=
      'all') as directions into procedural_cubemap(512), 10 levels,
      linear-mipmap-linear: cube_fwd and cube_bwd bit for bit, the texture
-     gradient (B10 on the cube taps) within 1 ulp of its float64 twin and
-     bitwise repeatable, their times (no PyTorch call samples cube maps);
+     gradient (B10 on the cube taps) within 1 ulp of its float64 twin,
+     bitwise repeatable, its partials bit for bit with the twin's on
+     65,536 taps, their times (no PyTorch call samples cube maps);
      then texture(boundary_mode='cube') fwd + bwd on the 8 views: all
      three kernels launched, bitwise repeatable, ms/step, peak memory, a
      256^2 view within the CPU bars of the CPU path;
@@ -115,10 +126,13 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      (also at uv_sphere(128, 320)), the forward split (setup, binning
      glue stage by stage, the kernel in longest-list-first and in grid
      order) beside the earlier design's, one host sync, render_pipeline fwd + bwd
-     ms/step and peak memory.
+     ms/step and peak memory, and its grad_scatter call (tiles of more
+     rows than the scratch) within 1e-6 of each row's largest, timed.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
-operations over 67 TFLOP/s) and, last, the device line. Any failed
+operations over 67 TFLOP/s; grad_scatter, grad_scatter_da4 and
+scatter_rows also carry all_ms, the whole reduction with its glue, and
+its bound) and, last, the device line. Any failed
 check raises, so the exit code is not 0. Without a CUDA device, or
 without the package beside it, it fails at once.
 """
@@ -163,13 +177,24 @@ VP_BANDS = 4         # 512-row viewport bands of the 2048^2 bench render
 VP_GRAD_RTOL = 1e-6  # band gradients vs the full render's restricted to the band
 BIG_SPHERE = (512, 1024)  # 1,046,528 triangles (benchmarks/profile_bigmesh.py's largest)
 MID_SPHERE = (128, 320)   # 81,280 triangles: the binned kernel against its twin
-# Times of the earlier design of the rasterizer and the texture gradient
-# (PERF.md section 6 at commit cbbd73c, NVIDIA H100 80GB HBM3 at 700 W),
-# printed beside this run's as "before".
+# Times of the earlier designs, printed beside this run's as "before": the
+# rasterizer and the texture gradient (PERF.md section 6 at commit
+# cbbd73c), the gradient scatters B4 and B10 (PERF.md section 6 at commit
+# 54206d4; the quad, 1 M, hot-row, random-id and cube-tap calls from
+# `profile_step --reductions` on that commit, whose cases are like these);
+# NVIDIA H100 80GB HBM3 at 700 W.
 BEFORE_MS = {"raster": "0.299", "raster_db": "0.324", "prepass": "5.0-7.4",
           "peel": "0.363", "range": "0.622 (binned)", "band": "0.095",
           "binned_1M": "2.446", "glue_1M": "0.419", "prepass_1M": "3.469-7.212",
-          "bin_glue_bench": "0.22-0.44", "texgrad": "0.311 + 6.421 glue"}
+          "bin_glue_bench": "0.22-0.44", "texgrad": "0.311 + 6.421 glue",
+          "grad_scatter": "kernel 0.188 + entry sort 0.5-0.8",
+          "grad_scatter_da4": "kernel 0.191 + entry sort 0.5-0.8",
+          "grad_scatter_quad": "69.5-69.6 (one warp a triangle row)",
+          "grad_scatter_quad_da4": "69.9-70.1 (one warp a triangle row)",
+          "grad_scatter_1M": "1.91-1.96",
+          "scatter_rows": "kernel 0.063 + index glue 0.52-0.60 (PERF.md section 5)",
+          "scatter_rows_hot": "0.65-0.91", "scatter_rows_random": "0.79-0.81",
+          "scatter_rows_cube": "3.89-3.93"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -312,22 +337,6 @@ def setup_equal_or_raise(rc, p, t, res, viewport, what):
     return (rec, aabb, counts, boxes), err
 
 
-def host_syncs(torch, fn):
-    """Host synchronisations during fn() (torch's sync debug mode)."""
-    import warnings
-
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
 def texgrad_check(torch, np, txb, args, what):
     """texture_grad on the card: within 1 float32 ulp of its twin, bitwise
     repeatable, and its per-tile entries, merged by (texel, tile), equal to
@@ -383,76 +392,86 @@ def texgrad_case(torch, np, tx, dev, boundary, filter_mode, D):
     return (*ins, meta, n_tex, (B, H, W), D > 1, boundary, filter_mode)
 
 
-def texgrad_stages(torch, txb, _build, args):
-    """CUDA-event times (ms) of texture_grad's stages on args, and the
-    measured max |err| of two of them: the compacted entries against the
-    first pass's scratch slots (the tiles within GRAD_CAP; bit for bit or
-    raise) and the segment starts against searchsorted (equal or raise)."""
-    from nvdiffrast_tpu_torch.ops.texture_cuda import BOUNDARY as BD, FILTER as FM
+def reduction_stages(torch, dev, tiles, n_rows, seg_kernel, sum_kernel):
+    """CUDA-event times (ms) of a gradient reduction's stages (ops/segments.py:
+    the tile pass's first run, the scan, the one sync, the second run
+    (compact + the tiles over the cap), the stable sort, the segment starts,
+    the sums) on one call's inputs, `tiles` = (launch, n_tiles, width,
+    cap) of the module's tile pass. Checks two stages: the compacted partials
+    against the first run's scratch slots (bit for bit or raise) and the
+    segment starts against searchsorted (equal or raise). Returns (times,
+    (compact max|err|, segments max|err|), (key, partial, counts))."""
+    from nvdiffrast_tpu_torch import _build
 
-    u, v, fl, gc, meta, n_tex, (B, H, W), per_image, bnd, filt = args
-    C, dev = gc.shape[0], gc.device
-    m = txb._meta_arg(meta)
-    modes = (B, H, W, C, len(meta), int(per_image), BD[bnd], FM[filt])
-    ins = [_build.ptr(x) for x in (u, v, fl, gc)] + [m]
-    n_tiles = txb._tile_blocks((B, H, W))[2]
+    launch, n_tiles, width, cap = tiles
     counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
-    ts = torch.empty((n_tiles * txb.GRAD_CAP,), dtype=torch.int32, device=dev)
-    ps = torch.empty((n_tiles * txb.GRAD_CAP, C), dtype=torch.float64, device=dev)
+    ks = torch.empty((n_tiles * cap,), dtype=torch.int32, device=dev)
+    ps = torch.empty((n_tiles * cap, width), dtype=torch.float64, device=dev)
 
     def pass1():
-        txb.GRAD_KERNEL.launch(dev, *ins, None, _build.ptr(counts), _build.ptr(ts),
-                               _build.ptr(ps), None, None, *modes)
+        launch(None, counts, ks, ps, None, None)
 
     pass1()
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
     offs = ends - counts
     E = int(ends[-1])
-    texel = torch.empty((E,), dtype=torch.int32, device=dev)
-    part = torch.empty((E, C), dtype=torch.float64, device=dev)
+    key = torch.empty((E,), dtype=torch.int32, device=dev)
+    part = torch.empty((E, width), dtype=torch.float64, device=dev)
 
     def pass2():
-        txb.GRAD_COMPACT_KERNEL.launch(dev, *ins, _build.ptr(offs), _build.ptr(counts),
-                                       _build.ptr(ts), _build.ptr(ps), _build.ptr(texel),
-                                       _build.ptr(part), *modes)
+        launch(offs, counts, ks, ps, key, part)
 
     pass2()
     cl = counts.long()
     tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev), cl)
-    direct = (cl <= txb.GRAD_CAP)[tile_of]
-    src = (tile_of * txb.GRAD_CAP + torch.arange(E, device=dev) - offs[tile_of])[direct]
-    if not (torch.equal(texel[direct], ts[src])
+    direct = (cl <= cap)[tile_of]
+    src = (tile_of * cap + torch.arange(E, device=dev) - offs[tile_of])[direct]
+    if not (torch.equal(key[direct], ks[src])
             and torch.equal(part[direct].view(torch.int64), ps[src].view(torch.int64))):
-        raise AssertionError("texture_grad compact: entries differ from the scratch slots")
+        raise AssertionError("compact: partials differ from the scratch slots")
     compact_err = float((part[direct] - ps[src]).abs().max()) if bool(direct.any()) else 0.0
-    stexel, perm = torch.sort(texel, stable=True)
-    starts = torch.empty((n_tex + 1,), dtype=torch.int32, device=dev)
+    skey, perm = torch.sort(key, stable=True)
+    starts = torch.empty((n_rows + 1,), dtype=torch.int32, device=dev)
 
     def seg():
-        txb.GRAD_SEGMENT_KERNEL.launch(dev, _build.ptr(stexel), E, 0, n_tex, 4, None, None,
-                                       _build.ptr(starts), None)
+        seg_kernel.launch(dev, _build.ptr(skey), E, 0, n_rows, 4, None, None,
+                          _build.ptr(starts), None)
 
     seg()
-    ref_starts = torch.searchsorted(stexel, torch.arange(n_tex + 1, dtype=torch.int32,
-                                                         device=dev))
+    ref_starts = torch.searchsorted(skey, torch.arange(n_rows + 1, dtype=torch.int32,
+                                                       device=dev))
     seg_err = float((starts.long() - ref_starts).abs().max())
     if seg_err != 0.0:
-        raise AssertionError("texture_grad segment starts differ from searchsorted")
-    pp = torch.empty((max(E, 1), C), dtype=torch.float64, device=dev)
-    out = torch.empty((n_tex, C), dtype=torch.float32, device=dev)
+        raise AssertionError("segment starts differ from searchsorted")
+    pp = torch.empty((max(E, 1), width), dtype=torch.float64, device=dev)
+    out = torch.empty((n_rows, width), dtype=torch.float32, device=dev)
 
     def sums():
-        txb.GRAD_SUM_KERNEL.launch(dev, _build.ptr(stexel), _build.ptr(perm), E,
-                                   _build.ptr(starts), _build.ptr(part), _build.ptr(pp),
-                                   _build.ptr(out), n_tex, C)
+        sum_kernel.launch(dev, _build.ptr(skey), _build.ptr(perm), E, _build.ptr(starts),
+                          _build.ptr(part), _build.ptr(pp), _build.ptr(out), n_rows, width)
 
     return {"tiles pass 1": cuda_ms(torch, pass1, 20),
             "scan": cuda_ms(torch, lambda: torch.cumsum(counts, 0, dtype=torch.int64), 20),
             "sync": cuda_ms(torch, lambda: int(ends[-1]), 20),
             "pass 2 (compact, tiles over the cap)": cuda_ms(torch, pass2, 20),
-            "stable sort": cuda_ms(torch, lambda: torch.sort(texel, stable=True), 20),
+            "stable sort": cuda_ms(torch, lambda: torch.sort(key, stable=True), 20),
             "segment starts": cuda_ms(torch, seg, 20),
-            "sums": cuda_ms(torch, sums, 20)}, (compact_err, seg_err)
+            "sums": cuda_ms(torch, sums, 20)}, (compact_err, seg_err), (key, part, counts)
+
+
+def partials_equal_or_raise(torch, got, ref, cap, what):
+    """A tile pass's partials (key, partial, counts) against its plain
+    twin's (key, tile, partial, entries), bit for bit and in order (cap:
+    the tile pass's scratch slots); raises where they differ."""
+    key, part, counts = got
+    rkey, rtile, rpart, _ = ref
+    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device),
+                                   counts.long())
+    if not (torch.equal(key.long(), rkey.long()) and torch.equal(tile, rtile)
+            and torch.equal(part.view(torch.int64), rpart.view(torch.int64))):
+        raise AssertionError(f"{what}: partials differ from the twin's")
+    log(f"[partials] {what}: {key.numel()} partials equal the twin's bit for bit "
+        f"({int((counts > cap).sum())} tiles past the scratch of {cap})")
 
 
 def bound(nbytes, ops):
@@ -542,6 +561,7 @@ def phase16(dev, card, entry):
     from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
     from nvdiffrast_tpu_torch.ops import rasterize as ra
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
+    from nvdiffrast_tpu_torch.profile_step import host_syncs, scatter_args
     from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
     res = (RES, RES)
@@ -551,7 +571,8 @@ def phase16(dev, card, entry):
                       rc.RANGE_KERNEL, rc.BAND_KERNEL, rc.SETUP_KERNEL, rc.BIN_EMIT_KERNEL,
                       rc.BIN_SEGMENT_KERNEL)
     op_kernels = raster_kernels + (ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
-                                   gather.KERNEL, scatter.KERNEL)
+                                   gather.KERNEL, scatter.KERNEL, scatter.COMPACT_KERNEL,
+                                   scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL)
 
     def reset():
         for k in op_kernels:
@@ -872,7 +893,7 @@ def phase16(dev, card, entry):
     prepass_plain_ms = cuda_ms(torch, lambda: rc.build_records(mp, mt, res), 3)
     glue_ms = cuda_ms(torch, lambda: rc.bin_records(maabb, res, mcounts), 10)
     fwd_big_ms = cuda_ms(torch, lambda: rc.rasterize_fused(mp, mt, res), 10)
-    n_sync_big = host_syncs(torch, lambda: rc.rasterize_fused(mp, mt, res))
+    n_sync_big = host_syncs(lambda: rc.rasterize_fused(mp, mt, res))
     if n_sync_big != 1:
         raise AssertionError(f"the binned 1M forward synced {n_sync_big} times")
     n_big = mrec.shape[1]
@@ -935,16 +956,17 @@ def phase16(dev, card, entry):
         img = dr.render_pipeline(pv, mt, av, res)
         return torch.autograd.grad((img ** 2).mean(), (pv, av))
 
+    big_kernels = (pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL, pb.SCATTER_COMPACT_KERNEL,
+                   pb.SCATTER_SEGMENT_KERNEL, pb.SCATTER_SUM_KERNEL)
     reset()
-    for k in (pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+    for k in big_kernels:
         k.launches = 0
     g_big = big_step()
     torch.cuda.synchronize()
-    big_launches = dict(counts(), **{k.name: k.launches
-                                     for k in (pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)})
+    big_launches = dict(counts(), **{k.name: k.launches for k in big_kernels})
     log(f"[16] launches during the 1M-triangle render_pipeline step: {big_launches}")
-    for k in (rc.SETUP_KERNEL, rc.BINNED_KERNEL, rc.BIN_EMIT_KERNEL, rc.BIN_SEGMENT_KERNEL,
-              pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+    for k in (rc.SETUP_KERNEL, rc.BINNED_KERNEL, rc.BIN_EMIT_KERNEL,
+              rc.BIN_SEGMENT_KERNEL) + big_kernels:
         if k.launches <= 0:
             raise AssertionError(f"1M-triangle step: {k.name} never launched")
     check_grads(zip(("pos", "col"), g_big), "1M-triangle step")
@@ -960,6 +982,19 @@ def phase16(dev, card, entry):
     big_ms = window_ms(torch, big_step, [()])
     log(f"[16] render_pipeline fwd+bwd T={TM} {RES}^2: {big_ms:.3f} ms/step, peak memory of a "
         f"step above its inputs {big_mib:.1f} MiB ({card})")
+    # B4 on the 1M-triangle render: most tiles hold more rows than the scratch.
+    margs = scatter_args(mp, mt, ma, mt, res)
+    mgot = pb.grad_scatter(*margs)
+    for x, y, z in zip(mgot, pb.grad_scatter(*margs), pb.grad_scatter_plain(*margs)):
+        if not torch.equal(x, y):
+            raise AssertionError("1M-triangle grad_scatter not repeatable")
+        rows_close(x, z, SCATTER_ROW_RTOL)
+    mpart = pb.scatter_partials(*margs)[2]
+    big_b4_ms = cuda_ms(torch, lambda: pb.grad_scatter(*margs), 10)
+    log(f"[16] grad_scatter T={TM} {RES}^2: within {SCATTER_ROW_RTOL} x row max of the twin, "
+        f"repeatable; {int(mpart.sum())} partials, {int((mpart > pb.SCATTER_CAP).sum())} of "
+        f"{mpart.numel()} tiles past the scratch; in all {big_b4_ms:.3f} ms (before: "
+        f"{BEFORE_MS['grad_scatter_1M']}) ({card})")
     n_big_frag = frag_count(maabb, RES, RES)
     binned_bound = bound((mrec.numel() + mbins[0].numel() + mbins[1].numel()
                           + 4 * RES * RES) * f32, 34 * n_big_frag)
@@ -1030,6 +1065,7 @@ def main():
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
     from nvdiffrast_tpu_torch.ops.antialias import _build_tables, pair_ids
     from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
+    from nvdiffrast_tpu_torch.profile_step import host_syncs, quad_scene, scatter_args, with_da4
     from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1090,7 +1126,7 @@ def main():
     setup_ms = cuda_ms(torch, lambda: rc.setup_records(p, t, res), 50)
     setup_plain_ms = cuda_ms(torch, lambda: rc.build_records(p, t, res), 5)
     fwd_ms = cuda_ms(torch, lambda: rc.rasterize_fused(p, t, res), 20)
-    n_sync = host_syncs(torch, lambda: rc.rasterize_fused(p, t, res))
+    n_sync = host_syncs(lambda: rc.rasterize_fused(p, t, res))
     if n_sync != int(rc.binned_by_default(1, T0, res)):
         raise AssertionError(f"the rasterize forward synced {n_sync} times")
     log(f"[2] rasterize {RES}^2: sweep kernel {raster_ms:.3f} ms (before: {BEFORE_MS['raster']}), "
@@ -1234,25 +1270,60 @@ def main():
             raise AssertionError("grad_scatter kernel not repeatable")
         rows_close(x, z, SCATTER_ROW_RTOL)
         scatter_err = max(scatter_err, float((x - z).abs().max()))
-    codes, off = pb._entries(rid0, gs, dd2, rid2, R)
-    flats = (b0, b1, ax0, ax1)
-    n_own = int((codes < N).sum())
-    n_aa = codes.shape[0] - n_own
+    n_own = int(pb._own_live(gs, None).sum())
+    n_aa = int((dd2 != 0).sum())
     log(f"[5] grad_scatter {RES}^2: {n_own} own-pixel and {n_aa} AA entries over "
         f"{R} rows; max|err| vs twin {scatter_err:.3g} (bar {SCATTER_ROW_RTOL} x row max)")
-    scatter_ms = cuda_ms(torch, lambda: pb.scatter_entries(codes, off, gs, dd2, flats,
-                                                           vtbl, res), 50)
-    entries_ms = cuda_ms(torch, lambda: pb._entries(rid0, gs, dd2, rid2, R), 20)
+    st5, (gcompact_err, gseg_err), (_, _, gcounts) = reduction_stages(
+        torch, dev, pb.scatter_tiles(*sargs), R, pb.SCATTER_SEGMENT_KERNEL,
+        pb.SCATTER_SUM_KERNEL)
+    n_part = int(gcounts.sum())
+    scatter_ms = st5["tiles pass 1"]
+    partials_plain_ms = cuda_ms(torch, lambda: pb.tile_partials_plain(*sargs), 1)
+    scatter_all_ms = cuda_ms(torch, lambda: pb.grad_scatter(*sargs), 20)
     scatter_plain_ms = cuda_ms(torch, lambda: pb.grad_scatter_plain(*sargs), 3)
+    n_sync5 = host_syncs(lambda: pb.grad_scatter(*sargs))
+    if n_sync5 > 1:
+        raise AssertionError(f"grad_scatter synced with the host {n_sync5} times")
     (orow, own), (arow, aav) = pb.expand_rows(*sargs)
     orow, arow = orow.long(), arow.long()
     zgt = torch.zeros((R, own.shape[1]), dtype=torch.float32, device=dev)
     zgaa = torch.zeros((R, 9), dtype=torch.float32, device=dev)
     scatter_lib_ms = cuda_ms(torch, lambda: (zgt.index_add_(0, orow, own),
                                              zgaa.index_add_(0, arow, aav)), 50)
-    log(f"[5] grad_scatter {RES}^2: kernel {scatter_ms:.3f} ms + index glue (sort) "
-        f"{entries_ms:.3f} ms, twin {scatter_plain_ms:.3f} ms, index_add_ over the "
-        f"expanded rows {scatter_lib_ms:.3f} ms ({card})")
+    log(f"[5] grad_scatter {RES}^2: {n_part} (row, tile) partials; in all "
+        f"{scatter_all_ms:.3f} ms (before: {BEFORE_MS['grad_scatter']}), {n_sync5} host sync; "
+        "stages " + ", ".join(f"{k} {v:.4f}" for k, v in st5.items())
+        + f" ms; twin {scatter_plain_ms:.3f} ms, index_add_ over the expanded rows "
+        f"{scatter_lib_ms:.3f} ms ({card})")
+    # The partials against their twin at a small shape, plain and da4.
+    small_args = scatter_args(p, t, a, c, (SMALL, SMALL))
+    partials_equal_or_raise(torch, pb.scatter_partials(*small_args),
+                            pb.tile_partials_plain(*small_args), pb.SCATTER_CAP,
+                            f"grad_scatter {SMALL}^2")
+    sda, sda4 = with_da4(small_args, 5)
+    partials_equal_or_raise(torch, pb.scatter_partials(*sda, da4=sda4),
+                            pb.tile_partials_plain(*sda, da4=sda4), pb.SCATTER_CAP,
+                            f"grad_scatter da4 {SMALL}^2")
+    # The hot row: a quad filling the frame, with and without da4.
+    qp, qt, qa = inputs_from_numpy(*quad_scene(), device=dev)
+    qargs = scatter_args(qp, qt, qa, qt, res)
+    quad_ms = {}
+    qda, qda4 = with_da4(qargs, 6)
+    for what, qa_, qkw in (("quad", qargs, {}), ("quad da4", qda, {"da4": qda4})):
+        got = pb.grad_scatter(*qa_, **qkw)
+        again = pb.grad_scatter(*qa_, **qkw)
+        ref = pb.grad_scatter_plain(*qa_, **qkw)
+        for x, y, z in zip(got, again, ref):
+            if not torch.equal(x, y):
+                raise AssertionError(f"grad_scatter {what}: not repeatable")
+            rows_close(x, z, SCATTER_ROW_RTOL)
+        qrow = pb.scatter_partials(*qa_, **qkw)[0]
+        quad_ms[what] = cuda_ms(torch, lambda: pb.grad_scatter(*qa_, **qkw), 20)
+        log(f"[5] grad_scatter {what} {RES}^2 (2 triangles fill the frame): within "
+            f"{SCATTER_ROW_RTOL} x row max of the twin, repeatable; the rows' partials "
+            f"{torch.bincount(qrow.long()).tolist()}; in all {quad_ms[what]:.3f} ms "
+            f"(before: {BEFORE_MS['grad_scatter_' + what.replace(' ', '_')]}) ({card})")
 
     # -- 6. the training slice: fwd + bwd at 2048^2 ----------------------------
     def grads(view, colour, size):
@@ -1263,7 +1334,9 @@ def main():
         loss = (img ** 2).mean(dim=(1, 2, 3)).sum()
         return torch.autograd.grad(loss, (pv, cv))
 
-    for k in (rc.SETUP_KERNEL, rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL):
+    b4_kernels = (pb.SCATTER_KERNEL, pb.SCATTER_COMPACT_KERNEL, pb.SCATTER_SEGMENT_KERNEL,
+                  pb.SCATTER_SUM_KERNEL)
+    for k in (rc.SETUP_KERNEL, rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL) + b4_kernels:
         k.launches = 0
     g1 = [grads(reqs[i], a8, res) for i in range(2)]
     again = grads(reqs[0], a8, res)
@@ -1273,7 +1346,7 @@ def main():
     train_launches = {"raster_setup": rc.SETUP_KERNEL.launches,
                       "rasterize": rc.KERNEL.launches, "shade_fwd": pc.KERNEL.launches,
                       "pipeline_bwd": pb.BWD_KERNEL.launches,
-                      "grad_scatter": pb.SCATTER_KERNEL.launches}
+                      **{k.name: k.launches for k in b4_kernels}}
     log(f"[6] launches during the training slice: {train_launches}")
     if min(train_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {train_launches}")
@@ -1326,7 +1399,7 @@ def main():
     offset = (0.05 * torch.randn(3, generator=gen).to(dev)).requires_grad_()
     opt = torch.optim.Adam([colour, offset], lr=0.02)
     losses = []
-    kernels_of_path = (rc.SETUP_KERNEL, rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL, pb.SCATTER_KERNEL)
+    kernels_of_path = (rc.SETUP_KERNEL, rc.KERNEL, pc.KERNEL, pb.BWD_KERNEL) + b4_kernels
     for k in kernels_of_path:
         k.launches = 0
     for _ in range(ADAM_STEPS):
@@ -1533,7 +1606,9 @@ def main():
                                  ("per-image", ("wrap", FILTER, 2))):
         texgrad_check(torch, np, txb, texgrad_case(torch, np, tx, dev, bnd, filt, D),
                       f"{case} {SMALL}^2 B=2 ({bnd}, {filt}, D={D})")
-    st9, (compact_err9, seg_err9) = texgrad_stages(torch, txb, _build, gargs9)
+    st9, (compact_err9, seg_err9), _ = reduction_stages(
+        torch, dev, txb.grad_tiles(*gargs9[:5], *gargs9[6:]), n_tex9, txb.GRAD_SEGMENT_KERNEL,
+        txb.GRAD_SUM_KERNEL)
     log(f"[9] texture_grad stages {RES}^2: the compacted entries equal the first pass's "
         f"scratch slots bit for bit (max|err| {compact_err9:.3g}; the tiles over the cap "
         f"within {over_err9:.3g} of the twin after merging), the segment starts equal "
@@ -1549,7 +1624,7 @@ def main():
     lin_grad_plain_ms = cuda_ms(torch, lambda: txb.texture_grad_plain(*lgargs), 3)
     entries_plain_ms = cuda_ms(torch, lambda: txb.tile_entries_plain(*gargs9), 3)
     texgrad_lib_ms = cuda_ms(torch, lambda: library_bwd([True, False]), 20)
-    n_sync9 = host_syncs(torch, lambda: txb.texture_grad(*gargs9))
+    n_sync9 = host_syncs(lambda: txb.texture_grad(*gargs9))
     if n_sync9 > 1:
         raise AssertionError(f"texture_grad synced with the host {n_sync9} times")
     log(f"[9] texture_grad {RES}^2: {texgrad_all_ms:.3f} ms in all "
@@ -1584,26 +1659,33 @@ def main():
             raise AssertionError("grad_scatter (da4) kernel not repeatable")
         rows_close(x, z, SCATTER_ROW_RTOL)
         da4_err = max(da4_err, float((x - z).abs().max()))
-    codes9, off9 = pb._entries(sargs9[0], out15[:11], dd9, rid9, R9, da4)
-    flats9 = (u9, v9, ax0, ax1)
-    n_own9 = int((codes9 < N).sum())
-    n_aa9 = codes9.shape[0] - n_own9
-    da4_ms = cuda_ms(torch, lambda: pb.scatter_entries(codes9, off9, out15[:11], dd9, flats9,
-                                                       vtbl9, res, da4), 50)
+    n_own9 = int(pb._own_live(out15[:11], da4).sum())
+    n_aa9 = int((dd9 != 0).sum())
+    st9s, _, (_, _, gcounts9) = reduction_stages(
+        torch, dev, pb.scatter_tiles(*sargs9, da4=da4), R9, pb.SCATTER_SEGMENT_KERNEL,
+        pb.SCATTER_SUM_KERNEL)
+    n_part9 = int(gcounts9.sum())
+    da4_ms = st9s["tiles pass 1"]
+    da4_all_ms = cuda_ms(torch, lambda: pb.grad_scatter(*sargs9, da4=da4), 20)
     da4_plain_ms = cuda_ms(torch, lambda: pb.grad_scatter_plain(*sargs9, da4=da4), 3)
+    n_sync9s = host_syncs(lambda: pb.grad_scatter(*sargs9, da4=da4))
+    if n_sync9s > 1:
+        raise AssertionError(f"grad_scatter (da4) synced with the host {n_sync9s} times")
     (orow, own), (arow, aav) = pb.expand_rows(*sargs9, da4=da4)
     orow, arow = orow.long(), arow.long()
     zgt = torch.zeros((R9, own.shape[1]), dtype=torch.float32, device=dev)
     zgaa = torch.zeros((R9, 9), dtype=torch.float32, device=dev)
     da4_lib_ms = cuda_ms(torch, lambda: (zgt.index_add_(0, orow, own),
                                          zgaa.index_add_(0, arow, aav)), 50)
-    log(f"[9] grad_scatter with da4 {RES}^2: {n_own9} own-pixel and {n_aa9} AA entries; "
-        f"max|err| vs twin {da4_err:.3g} (bar {SCATTER_ROW_RTOL} x row max); kernel "
-        f"{da4_ms:.3f} ms, twin {da4_plain_ms:.3f} ms, index_add_ {da4_lib_ms:.3f} ms ({card})")
+    log(f"[9] grad_scatter with da4 {RES}^2: {n_own9} own-pixel and {n_aa9} AA entries, "
+        f"{n_part9} partials; max|err| vs twin {da4_err:.3g} (bar {SCATTER_ROW_RTOL} x row "
+        f"max); in all {da4_all_ms:.3f} ms (before: {BEFORE_MS['grad_scatter_da4']}), "
+        f"{n_sync9s} host sync; stages " + ", ".join(f"{k} {v:.4f}" for k, v in st9s.items())
+        + f" ms; twin {da4_plain_ms:.3f} ms, index_add_ {da4_lib_ms:.3f} ms ({card})")
 
     # -- 10. the textured training slice: fwd + bwd at 2048^2 -----------------
     tbwd_kernels = (txb.BWD_KERNEL, txb.GRAD_KERNEL, txb.GRAD_COMPACT_KERNEL,
-                    txb.GRAD_SEGMENT_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL, pb.SCATTER_KERNEL)
+                    txb.GRAD_SEGMENT_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL) + b4_kernels
 
     def tgrads(view, size=res, uvs_=tuv, tex=ttex, boost=1.0):
         xs = [x.detach().clone().requires_grad_() for x in (view, uvs_, tex)]
@@ -1753,8 +1835,7 @@ def main():
         raise AssertionError("scatter_rows not bitwise repeatable")
     scatter_rows_err = ulp_check(srows, scatter.scatter_add_by_id_plain(rid9, g9, R11),
                                  "scatter_rows")
-    ent11 = scatter.entries(rid9, g9, R11)
-    n_live = int(ent11[0].shape[0])
+    n_live = int(((rid9 >= 0) & (rid9 < R11) & (g9 != 0).any(0)).sum())
     # Every other covered pixel on row 0: one triangle with ~0.9 M entries.
     even = torch.arange(N, device=dev) % 2 == 0
     hot_ids = torch.where((rid9 < R11) & even, 0, rid9).to(torch.int32)
@@ -1763,24 +1844,56 @@ def main():
         raise AssertionError("scatter_rows (hot row) not bitwise repeatable")
     hot_err = ulp_check(hot, scatter.scatter_add_by_id_plain(hot_ids, g9, R11),
                         "scatter_rows (hot row)")
-    hot_n = int(scatter.entries(hot_ids, g9, R11)[1][1])
-    srows_ms = cuda_ms(torch, lambda: scatter.scatter_entries(*ent11, g9), 50)
-    sglue_ms = cuda_ms(torch, lambda: scatter.entries(rid9, g9, R11), 20)
+    hot_n = int(((hot_ids == 0) & (g9 != 0).any(0)).sum())
+    # Random ids: nothing to reduce within a chunk.
+    rnd_ids = torch.from_numpy(np.random.default_rng(11).integers(0, R11, N).astype(
+        np.int32)).to(dev)
+    rnd = scatter.scatter_add_by_id(rnd_ids, g9, R11)
+    if not torch.equal(rnd, scatter.scatter_add_by_id(rnd_ids, g9, R11)):
+        raise AssertionError("scatter_rows (random ids) not bitwise repeatable")
+    rnd_err = ulp_check(rnd, scatter.scatter_add_by_id_plain(rnd_ids, g9, R11),
+                        "scatter_rows (random ids)")
+    rnd_all_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id(rnd_ids, g9, R11), 10)
+    hot_all_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id(hot_ids, g9, R11), 20)
+    # The partials against their twin on 65,536 columns across the sphere,
+    # coherent and random.
+    mid = slice(N // 2 - 32768, N // 2 + 32768)
+    for what, ids_ in (("raster rows", rid9[mid]), ("random ids", rnd_ids[mid])):
+        vals_ = g9[:, mid].contiguous()
+        partials_equal_or_raise(torch, scatter.chunk_partials(ids_, vals_, R11),
+                                scatter.chunk_partials_plain(ids_, vals_, R11), scatter.CAP,
+                                f"scatter_rows {what}, 65,536 columns")
+    st11, (scompact_err, sseg_err), (_, _, scounts) = reduction_stages(
+        torch, dev, scatter.chunk_tiles(rid9, g9, R11), R11, scatter.SEGMENT_KERNEL,
+        scatter.SUM_KERNEL)
+    n_part11 = int(scounts.sum())
+    n_inrange11 = int(((rid9 >= 0) & (rid9 < R11)).sum())
+    srows_ms = st11["tiles pass 1"]
+    chunks_plain_ms = cuda_ms(torch, lambda: scatter.chunk_partials_plain(rid9, g9, R11), 1)
+    srows_all_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id(rid9, g9, R11), 20)
     srows_plain_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id_plain(rid9, g9, R11), 5)
+    n_sync11 = host_syncs(lambda: scatter.scatter_add_by_id(rid9, g9, R11))
+    if n_sync11 > 1:
+        raise AssertionError(f"scatter_rows synced with the host {n_sync11} times")
     live9 = rid9 < R11
     lrow, lval = rid9[live9].long(), g9[:, live9].T.contiguous()
     zrows = torch.zeros((R11, 9), dtype=torch.float32, device=dev)
     srows_lib_ms = cuda_ms(torch, lambda: zrows.index_add_(0, lrow, lval), 50)
     log(f"[11] scatter_rows {RES}^2 (rasterize backward rows, K = 9): {n_live} live "
-        f"entries over {R11} rows, within 1 ulp of its float64 twin (max|err| "
-        f"{scatter_rows_err:.3g}), bitwise repeatable; hot row of {hot_n} entries within "
-        f"1 ulp (max|err| {hot_err:.3g}); kernel {srows_ms:.3f} ms + index glue "
-        f"{sglue_ms:.3f} ms, twin {srows_plain_ms:.3f} ms, index_add_ {srows_lib_ms:.3f} ms "
-        f"({card})")
+        f"columns over {R11} rows, {n_part11} (id, chunk) partials; within 1 ulp of its "
+        f"float64 twin (max|err| {scatter_rows_err:.3g}), bitwise repeatable; hot row of "
+        f"{hot_n} columns within 1 ulp (max|err| {hot_err:.3g}), in all {hot_all_ms:.3f} ms "
+        f"(before: {BEFORE_MS['scatter_rows_hot']}); random ids within 1 ulp (max|err| "
+        f"{rnd_err:.3g}), in all {rnd_all_ms:.3f} ms (before: {BEFORE_MS['scatter_rows_random']}); "
+        f"in all {srows_all_ms:.3f} ms (before: {BEFORE_MS['scatter_rows']}), {n_sync11} "
+        "host sync; stages " + ", ".join(f"{k} {v:.4f}" for k, v in st11.items())
+        + f" ms; twin {srows_plain_ms:.3f} ms, index_add_ {srows_lib_ms:.3f} ms ({card})")
 
     # -- 12. the composed ops' training step: fwd + bwd at 2048^2 -------------
+    b10_kernels = (scatter.KERNEL, scatter.COMPACT_KERNEL, scatter.SEGMENT_KERNEL,
+                   scatter.SUM_KERNEL)
     op_kernels = (rc.DB_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
-                  gather.KERNEL, scatter.KERNEL)
+                  gather.KERNEL) + b10_kernels
 
     def ops_grads(view, colour, size):
         pv = view.detach().clone().requires_grad_()
@@ -1985,19 +2098,23 @@ def main():
         raise AssertionError("cube texture gradient not bitwise repeatable")
     cube_grad_err = ulp_check(cgrad, scatter.scatter_add_by_id_plain(cids, cvals, n_ctex),
                               "cube texture gradient")
-    cent = scatter.entries(cids, cvals, n_ctex)
-    n_ctaps = int(cent[0].shape[0])
-    cgrad_ms = cuda_ms(torch, lambda: scatter.scatter_entries(*cent, cvals), 20)
+    n_ctaps = int(((cids >= 0) & (cids < n_ctex) & (cvals != 0).any(0)).sum())
+    cmid = slice(N // 2 - 32768, N // 2 + 32768)  # corner 0's taps across the sphere
+    cmid_args = (cids[cmid], cvals[:, cmid].contiguous(), n_ctex)
+    partials_equal_or_raise(torch, scatter.chunk_partials(*cmid_args),
+                            scatter.chunk_partials_plain(*cmid_args), scatter.CAP,
+                            "cube taps, 65,536 columns")
+    n_cpart = int(scatter.chunk_partials(cids, cvals, n_ctex)[2].sum())
+    cgrad_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id(cids, cvals, n_ctex), 20)
     ctaps_ms = cuda_ms(torch, lambda: tcc.cube_grad_entries(ccols, cmeta, FILTER), 10)
-    cglue_ms = cuda_ms(torch, lambda: scatter.entries(cids, cvals, n_ctex), 10)
-    log(f"[14] cube texture gradient {RES}^2: {n_ctaps} live taps of {cids.shape[0]}, within "
-        f"1 ulp of its float64 twin (max|err| {cube_grad_err:.3g}), bitwise repeatable; "
-        f"scatter_rows {cgrad_ms:.3f} ms + taps {ctaps_ms:.3f} ms + index glue "
-        f"{cglue_ms:.3f} ms ({card})")
+    log(f"[14] cube texture gradient {RES}^2: {n_ctaps} live taps of {cids.shape[0]}, "
+        f"{n_cpart} (texel, chunk) partials, within 1 ulp of its float64 twin (max|err| "
+        f"{cube_grad_err:.3g}), bitwise repeatable; scatter_rows in all {cgrad_ms:.3f} ms "
+        f"(before: {BEFORE_MS['scatter_rows_cube']}) + taps {ctaps_ms:.3f} ms ({card})")
 
     # The cube texture op, fwd + bwd (gradients to the map, uv and uv_da)
     # on the 8 views: the main path of B12.
-    cube_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, scatter.KERNEL)
+    cube_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL) + b10_kernels
 
     def cube_step(uv, uv_da, tex=env):
         xs = [x.detach().clone().requires_grad_() for x in (tex, uv, uv_da)]
@@ -2181,9 +2298,27 @@ def main():
                         (120 + 21 * A) * N)
     bwd_bound = bound((atbl_s.numel() + vtbl.numel() + (5 + 2 * A) * N + (A + 13) * N) * f32,
                       (80 + 20 * A) * N)
-    scatter_bound = bound((n_own * (A + 9 + 3) + n_aa * 3 + 9 * (R + 1) + (R + 1)
-                           + R * (3 * A + 18)) * f32,
-                          n_own * (6 * A + 11) + n_aa * 60)
+    # grad_scatter's tiles pass reads rid0, dd2 and the gs column of every
+    # pixel (to its first non-zero row where live, all of it where not; the
+    # rest of a live one in the walk), b0, b1 of the live own pixels, rid2
+    # and ax of the kept pairs and a vtbl row a partial, writes each partial
+    # (its row and 3A+18 float64 sums), ~(6A + 11) operations an own entry
+    # and ~60 a pair; in all, the partials are read back once more and the
+    # [R, 3A+18] rows written. The second run moves the partials (read and
+    # write), the segment starts read the sorted rows, the sums read each
+    # partial with its sorted position and write the rows.
+    def scatter_bounds(n_pix, n_rows_a, n_own_, n_aa_, n_part_, R_, W_, n_tiles_, extra):
+        pix = (3 + n_rows_a + extra) * n_pix + 2 * n_own_ + 2 * n_aa_ + 9 * n_part_
+        part = n_part_ * (4 + 8 * W_)
+        ops = n_own_ * (2 * W_ - 25 + 2 * extra) + n_aa_ * 60
+        return (bound(pix * f32 + part, ops),
+                bound(pix * f32 + 2 * part + R_ * W_ * f32, ops + n_part_ * W_),
+                bound(2 * part + n_tiles_ * 12, 0),
+                bound((n_part_ + R_ + 1) * f32, 0),
+                bound(n_part_ * 8 + part + (R_ + 1) * f32 + R_ * W_ * f32, n_part_ * W_))
+
+    scatter_bound, scatter_all_bound, gcompact_bound, gseg_bound, gsum_bound = scatter_bounds(
+        N, A + 9, n_own, n_aa, n_part, R, 3 * A + 18, gcounts.numel(), 0)
     # Textured forward (bench textured scene, one frame): the db variant
     # writes 8 images; interpolate reads 7 flats and the uv table, writes
     # uv and 4 derivatives; the sampler reads u, v, flevel and the
@@ -2225,21 +2360,29 @@ def main():
     lin_bwd_bound = bound(((3 + C + 3) * N + TEX_SIZE * TEX_SIZE * C) * f32, N * (40 + 14 * C))
     b14_bound = bound((iargs9[0].numel() + vtbl9.numel() + 16 * N + 10 * n_valid9) * f32,
                       220 * n_valid9)
-    da4_bound = bound((n_own9 * (2 + 9 + 3 + 4) + n_aa9 * 3 + 9 * (R9 + 1) + (R9 + 1)
-                       + R9 * (6 + 18)) * f32, n_own9 * (6 * 2 + 11 + 8) + n_aa9 * 60)
+    da4_bound, da4_all_bound = scatter_bounds(N, 11, n_own9, n_aa9, n_part9, R9, 24,
+                                              gcounts9.numel(), 4)[:2]
 
     # Standalone ops' backward: aa_bwd reads dy, colour (own and
     # neighbours'), id and 4 residuals, writes g_color, 2 rows and the dense
     # 18 pair columns, ~20 operations a pixel and ~60 a kept pair;
     # interp_bwd reads u, v, id, A cotangents and the table, writes 2 + 3A
     # rows, ~10A operations a pixel; table_take reads the ids and the table,
-    # writes 9 rows; scatter_rows reads each live entry's code and 9 values
-    # and the segment tables, writes [R, 9], 9 float64 adds an entry.
+    # writes 9 rows; scatter_rows' chunks pass reads the ids and the K values
+    # of the columns with an id in range, writes each partial (its id and K
+    # float64 sums), K float64 adds a live column; in all, the partials are
+    # read back once more and the [R, K] rows written; its second run, the
+    # segment starts and the sums as grad_scatter's.
     aabwd_bound = bound((vtbl11.numel() + (2 * A + 5) * N + (A + 20) * N) * f32,
                         20 * N + 60 * n_kept)
     ibwd_bound = bound((atbl11.numel() + (3 + A) * N + (2 + 3 * A) * N) * f32, 10 * A * N)
     take_bound = bound((vtbl11.numel() + N + 9 * N) * f32, 0)
-    srows_bound = bound((n_live * 10 + 2 * (R11 + 1) + R11 * 9) * f32, 9 * n_live)
+    spart = n_part11 * (4 + 8 * 9)
+    srows_bound = bound((N + 9 * n_inrange11) * f32 + spart, 9 * n_live)
+    srows_all_bound = bound((N + 9 * n_inrange11 + R11 * 9) * f32 + 2 * spart, 9 * n_live)
+    scompact_bound = bound(2 * spart + scounts.numel() * 12, 0)
+    sseg_bound = bound((n_part11 + R11 + 1) * f32, 0)
+    ssum_bound = bound(n_part11 * 8 + spart + (R11 + 1 + R11 * 9) * f32, 9 * n_part11)
 
     # Cube sampler: reads finite of every pixel, and s, t, face, tz (flevel
     # under a mip filter; C cotangents in the backward) of the valid
@@ -2253,10 +2396,14 @@ def main():
     cube_bwd_bound = bound((N + cvalid_words + 3 * n_cvalid + n_ctex * 3 + 3 * N) * f32,
                            n_creads * (40 + 14 * 3))
 
-    def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib):
-        return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+    def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib,
+              all_ms=None, all_bnd=None):
+        e = {"name": name, "route": route, "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+        if all_ms is not None:  # the whole reduction: its glue and every stage
+            e.update(all_ms=all_ms, all_bound_ms=all_bnd[0], all_bound_by=all_bnd[1])
+        return e
 
     # -- 16. the rest of the rasterizer: peel, range, bands, binning -----------
     phase16_kernels = phase16(dev, card, entry)
@@ -2273,7 +2420,21 @@ def main():
               bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None),
         entry("grad_scatter", "cuda", "nvdiffrast_tpu_torch/csrc/grad_scatter.cu",
               "nvdiffrast_tpu/ops/pipeline_pallas.py:535", fit_launches[pb.SCATTER_KERNEL.name],
-              scatter_err, scatter_ms, scatter_plain_ms, scatter_bound, scatter_lib_ms),
+              scatter_err, scatter_ms, partials_plain_ms, scatter_bound, scatter_lib_ms,
+              scatter_all_ms, scatter_all_bound),
+        entry("grad_scatter_compact", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:535",
+              fit_launches[pb.SCATTER_COMPACT_KERNEL.name], gcompact_err,
+              st5["pass 2 (compact, tiles over the cap)"], partials_plain_ms, gcompact_bound,
+              None),
+        entry("grad_scatter_segments", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:535",
+              fit_launches[pb.SCATTER_SEGMENT_KERNEL.name], gseg_err, st5["segment starts"],
+              scatter_plain_ms, gseg_bound, None),
+        entry("grad_scatter_sum", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
+              "nvdiffrast_tpu/ops/pipeline_pallas.py:535",
+              fit_launches[pb.SCATTER_SUM_KERNEL.name], scatter_err, st5["sums"],
+              scatter_plain_ms, gsum_bound, None),
         entry("rasterize_db", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", tex_launches[rc.DB_KERNEL.name],
               db_err, db_ms, db_plain_ms, db_bound, None),
@@ -2321,7 +2482,7 @@ def main():
         entry("grad_scatter_da4", "cuda", "nvdiffrast_tpu_torch/csrc/grad_scatter.cu",
               "nvdiffrast_tpu/ops/pipeline_pallas.py:535",
               ttrain_launches[pb.SCATTER_KERNEL.name], da4_err, da4_ms, da4_plain_ms,
-              da4_bound, da4_lib_ms),
+              da4_bound, da4_lib_ms, da4_all_ms, da4_all_bound),
         entry("interp_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/interpolate_bwd.cu",
               "nvdiffrast_tpu/ops/interpolate_pallas.py:163", ops_launches[ic.BWD_KERNEL.name],
               ibwd_err, ibwd_ms, ibwd_plain_ms, ibwd_bound, None),
@@ -2333,7 +2494,18 @@ def main():
               take_err, take_ms, take_plain_ms, take_bound, take_lib_ms),
         entry("scatter_rows", "cuda", "nvdiffrast_tpu_torch/csrc/scatter_rows.cu",
               "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.KERNEL.name],
-              scatter_rows_err, srows_ms, srows_plain_ms, srows_bound, srows_lib_ms),
+              scatter_rows_err, srows_ms, chunks_plain_ms, srows_bound, srows_lib_ms,
+              srows_all_ms, srows_all_bound),
+        entry("scatter_rows_compact", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.COMPACT_KERNEL.name],
+              scompact_err, st11["pass 2 (compact, tiles over the cap)"], chunks_plain_ms,
+              scompact_bound, None),
+        entry("scatter_rows_segments", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.SEGMENT_KERNEL.name],
+              sseg_err, st11["segment starts"], srows_plain_ms, sseg_bound, None),
+        entry("scatter_rows_sum", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.SUM_KERNEL.name],
+              scatter_rows_err, st11["sums"], srows_plain_ms, ssum_bound, None),
         entry("texture_cube_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.FWD_KERNEL.name],
               cube_fwd_err, cube_fwd_ms, cube_fwd_plain_ms, cube_fwd_bound, None),

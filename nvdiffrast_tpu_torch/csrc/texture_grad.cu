@@ -47,25 +47,23 @@
 //           a scratch;
 //   (the wrapper scans the counts and reads the total back to the host
 //           once, to allocate the entries: the one host sync)
-//   compact moves each tile's entries from its scratch slots to its scan
-//           offset, in run order, and the tiles kernel runs again for
-//           the few tiles of more than CAP entries, writing there
-//           directly (the others return at once);
+//   compact (segment_sum.cu) moves each tile's entries from its scratch
+//           slots to its scan offset, in run order, and the tiles kernel
+//           runs again for the few tiles of more than CAP entries,
+//           writing there directly (the others return at once);
 //   (a stable torch.sort of the entries' int32 texels: texel-major, then
 //           tile, then run, as the entries were written tile-major)
 //   segment_starts (raster_bin.cu) the first entry of every texel;
-//   runs    one thread per RUN consecutive sorted entries sums each
-//           texel's stretch within them in float64, in sorted order;
-//   texels  one thread per texel adds its stretches' sums in ascending
-//           order and rounds to float32 once; a texel of more than 32
-//           stretches takes its whole warp.
+//   sums    (segment_sum.cu) each texel's entries added in float64 in
+//           sorted order, by stretches of 16 and then per texel, and
+//           rounded to float32 once; a hot texel takes a whole warp.
 // Every float64 sum has a fixed order given the inputs (the sort is
 // stable; lanes and runs are fixed partitions of sorted positions),
 // so the result is bitwise repeatable; the twin texture_grad_plain sums
 // the same float32 tap values with float64 index_add_ and rounds once,
 // so the two agree within 1 float32 ulp. A hot texel (the 4 background
-// texels collect an entry from each of ~9,000 tiles) costs the texels
-// pass E / (32 RUN) loads a lane, not E.
+// texels collect an entry from each of ~9,000 tiles) costs the sums
+// E / (32 * 16) loads a lane, not E.
 //
 // Bytes: u, v, flevel and C cotangents of every pixel, the entries (4 +
 // 8C bytes each, written, moved, sorted, read back) and the [n_texels, C]
@@ -91,8 +89,6 @@ constexpr int NT = TILE * TILE;    // threads a block, one pixel each
 constexpr int CODES = 8;           // taps a pixel: (slot, dv, du)
 constexpr int ITEMS = NT * CODES;  // taps a tile
 constexpr int CAP = 64;            // entries a tile keeps in the scratch (GRAD_CAP)
-constexpr int RUN = 16;            // sorted entries a thread of the runs pass sums
-constexpr int BLOCK = 256;
 
 // One mip slot of a pixel (lattice_setup_sep): its level, the base cell
 // (jv, ju) of its 2x2 corners before wrap / clamp, the fractions and the
@@ -483,113 +479,6 @@ tex_grad_tiles(const float* __restrict__ u, const float* __restrict__ v,
     }
 }
 
-// The first pass's entries, moved from each tile's CAP scratch slots to
-// its offset (the tiles of more than CAP entries are the second pass's).
-template <int C>
-__global__ void __launch_bounds__(CAP)
-tex_grad_compact(const int* __restrict__ counts, const long long* __restrict__ offsets,
-                 const int* __restrict__ texel_s, const double* __restrict__ part_s,
-                 int* __restrict__ texel_out, double* __restrict__ part_out) {
-    const int n = counts[blockIdx.x];
-    const int r = threadIdx.x;
-    if (n > CAP || r >= n) return;
-    const long long src = static_cast<long long>(blockIdx.x) * CAP + r;
-    const long long dst = offsets[blockIdx.x] + r;
-    texel_out[dst] = texel_s[src];
-#pragma unroll
-    for (int c = 0; c < C; ++c) part_out[dst * C + c] = part_s[src * C + c];
-}
-
-// Entry texels [E] sorted stably (so texel-major, then tile, then the
-// tile's order), perm [E] their rows of part -> pp[q] at every q that
-// ends its texel's stretch within its block of RUN sorted positions: the
-// float64 sum of those entries, in sorted order.
-template <int C>
-__global__ void __launch_bounds__(BLOCK)
-tex_grad_runs(const int* __restrict__ stexel, const long long* __restrict__ perm, long long E,
-              const double* __restrict__ part, double* __restrict__ pp) {
-    const long long lo = (static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x) * RUN;
-    if (lo >= E) return;
-    double acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.0;
-    int cur = stexel[lo];
-#pragma unroll
-    for (int i = 0; i < RUN; ++i) {
-        const long long q = lo + i;
-        if (q < E) {
-            const long long e = perm[q];
-#pragma unroll
-            for (int c = 0; c < C; ++c) acc[c] += part[e * C + c];
-            const int nxt = (i + 1 < RUN && q + 1 < E) ? stexel[q + 1] : -1;
-            if (nxt != cur) {
-#pragma unroll
-                for (int c = 0; c < C; ++c) {
-                    pp[q * C + c] = acc[c];
-                    acc[c] = 0.0;
-                }
-                cur = nxt;
-            }
-        }
-    }
-}
-
-// One thread per texel: its stretches' sums (pp at the stretch ends, one
-// per RUN block of its sorted entries [starts[t], starts[t+1])), in
-// ascending order, rounded to float32 once; 0 for a texel without taps.
-// A texel of more than 32 stretches (the background's hot texels) is
-// summed by its whole warp: lane l takes stretches l, l+32, ..., then the
-// fixed butterfly.
-template <int C>
-__global__ void __launch_bounds__(BLOCK)
-tex_grad_texels(const int* __restrict__ starts, const double* __restrict__ pp,
-                float* __restrict__ out, int n_texels) {
-    const int t = blockIdx.x * BLOCK + threadIdx.x;
-    const int lane = threadIdx.x & 31;
-    long long s = 0, e = 0;
-    if (t < n_texels) {
-        s = starts[t];
-        e = starts[t + 1];
-    }
-    const long long m0 = s / RUN, m1 = e > s ? (e - 1) / RUN : m0 - 1;
-    const bool lng = m1 - m0 + 1 > 32;
-    double acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.0;
-    if (!lng) {
-        for (long long m = m0; m <= m1; ++m) {
-            const long long tail = min(e, (m + 1) * RUN) - 1;
-#pragma unroll
-            for (int c = 0; c < C; ++c) acc[c] += pp[tail * C + c];
-        }
-    }
-    unsigned todo = __ballot_sync(0xffffffffu, lng);
-    while (todo) {
-        const int src = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const long long ss = __shfl_sync(0xffffffffu, s, src);
-        const long long ee = __shfl_sync(0xffffffffu, e, src);
-        double part[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) part[c] = 0.0;
-        for (long long m = ss / RUN + lane; m <= (ee - 1) / RUN; m += 32) {
-            const long long tail = min(ee, (m + 1) * RUN) - 1;
-#pragma unroll
-            for (int c = 0; c < C; ++c) part[c] += pp[tail * C + c];
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-            part[c] = warp_sum(part[c]);
-            if (lane == src) acc[c] = part[c];
-        }
-    }
-    if (t < n_texels) {
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-            out[static_cast<size_t>(t) * C + c] = static_cast<float>(acc[c]);
-    }
-}
-
 bool bad_args(int B, int H, int W, int L, int boundary, int filter) {
     return L < 1 || L > MAX_LEVELS || boundary < 0 || boundary > 2 || filter < 0 || filter > 2 ||
            B <= 0 || H <= 0 || W <= 0;
@@ -615,7 +504,7 @@ extern "C" int nvdr_texture_grad_tiles(const float* u, const float* v, const flo
     const Levels lv = levels_from_meta(meta, L);
     const int N = B * H * W;
     const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-    const unsigned n_tiles = grid.x * grid.y * grid.z;
+    const int n_tiles = static_cast<int>(grid.x * grid.y * grid.z);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NVDR_TEX_TILES_CASE(n)                                                                \
     case n:                                                                                   \
@@ -624,8 +513,9 @@ extern "C" int nvdr_texture_grad_tiles(const float* u, const float* v, const flo
                                                   boundary, per_image, lv, nullptr, counts,   \
                                                   texel_s, part_s);                           \
         } else {                                                                              \
-            tex_grad_compact<n><<<n_tiles, CAP, 0, s>>>(counts, offsets, texel_s, part_s,     \
-                                                        texel, partial);                      \
+            const int err = nvdr_segment_compact(counts, offsets, n_tiles, CAP, n, texel_s,   \
+                                                 part_s, texel, partial, s);                  \
+            if (err != 0) return err;                                                         \
             tex_grad_tiles<n><<<grid, NT, 0, s>>>(u, v, flevel, gc, N, H, W, L, filter,       \
                                                   boundary, per_image, lv, offsets, counts,   \
                                                   texel, partial);                            \
@@ -644,39 +534,5 @@ extern "C" int nvdr_texture_grad_tiles(const float* u, const float* v, const flo
             return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef NVDR_TEX_TILES_CASE
-    return static_cast<int>(cudaGetLastError());
-}
-
-// stexel [E] the entries' texels, sorted stably, perm [E] int64 their rows
-// of partial [E, C] float64, starts [n_texels + 1] int32 (segment_starts
-// of stexel)
-// -> pp [max(E, 1), C] float64 scratch, out [n_texels, C] float32.
-extern "C" int nvdr_texture_grad_sum(const int* stexel, const long long* perm, long long E,
-                                     const int* starts, const double* partial,
-                                     double* pp, float* out, int n_texels, int C, void* stream) {
-    if (n_texels <= 0) return static_cast<int>(cudaGetLastError());
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long long runs = (E + RUN - 1) / RUN;
-    const unsigned grid1 = static_cast<unsigned>((runs + BLOCK - 1) / BLOCK);
-    const unsigned grid2 = static_cast<unsigned>((n_texels + BLOCK - 1) / BLOCK);
-#define NVDR_TEX_SUM_CASE(n)                                                               \
-    case n:                                                                                \
-        if (E > 0)                                                                         \
-            tex_grad_runs<n><<<grid1, BLOCK, 0, s>>>(stexel, perm, E, partial, pp);  \
-        tex_grad_texels<n><<<grid2, BLOCK, 0, s>>>(starts, pp, out, n_texels);             \
-        break;
-    switch (C) {
-        NVDR_TEX_SUM_CASE(1)
-        NVDR_TEX_SUM_CASE(2)
-        NVDR_TEX_SUM_CASE(3)
-        NVDR_TEX_SUM_CASE(4)
-        NVDR_TEX_SUM_CASE(5)
-        NVDR_TEX_SUM_CASE(6)
-        NVDR_TEX_SUM_CASE(7)
-        NVDR_TEX_SUM_CASE(8)
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef NVDR_TEX_SUM_CASE
     return static_cast<int>(cudaGetLastError());
 }

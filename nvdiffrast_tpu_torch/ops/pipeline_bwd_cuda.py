@@ -8,13 +8,17 @@ Counterparts of ``pipeline_bwd`` and ``pipeline_grad_scatter`` in
   slim stream gs [A+9, N] (post-AA colour gradient, 9 raster vertex
   columns), the per-axis AA colour-dot weights dd2 [2, N] and the pair
   rows rid2 [2, N]. ``pipeline_bwd_plain`` is its twin, bit for bit.
-* ``grad_scatter`` (kernel ``csrc/grad_scatter.cu``): reduces that
-  stream to per-triangle rows, expanding the bary outer product and
-  replaying the AA position gradients (``antialias.pair_pos_grad``) on
-  the way (and, for the textured chain, the uv_da terms ``da4``), with
-  float64 sums in a fixed order. ``grad_scatter_plain``
-  expands with tensor ops and sums with ``index_add_`` in float64; the
-  two agree to float64 rounding (<= 1 float32 ulp).
+* ``grad_scatter`` (kernels ``csrc/grad_scatter.cu``, then the shared
+  ``csrc/segment_sum.cu`` sums of ``segments``): reduces that stream to
+  per-triangle rows, expanding the bary outer product and replaying the
+  AA position gradients (``antialias.pair_pos_grad``) on the way (and,
+  for the textured chain, the uv_da terms ``da4``). Each 16x16 screen
+  tile sums its own entries by row in shared memory into float64
+  partials (``scatter_partials``); only those are sorted by row and
+  added, in a fixed order, with one host sync (the partials' count).
+  ``tile_partials_plain`` is the plain twin of the partials, bit for
+  bit; ``grad_scatter_plain`` expands with tensor ops and sums with
+  ``index_add_`` in float64; the two agree to float64 rounding.
 
 Each wrapper runs the twin for CPU tensors and launches its kernel for
 CUDA tensors (built at first use), or raises.
@@ -25,6 +29,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import segments
 from .antialias import _pixel_grid, decode_aux, pair_pos_grad
 from .pipeline_cuda import MAX_A, _folded, _roll_next
 
@@ -35,8 +40,18 @@ BWD_KERNEL = _build.Kernel(
 
 SCATTER_KERNEL = _build.Kernel(
     "nvdr_grad_scatter",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 5 + [ctypes.c_float] * 4)
+# The second pass of the same entry: the scratch moved into place, and
+# the tiles of more than SCATTER_CAP rows computed again.
+SCATTER_COMPACT_KERNEL = _build.Kernel("nvdr_grad_scatter_compact", SCATTER_KERNEL.argtypes,
+                                       symbol="nvdr_grad_scatter")
+SCATTER_SEGMENT_KERNEL = _build.Kernel("nvdr_grad_scatter_segments", segments.SEGMENT_ARGS,
+                                       symbol="nvdr_segment_starts")
+SCATTER_SUM_KERNEL = _build.Kernel("nvdr_grad_scatter_sum", segments.SUM_ARGS,
+                                   symbol="nvdr_segment_sums")
+SCATTER_TILE = 16  # screen tile of the pre-reduction (csrc/grad_scatter.cu TILE)
+SCATTER_CAP = 16   # partials a tile keeps in the first pass's scratch (csrc/grad_scatter.cu CAP)
 
 
 def _device_of(t, what):
@@ -233,24 +248,6 @@ def _own_live(gs, da4):
     return live if da4 is None else live | (da4 != 0.0).any(0)
 
 
-def _entries(rid0, gs, dd2, rid2, R, da4=None):
-    """Live entries grouped by table row (index glue of the kernel).
-
-    Returns (codes [M] int32, off [R+1] int32): codes type*N + p (type 0
-    own pixel, live where its gs or da4 column is non-zero; 1 + d AA
-    axis d) stable-sorted by row, so each row's entries are its own
-    pixels, then its axis-0 pairs, then its axis-1 pairs, each in pixel
-    order; row r holds codes[off[r]:off[r+1]].
-    """
-    live = torch.stack([_own_live(gs, da4), dd2[0] != 0.0, dd2[1] != 0.0])
-    codes = torch.nonzero(live.reshape(-1)).squeeze(1)
-    keys = torch.stack([rid0, rid2[0], rid2[1]]).reshape(-1)[codes]
-    keys, order = torch.sort(keys, stable=True)
-    rows = torch.arange(R + 1, dtype=keys.dtype, device=keys.device)
-    off = torch.searchsorted(keys, rows, out_int32=True)
-    return codes[order].to(torch.int32), off
-
-
 def grad_scatter(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
                  da4=None):
     """Per-pixel gradient rows -> per-triangle rows.
@@ -273,6 +270,24 @@ def grad_scatter(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
     if _device_of(gs, "grad_scatter") == "cpu":
         return grad_scatter_plain(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl,
                                   resolution, da4)
+    row, partial, _ = scatter_partials(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl,
+                                       resolution, da4)
+    K = 3 * (gs.shape[0] - 9) + 9  # gt's columns
+    out = segments.row_sums(row, partial, vtbl.shape[1] - 1, SCATTER_SEGMENT_KERNEL,
+                            SCATTER_SUM_KERNEL)
+    return out[:, :K], out[:, K:]
+
+
+def _tile_grid(N, resolution):
+    """(tiles in x, tiles in y, tiles in all) of the 16x16 screen tiles."""
+    H, W = resolution
+    ntx, nty = -(-W // SCATTER_TILE), -(-H // SCATTER_TILE)
+    return ntx, nty, N // (H * W) * ntx * nty
+
+
+def scatter_tiles(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution, da4=None):
+    """(launch, tiles, 3A+18, cap): the tiles pass of csrc/grad_scatter.cu
+    on CUDA tensors, as ``segments.tile_partials`` runs it."""
     H, W = resolution
     rid0, gs, dd2, rid2, vtbl = (t.contiguous()
                                  for t in (rid0, gs, dd2, rid2, vtbl))
@@ -280,29 +295,31 @@ def grad_scatter(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
     da4 = None if da4 is None else da4.contiguous()
     A, N, R = _check_scatter(rid0, gs, dd2, rid2, flats, vtbl, resolution, da4)
     if 3 * N >= 2 ** 31:
-        raise ValueError(f"grad_scatter: {N} pixels exceed the int32 entry "
-                         "codes (3*N < 2**31)")
-    codes, off = _entries(rid0, gs, dd2, rid2, R, da4)
-    return scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution, da4)
+        raise ValueError(f"grad_scatter: {N} pixels exceed the int32 partial "
+                         "count (3*N < 2**31)")
+    dims = (N // (H * W), H, W, R, A, 0.5 - 0.5 * W, 0.5 - 0.5 * H, 0.5 * W, 0.5 * H)
+
+    def launch(offsets, counts, row_s, part_s, row, partial):
+        kernel = SCATTER_KERNEL if offsets is None else SCATTER_COMPACT_KERNEL
+        kernel.launch(gs.device, *(None if x is None else _build.ptr(x) for x in (
+            rid0, gs, dd2, rid2, *flats, da4, vtbl)), vtbl.shape[1],
+            *(None if x is None else _build.ptr(x) for x in (
+                offsets, counts, row_s, part_s, row, partial)), *dims)
+
+    return launch, _tile_grid(N, resolution)[2] if R else 0, 3 * A + 18, SCATTER_CAP
 
 
-def scatter_entries(codes, off, gs, dd2, flats, vtbl, resolution, da4=None):
-    """Launch the grad_scatter kernel on entries from `_entries`:
-    (gt [R, 3A+9], gaa [R, 9]). `flats` = (b0, b1, ax0, ax1)."""
-    H, W = resolution
-    A = gs.shape[0] - 9
-    N = gs.shape[1]
-    R = vtbl.shape[1] - 1
-    dev = gs.device
-    gt = torch.empty((R, 3 * A + 9), dtype=torch.float32, device=dev)
-    gaa = torch.empty((R, 9), dtype=torch.float32, device=dev)
-    SCATTER_KERNEL.launch(dev, _build.ptr(off), _build.ptr(codes), _build.ptr(gs),
-                          _build.ptr(dd2), *(_build.ptr(t) for t in flats),
-                          None if da4 is None else _build.ptr(da4),
-                          _build.ptr(vtbl), vtbl.shape[1], _build.ptr(gt),
-                          _build.ptr(gaa), N, R, A, H, W, 0.5 - 0.5 * W,
-                          0.5 - 0.5 * H, 0.5 * W, 0.5 * H)
-    return gt, gaa
+def scatter_partials(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
+                     da4=None):
+    """The per-tile pre-reduction on CUDA tensors (csrc/grad_scatter.cu,
+    two passes around the one host sync): (row [E] int32, partial [E,
+    3A+18] float64, counts [tiles] int32), tile-major, each tile's rows
+    ascending: tile (b * nty + ty) * ntx + tx holds counts[tile]
+    partials, the sums of its live entries of one row (columns 0..3A+8
+    gt's, 3A+9.. gaa's)."""
+    return segments.tile_partials(*scatter_tiles(rid0, gs, dd2, rid2, b0, b1, ax0, ax1,
+                                                 vtbl, resolution, da4),
+                                  gs.device, "grad_scatter")
 
 
 def expand_rows(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
@@ -356,3 +373,34 @@ def grad_scatter_plain(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl,
         0, own_rows.long(), own.double())
     gaa = torch.zeros((R, 9), **f64).index_add_(0, aa_rows.long(), aa.double())
     return gt.float(), gaa.float()
+
+
+def tile_partials_plain(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
+                        da4=None):
+    """Plain twin of ``scatter_partials``: (row [E], tile [E], partial
+    [E, 3A+18] float64, entries [E]) in the kernel's order (tile, then
+    row), each partial the kernel's bit for bit: a tile's live entries
+    of one row (own pixel, then its AA pairs of axis 0 and 1, per pixel
+    in pixel order) expanded as ``expand_rows`` and summed as
+    ``segments.run_sums``. Rows must lie in [0, R)."""
+    H, W = resolution
+    A = gs.shape[0] - 9
+    N = rid0.shape[0]
+    K = 3 * A + 9
+    (orow, own), (arow, aav) = expand_rows(rid0, gs, dd2, rid2, b0, b1, ax0, ax1,
+                                           vtbl, resolution, da4)
+    opix = torch.nonzero(_own_live(gs, da4)).squeeze(1)
+    apix = [torch.nonzero(dd2[d] != 0.0).squeeze(1) for d in (0, 1)]
+    pix = torch.cat([opix] + apix)
+    item = torch.cat([torch.zeros_like(opix), torch.ones_like(apix[0]),
+                      torch.full_like(apix[1], 2)])
+    vals = torch.zeros((pix.shape[0], K + 9), dtype=torch.float32, device=gs.device)
+    vals[:opix.shape[0], :K] = own
+    vals[opix.shape[0]:, K:] = aav
+    ntx, nty, _ = _tile_grid(N, resolution)
+    y, x = (pix // W) % H, pix % W
+    tile = ((pix // (H * W)) * nty + y // SCATTER_TILE) * ntx + x // SCATTER_TILE
+    item = ((y % SCATTER_TILE) * SCATTER_TILE + x % SCATTER_TILE) * 3 + item
+    tile, row, partial, n = segments.run_sums(tile, torch.cat([orow, arow]).long(), item,
+                                              vals)
+    return row, tile, partial, n

@@ -45,7 +45,7 @@ import ctypes
 import torch
 
 from .. import _build
-from . import coord
+from . import coord, segments
 from .rasterize import _W_CLIP_EPS, _check_rasterize_args, _dop
 
 _BIG = 1e30
@@ -108,9 +108,7 @@ SETUP_KERNEL = _build.Kernel(
 BIN_EMIT_KERNEL = _build.Kernel(
     "nvdr_bin_emit", [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
     + [ctypes.c_void_p] * 2)
-SEGMENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_int] + [ctypes.c_void_p] * 4
-BIN_SEGMENT_KERNEL = _build.Kernel("nvdr_bin_segments", SEGMENT_ARGS,
+BIN_SEGMENT_KERNEL = _build.Kernel("nvdr_bin_segments", segments.SEGMENT_ARGS,
                                    symbol="nvdr_segment_starts")
 
 # The binned sweep launches the tiles longest list first (one sort of the

@@ -4,13 +4,17 @@
 Counterpart of ``nvdiffrast_tpu/ops/scatter.py`` (``scatter_add_by_id``;
 its Pallas kernel ``_scatter_pallas``): ``out[r, k]`` is the sum of
 ``vals_t[k, i]`` over the columns i with ``ids[i] == r``; ids outside
-[0, R) are dropped. ``scatter_add_by_id`` keys the live columns by id
-and stable-sorts them (index glue, ``entries``), then launches
-``csrc/scatter_rows.cu``, which sums each row's columns in float64 in
-pieces of ``PIECE`` and rounds once: no float atomics, the same bits on
-every run. ``scatter_add_by_id_plain`` sums with ``index_add_`` in
-float64; the two agree within 1 float32 ulp. The backwards of
-``rasterize``, ``interpolate`` and ``antialias`` end in it.
+[0, R) are dropped. On the card ``scatter_add_by_id`` launches
+``csrc/scatter_rows.cu``: each chunk of ``CHUNK`` consecutive columns
+sums its own live columns by id in shared memory into float64 partials
+(``chunk_partials``), which are sorted by id and added in a fixed order
+by the shared ``csrc/segment_sum.cu`` sums (``segments``), rounded
+once: no float atomics, the same bits on every run, one host sync (the
+partials' count). ``chunk_partials_plain`` is the plain twin of the
+partials, bit for bit; ``scatter_add_by_id_plain`` sums with
+``index_add_`` in float64; the two agree within 1 float32 ulp. The
+backwards of ``rasterize``, ``interpolate`` and ``antialias`` end in it,
+and it sums the cube and ``nearest`` texture taps.
 """
 
 import ctypes
@@ -18,12 +22,22 @@ import ctypes
 import torch
 
 from .. import _build
+from . import segments
 
 KERNEL = _build.Kernel(
     "nvdr_scatter_rows",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3)
+# The second pass of the same entry: the scratch moved into place, and
+# the chunks of more than CAP ids computed again.
+COMPACT_KERNEL = _build.Kernel("nvdr_scatter_rows_compact", KERNEL.argtypes,
+                               symbol="nvdr_scatter_rows")
+SEGMENT_KERNEL = _build.Kernel("nvdr_scatter_rows_segments", segments.SEGMENT_ARGS,
+                               symbol="nvdr_segment_starts")
+SUM_KERNEL = _build.Kernel("nvdr_scatter_rows_sum", segments.SUM_ARGS,
+                           symbol="nvdr_segment_sums")
 
-PIECE = 256  # entries per piece of a row's segment (csrc/scatter_rows.cu)
+CHUNK = 256  # consecutive columns a block pre-reduces (csrc/scatter_rows.cu CHUNK)
+CAP = 32     # partials a chunk keeps in the first pass's scratch (csrc/scatter_rows.cu CAP)
 
 
 def _check(ids, vals_t, num_rows):
@@ -38,26 +52,6 @@ def _check(ids, vals_t, num_rows):
         raise ValueError(f"scatter_add_by_id: num_rows {num_rows} < 0")
 
 
-def entries(ids, vals_t, num_rows):
-    """Index glue of the scatter_rows kernel.
-
-    Returns (codes [M] int32, off [R+1] int32, first [R+1] int32,
-    n_pieces): the live columns (id in [0, R) and a non-zero column; a
-    zero column adds exactly nothing to a sum that starts at +0) sorted
-    stably by id, so each row's columns are in column order; row r holds
-    codes[off[r]:off[r+1]], split into pieces of PIECE numbered
-    first[r] .. first[r+1]-1.
-    """
-    live = (ids >= 0) & (ids < num_rows) & (vals_t != 0.0).any(0)
-    codes = torch.nonzero(live).squeeze(1)
-    keys, order = torch.sort(ids[codes], stable=True)
-    rows = torch.arange(num_rows + 1, dtype=keys.dtype, device=keys.device)
-    off = torch.searchsorted(keys, rows, out_int32=True)
-    counts = (off[1:] - off[:-1] + (PIECE - 1)) // PIECE
-    first = torch.cat([off.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
-    return codes[order].to(torch.int32), off, first, int(first[-1])
-
-
 def scatter_add_by_id(ids, vals_t, num_rows):
     """out[r, k] = sum over i with ids[i] == r of vals_t[k, i].
 
@@ -67,29 +61,57 @@ def scatter_add_by_id(ids, vals_t, num_rows):
       num_rows: R.
 
     Returns [R, K] float32. CPU tensors run the plain twin; CUDA tensors
-    launch the kernel or raise.
+    launch the kernels or raise.
     """
     if vals_t.device.type == "cpu":
         return scatter_add_by_id_plain(ids, vals_t, num_rows)
     if vals_t.device.type != "cuda":
         raise ValueError(f"scatter_add_by_id: unsupported device {vals_t.device}")
+    ids, partial, _ = chunk_partials(ids, vals_t, num_rows)
+    return segments.row_sums(ids, partial, num_rows, SEGMENT_KERNEL, SUM_KERNEL)
+
+
+def chunk_tiles(ids, vals_t, num_rows):
+    """(launch, chunks, K, cap): the chunks pass of csrc/scatter_rows.cu
+    on CUDA tensors, as ``segments.tile_partials`` runs it."""
     _check(ids, vals_t, num_rows)
-    vals_t = vals_t.contiguous()
-    return scatter_entries(*entries(ids, vals_t, num_rows), vals_t)
-
-
-def scatter_entries(codes, off, first, n_pieces, vals_t):
-    """Launch the scatter_rows kernel on entries from ``entries``:
-    [R, K] float32."""
     K, N = vals_t.shape
-    R = off.shape[0] - 1
-    dev = vals_t.device
-    partial = torch.empty((max(n_pieces, 1), K), dtype=torch.float64, device=dev)
-    out = torch.empty((R, K), dtype=torch.float32, device=dev)
-    KERNEL.launch(dev, _build.ptr(codes), _build.ptr(off), _build.ptr(first),
-                  _build.ptr(vals_t), _build.ptr(partial), _build.ptr(out), R, n_pieces,
-                  N, K)
-    return out
+    if N >= 2 ** 31 - CHUNK:
+        raise ValueError(f"scatter_add_by_id: {N} columns; at most 2**31 - {CHUNK + 1}")
+    if num_rows == 0 or K == 0:
+        N = 0  # nothing to sum: no chunk
+    ids, vals_t = ids.contiguous(), vals_t.contiguous()
+
+    def launch(offsets, counts, id_s, part_s, id_, partial):
+        kernel = KERNEL if offsets is None else COMPACT_KERNEL
+        kernel.launch(vals_t.device, _build.ptr(ids), _build.ptr(vals_t),
+                      *(None if x is None else _build.ptr(x) for x in (
+                          offsets, counts, id_s, part_s, id_, partial)), N, K, num_rows)
+
+    return launch, -(-N // CHUNK), K, CAP
+
+
+def chunk_partials(ids, vals_t, num_rows):
+    """The per-chunk pre-reduction on CUDA tensors (csrc/scatter_rows.cu,
+    two passes around the one host sync): (id [E] int32, partial [E, K]
+    float64, counts [chunks] int32), chunk-major, each chunk's ids
+    ascending: chunk c (columns [CHUNK c, CHUNK (c + 1))) holds counts[c]
+    partials, the sums of its live columns of one id."""
+    return segments.tile_partials(*chunk_tiles(ids, vals_t, num_rows), vals_t.device,
+                                  "scatter_add_by_id")
+
+
+def chunk_partials_plain(ids, vals_t, num_rows):
+    """Plain twin of ``chunk_partials``: (id [E], chunk [E], partial [E,
+    K] float64, columns [E]) in the kernel's order (chunk, then id), each
+    partial the kernel's bit for bit: a chunk's live columns (id in
+    [0, R), a non-zero value) of one id, summed as ``segments.run_sums``."""
+    _check(ids, vals_t, num_rows)
+    live = (ids >= 0) & (ids < num_rows) & (vals_t != 0.0).any(0)
+    col = torch.nonzero(live).squeeze(1)
+    chunk, id_, partial, n = segments.run_sums(col // CHUNK, ids[col].long(), col % CHUNK,
+                                               vals_t[:, col].T)
+    return id_, chunk, partial, n
 
 
 def scatter_add_by_id_plain(ids, vals_t, num_rows):

@@ -11,7 +11,8 @@ Counterparts of the 2-D texture backward of
   sums them; this kernel gathers the corners again instead, which reads
   less than the stash would move. ``texture_bwd_plain`` is its twin, bit
   for bit.
-* ``texture_grad`` (kernels ``csrc/texture_grad.cu``): the gradient of
+* ``texture_grad`` (kernels ``csrc/texture_grad.cu``, then the shared
+  ``csrc/segment_sum.cu`` sums of ``segments``): the gradient of
   the packed pyramid, every (pixel, slot, corner) tap's
   ``lw * vw * gc * uw`` summed into the texel its corner resolves to
   (wrap by modulo, clamp by clamping, zero by dropping). That is
@@ -36,8 +37,8 @@ import ctypes
 import torch
 
 from .. import _build
+from . import segments
 from .pipeline_bwd_cuda import _device_of
-from .rasterize_cuda import SEGMENT_ARGS
 from .texture_cuda import (BOUNDARY, FILTER, _check, level_corners,
                            level_tables, level_weights)
 
@@ -51,12 +52,10 @@ GRAD_KERNEL = _build.Kernel(
 # the tiles of more than GRAD_CAP entries computed again.
 GRAD_COMPACT_KERNEL = _build.Kernel("nvdr_texture_grad_compact", GRAD_KERNEL.argtypes,
                                     symbol="nvdr_texture_grad_tiles")
-GRAD_SEGMENT_KERNEL = _build.Kernel("nvdr_texture_grad_segments", SEGMENT_ARGS,
+GRAD_SEGMENT_KERNEL = _build.Kernel("nvdr_texture_grad_segments", segments.SEGMENT_ARGS,
                                     symbol="nvdr_segment_starts")
-GRAD_SUM_KERNEL = _build.Kernel(
-    "nvdr_texture_grad_sum",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 2)
+GRAD_SUM_KERNEL = _build.Kernel("nvdr_texture_grad_sum", segments.SUM_ARGS,
+                                symbol="nvdr_segment_sums")
 
 GRAD_TILE = 16  # screen tile of the pre-reduction (csrc/texture_grad.cu TILE)
 GRAD_CAP = 64   # entries a tile keeps in the first pass's scratch (csrc/texture_grad.cu CAP)
@@ -215,40 +214,35 @@ def _tile_blocks(shape):
     return ntx, nty, B * ntx * nty
 
 
+def grad_tiles(u, v, flevel, gc, meta, shape, per_image, boundary_mode, filter_mode):
+    """(launch, tiles, C, cap): the tiles pass of csrc/texture_grad.cu on
+    CUDA tensors, as ``segments.tile_partials`` runs it."""
+    B, H, W = shape
+    C = gc.shape[0]
+    modes = (B, H, W, C, len(meta), int(bool(per_image)), BOUNDARY[boundary_mode],
+             FILTER[filter_mode])
+    m = _meta_arg(meta)
+
+    def launch(offsets, counts, texel_s, part_s, texel, partial):
+        kernel = GRAD_KERNEL if offsets is None else GRAD_COMPACT_KERNEL
+        kernel.launch(gc.device, *(_build.ptr(x) for x in (u, v, flevel, gc)), m,
+                      *(None if x is None else _build.ptr(x) for x in (
+                          offsets, counts, texel_s, part_s, texel, partial)), *modes)
+
+    return launch, _tile_blocks(shape)[2], C, GRAD_CAP
+
+
 def grad_tile_entries(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
                       filter_mode):
     """The per-tile pre-reduction on CUDA tensors (csrc/texture_grad.cu
-    tiles, two passes): (texel [E] int32, partial [E, C] float64, counts
-    [tiles] int32), tile-major: tile (b * nty + ty) * ntx + tx of the
-    16x16 screen tiles holds counts[tile] entries, one per run of equal
-    sort keys in its sort (one unwrapped lattice cell). The first pass
-    keeps up to GRAD_CAP entries a tile in a scratch; the entry count is
-    read back to the host once (the one host sync) to allocate the rest."""
-    B, H, W = shape
-    C = gc.shape[0]
-    L = len(meta)
-    dev = gc.device
-    _, _, n_tiles = _tile_blocks(shape)
-    m = _meta_arg(meta)
-    modes = (B, H, W, C, L, int(bool(per_image)), BOUNDARY[boundary_mode],
-             FILTER[filter_mode])
-    ins = [_build.ptr(x) for x in (u, v, flevel, gc)] + [m]
-    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
-    texel_s = torch.empty((n_tiles * GRAD_CAP,), dtype=torch.int32, device=dev)
-    part_s = torch.empty((n_tiles * GRAD_CAP, C), dtype=torch.float64, device=dev)
-    GRAD_KERNEL.launch(dev, *ins, None, _build.ptr(counts), _build.ptr(texel_s),
-                       _build.ptr(part_s), None, None, *modes)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(ends[-1])  # the one host sync
-    if total >= 2 ** 31:
-        raise ValueError(f"texture_grad: {total} entries; at most 2**31 - 1")
-    texel = torch.empty((total,), dtype=torch.int32, device=dev)
-    partial = torch.empty((total, C), dtype=torch.float64, device=dev)
-    if total:
-        GRAD_COMPACT_KERNEL.launch(dev, *ins, _build.ptr(ends - counts), _build.ptr(counts),
-                                   _build.ptr(texel_s), _build.ptr(part_s), _build.ptr(texel),
-                                   _build.ptr(partial), *modes)
-    return texel, partial, counts
+    tiles, two passes around the one host sync, ``segments.tile_partials``):
+    (texel [E] int32, partial [E, C] float64, counts [tiles] int32),
+    tile-major: tile (b * nty + ty) * ntx + tx of the 16x16 screen tiles
+    holds counts[tile] entries, one per run of equal sort keys in its sort
+    (one unwrapped lattice cell)."""
+    return segments.tile_partials(*grad_tiles(u, v, flevel, gc, meta, shape, per_image,
+                                              boundary_mode, filter_mode),
+                                  gc.device, "texture_grad")
 
 
 def texture_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
@@ -258,26 +252,17 @@ def texture_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mo
 
     CPU tensors run ``texture_grad_plain``; CUDA tensors launch the
     pre-reduction (``grad_tile_entries``), sort the entries stably by
-    texel (index glue) and launch the segment-starts and sum kernels."""
+    texel (index glue) and launch the segment-starts and sum kernels
+    (``segments.row_sums``)."""
     if _device_of(gc, "texture_grad") == "cpu":
         return texture_grad_plain(u, v, flevel, gc, meta, n_texels, shape, per_image,
                                   boundary_mode, filter_mode)
     u, v, flevel, gc = (t.contiguous() for t in (u, v, flevel, gc))
-    C = _check_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
-                    filter_mode)[0]
+    _check_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
+                filter_mode)
     texel, partial, _ = grad_tile_entries(u, v, flevel, gc, meta, n_texels, shape, per_image,
                                           boundary_mode, filter_mode)
-    dev = gc.device
-    E = texel.shape[0]
-    stexel, perm = torch.sort(texel, stable=True)
-    starts = torch.empty((n_texels + 1,), dtype=torch.int32, device=dev)
-    GRAD_SEGMENT_KERNEL.launch(dev, _build.ptr(stexel), E, 0, n_texels, 4, None, None,
-                               _build.ptr(starts), None)
-    pp = torch.empty((max(E, 1), C), dtype=torch.float64, device=dev)
-    out = torch.empty((n_texels, C), dtype=torch.float32, device=dev)
-    GRAD_SUM_KERNEL.launch(dev, _build.ptr(stexel), _build.ptr(perm), E, _build.ptr(starts),
-                           _build.ptr(partial), _build.ptr(pp), _build.ptr(out), n_texels, C)
-    return out
+    return segments.row_sums(texel, partial, n_texels, GRAD_SEGMENT_KERNEL, GRAD_SUM_KERNEL)
 
 
 def tile_entries_plain(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,

@@ -1,7 +1,7 @@
 """Where the time of one training step of render_pipeline goes, on a GPU.
 
     python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16]
-        [--textured | --ops | --cube]
+        [--textured | --ops | --cube | --reductions]
 
 The bench scene (uv-sphere 32x64, 3,968 triangles, vertex colours,
 A = 3, B = 1, camera projection(x=0.4) @ translate(0, 0, -3.5)). One
@@ -17,6 +17,22 @@ the bench sphere's reflection vectors with their screen derivatives, a
 seamless trilinear lookup in procedural_cubemap(512) (10 levels) plus a
 Phong highlight, mean squared error against the reference map's image,
 and the backward to the map and the Phong parameters.
+With --reductions it times no step but the gradient reductions B4
+(``grad_scatter``) and B10 (``scatter_add_by_id``) in all, glue included,
+on calls no step above makes: B4 on the bench scene with seeded da4
+columns (the textured chain's call, A = 2), on a quad of two triangles
+filling the frame (each row fed by half the pixels), with and without
+da4, and on uv_sphere(512, 1024) (1,046,528 triangles); B10 on the bench
+scene's own-pixel rows with seeded K = 9 columns, on a hot row (every
+other covered pixel on row 0), on random ids (nothing to reduce within a
+chunk) and on the cube taps of --cube. Each case prints the median over
+5 windows of the mean CUDA-event time of a call (a host sync inside a
+call counts, as in a step), the device time and device ops of a call
+(torch.profiler: the host's share around the sync left out) and the
+host syncs of one call. That mode
+calls only entry points that the package has had since commit 54206d4
+(the reductions and what feeds them), so this file copied into an older
+checkout's package times that checkout's reductions.
 Prints:
   1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
   2. each stage of the step run alone and synchronised, mean of 20;
@@ -73,6 +89,93 @@ def _timed(fn, iters):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+def _event_ms(fn, iters):
+    """Median over 5 windows of the mean CUDA-event ms of `iters` calls."""
+    fn()
+    fn()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / iters)
+    return sorted(times)[2]
+
+
+def _device_ms(fn, iters):
+    """(device ms, device ops) of one fn(): torch.profiler's device
+    events over `iters` calls, so host time around a sync is left out."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters,
+            len(kernels) / iters)
+
+
+def host_syncs(fn):
+    """Host synchronisations during one fn() after a warm one (torch's
+    sync debug mode)."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def quad_scene():
+    """(pos [1, 4, 4], tri [2, 3], col [1, 4, 3]) numpy: two triangles past
+    the frame (colours from seed 1), so each triangle's row takes an entry
+    from every pixel of its half."""
+    pos = np.array([[[-1.2, -1.2, 0.0, 1.0], [1.2, -1.2, 0.0, 1.0], [-1.2, 1.2, 0.0, 1.0],
+                     [1.2, 1.2, 0.0, 1.0]]], np.float32)
+    tri = np.array([[0, 1, 2], [1, 3, 2]], np.int32)
+    col = np.random.default_rng(1).random((1, 4, 3)).astype(np.float32)
+    return pos, tri, col
+
+
+def scatter_args(pos, tri, attr, attr_idx, res):
+    """grad_scatter's arguments from render_pipeline's saved forward state
+    on (pos, tri, attr, attr_idx) at res, with dy the gradient of
+    mean(img**2)."""
+    T, A = tri.shape[0], attr.shape[-1]
+    color, saved = pl._pipeline_fwd_core(pos, attr, tri, attr_idx, build_opposite_table(tri),
+                                         res)
+    b0, b1, idf, c0, al0, ax0, al1, ax1, atbl, vtbl = saved
+    color = color.requires_grad_()
+    dy = torch.autograd.grad((color ** 2).mean(), color)[0].reshape(-1, A).T.contiguous()
+    gs, dd2, rid2 = pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, (al0, ax0, al1, ax1), res, T)
+    return (pl.own_rows(idf, T, res), gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, res)
+
+
+def with_da4(sargs, seed):
+    """scatter_args as the textured chain makes the call (A = 2, da4
+    [4, N]): seeded gs and da4 columns on the pixels whose colour row is
+    live. Returns (sargs, da4)."""
+    N = sargs[0].shape[0]
+    rng = np.random.default_rng(seed)
+    live = (sargs[1][0] != 0).float()
+    gs = torch.from_numpy(rng.standard_normal((11, N)).astype(np.float32)).to(live.device)
+    da4 = torch.from_numpy(rng.standard_normal((4, N)).astype(np.float32)).to(live.device)
+    return (sargs[0], gs * live) + sargs[2:], da4 * live
+
+
 def _window_ms(step):
     """chip_smoke.window_ms: (48 - 16 steps) window difference, per step."""
     for _ in range(4):
@@ -92,6 +195,8 @@ def _window_ms(step):
 
 def _training(pos, tri, cidx, col, res):
     """(step, stages) of a render_pipeline training step."""
+    from .ops import segments
+
     dev = pos.device
 
     def step():
@@ -113,9 +218,9 @@ def _training(pos, tri, cidx, col, res):
     dy = torch.full((3, N), 1e-7, device=dev)
     gs, dd2, rid2 = pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, resid, res, T)
     rid0 = pl.own_rows(idf, T, res)
-    codes, off = pb._entries(rid0, gs, dd2, rid2, T)
-    flats = (u, v, resid[1], resid[3])
-    gt, gaa = pb.scatter_entries(codes, off, gs, dd2, flats, vtbl, res)
+    sargs = (rid0, gs, dd2, rid2, u, v, resid[1], resid[3], vtbl, res)
+    srow, spart, _ = pb.scatter_partials(*sargs)
+    gt, gaa = pb.grad_scatter(*sargs)
     rows = torch.cat([gt[:, 9:].reshape(1, 3 * T, 3), gaa.reshape(1, 3 * T, 3)], 2)
     return step, [
         ("fwd: topology table", lambda: build_opposite_table(tri)),
@@ -128,9 +233,12 @@ def _training(pos, tri, cidx, col, res):
         ("bwd: pipeline_bwd kernel",
          lambda: pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, resid, res, T)),
         ("bwd: own rows", lambda: pl.own_rows(idf, T, res)),
-        ("bwd: entry sort (index glue)", lambda: pb._entries(rid0, gs, dd2, rid2, T)),
-        ("bwd: grad_scatter kernel",
-         lambda: pb.scatter_entries(codes, off, gs, dd2, flats, vtbl, res)),
+        ("bwd: grad_scatter per-tile partials (2 passes, 1 sync)",
+         lambda: pb.scatter_partials(*sargs)),
+        ("bwd: grad_scatter row sums (sort, segments, sums)",
+         lambda: segments.row_sums(srow, spart, T, pb.SCATTER_SEGMENT_KERNEL,
+                                   pb.SCATTER_SUM_KERNEL)),
+        ("bwd: grad_scatter in all", lambda: pb.grad_scatter(*sargs)),
         ("bwd: vertex sums", lambda: pl._vertex_sum(rows, pl._corner_table(tri, pos.shape[1]))),
     ]
 
@@ -161,15 +269,13 @@ def _ops(pos, tri, cidx, col, res):
     _, _, res4 = pc.finish_shade(cols, W)
     dy = torch.full((3, N), 1e-7, device=dev)
     gcol, rid2, gval2 = ac.aa_backward(dy, ct, idf, vtbl, res4, (1, H, W), T)
-    aa_ent = scatter.entries(rid2.reshape(-1), gval2, T)
+    rid2 = rid2.reshape(-1)
     grast, gval, _ = ic.interp_backward(atbl, u, v, idf, None, gcol, None, (), T, 0)
     rid_a = ra.pixel_rows(idf, T, 0, T)
-    in_ent = scatter.entries(rid_a, gval, T)
     g9, rid9 = ra.raster_grad_rows(vtbl, idf, grast[0], grast[1], None, res, T)
-    ra_ent = scatter.entries(rid9, g9, T)
-    gt9 = scatter.scatter_entries(*ra_ent, g9)
-    gt_aa = scatter.scatter_entries(*aa_ent, gval2)
-    gt_a = scatter.scatter_entries(*in_ent, gval)
+    gt9 = scatter.scatter_add_by_id(rid9, g9, T)
+    gt_aa = scatter.scatter_add_by_id(rid2, gval2, T)
+    gt_a = scatter.scatter_add_by_id(rid_a, gval, T)
 
     return step, [
         ("fwd: topology table", lambda: build_opposite_table(tri)),
@@ -183,18 +289,17 @@ def _ops(pos, tri, cidx, col, res):
         ("fwd: aa_fwd kernel", lambda: ac.aa_cols(ct, idf, zw, ftable, (1, H, W), T)),
         ("fwd: neighbour adds", lambda: pc.finish_shade(cols, W)),
         ("bwd: aa_bwd kernel", lambda: ac.aa_backward(dy, ct, idf, vtbl, res4, (1, H, W), T)),
-        ("bwd: AA pairs' entries (index glue)",
-         lambda: scatter.entries(rid2.reshape(-1), gval2, T)),
-        ("bwd: AA pairs' scatter_rows kernel", lambda: scatter.scatter_entries(*aa_ent, gval2)),
+        ("bwd: AA pairs' scatter_rows (2 chunk passes, 1 sync, row sums)",
+         lambda: scatter.scatter_add_by_id(rid2, gval2, T)),
         ("bwd: interp_bwd kernel",
          lambda: ic.interp_backward(atbl, u, v, idf, None, gcol, None, (), T, 0)),
-        ("bwd: attribute entries (index glue)", lambda: scatter.entries(rid_a, gval, T)),
-        ("bwd: attribute scatter_rows kernel", lambda: scatter.scatter_entries(*in_ent, gval)),
+        ("bwd: attribute scatter_rows", lambda: scatter.scatter_add_by_id(rid_a, gval, T)),
         ("bwd: table_take kernel", lambda: gather.table_take(vtbl, rid9)),
         ("bwd: raster rows (glue, table_take included)",
          lambda: ra.raster_grad_rows(vtbl, idf, grast[0], grast[1], None, res, T)),
-        ("bwd: raster entries (index glue)", lambda: scatter.entries(rid9, g9, T)),
-        ("bwd: raster scatter_rows kernel", lambda: scatter.scatter_entries(*ra_ent, g9)),
+        ("bwd: raster scatter_rows per-chunk partials (2 passes, 1 sync)",
+         lambda: scatter.chunk_partials(rid9, g9, T)),
+        ("bwd: raster scatter_rows in all", lambda: scatter.scatter_add_by_id(rid9, g9, T)),
         ("bwd: vertex sums", lambda: (ra.xyw_rows_to_vertices(gt9, tri, tuple(pos.shape)),
                                       ra.xyw_rows_to_vertices(gt_aa, tri, tuple(pos.shape)),
                                       pl.vertex_attr_grad(gt_a, cidx, tuple(col.shape), 1))),
@@ -254,9 +359,8 @@ def _textured(pos, tri, cidx, vtxp, res):
     db4 = torch.stack(db)
     out15 = ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)
     rid0 = pl.own_rows(idf, T, res)
-    codes, off = pb._entries(rid0, out15[:11], dd2, rid2, T, out15[11:])
-    flats = (u, v, res4[1], res4[3])
-    gt, gaa = pb.scatter_entries(codes, off, out15[:11], dd2, flats, vtbl, res, out15[11:])
+    sargs = (rid0, out15[:11], dd2, rid2, u, v, res4[1], res4[3], vtbl, res)
+    gt, gaa = pb.grad_scatter(*sargs, da4=out15[11:])
 
     return step, [
         ("topology table", lambda: build_opposite_table(tri)),
@@ -280,14 +384,48 @@ def _textured(pos, tri, cidx, vtxp, res):
         ("bwd: mip-level vjp", lambda: tx.level_vjp(da, gfl, 512, 512, len(levels))[0]),
         ("bwd: interp_raster_bwd_tex kernel",
          lambda: ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)),
-        ("bwd: entry sort (index glue)",
-         lambda: pb._entries(rid0, out15[:11], dd2, rid2, T, out15[11:])),
-        ("bwd: grad_scatter kernel (da4)", lambda: pb.scatter_entries(
-            codes, off, out15[:11], dd2, flats, vtbl, res, out15[11:])),
+        ("bwd: grad_scatter per-tile partials (da4; 2 passes, 1 sync)",
+         lambda: pb.scatter_partials(*sargs, da4=out15[11:])),
+        ("bwd: grad_scatter in all (da4)", lambda: pb.grad_scatter(*sargs, da4=out15[11:])),
         ("bwd: vertex sums", lambda: (
             pl.vertex_pos_grad(gt[:, 6:], gaa, tri, tuple(pos.shape), 1.0),
             pl.vertex_attr_grad(gt[:, :6], cidx, tuple(uv.shape), 1))),
     ]
+
+
+def _reflections(pos, tri, vtxp, res):
+    """directions() -> (d, dd, mask): the bench sphere's reflection
+    vectors at each pixel, their screen derivatives and the empty pixels."""
+    normals = vtxp / np.linalg.norm(vtxp, axis=1, keepdims=True)
+    view = vtxp - np.array([0.0, 0.0, 3.5], np.float32)
+    refl = view - 2.0 * normals * (normals * view).sum(1, keepdims=True)
+    refl = torch.as_tensor(refl / np.linalg.norm(refl, axis=1, keepdims=True),
+                           dtype=torch.float32, device=pos.device)
+
+    def directions():
+        with torch.no_grad():
+            rast, rast_db = ra.rasterize(None, pos, tri, res, grad_db=True)
+            d, dd = interpolate(refl, rast, tri, rast_db, diff_attrs="all")
+            d = d / (torch.sum(d ** 2, -1, keepdim=True) + 1e-8) ** 0.5
+            return d, dd, rast[..., -1:] == 0
+
+    return directions
+
+
+def _cube_taps(env, d, dd):
+    """(ids, vals, flat, cols, meta): B10's input in the backward of a
+    seamless trilinear lookup of map env at directions (d, dd), dy 1e-7:
+    the texel taps of every pixel (``cube_grad_entries``)."""
+    from .ops import texture_cube_cuda as tcc
+
+    spec = ("linear-mipmap-linear", "cube", -1, True)
+    N = d.shape[1] * d.shape[2]
+    _, saved, meta = tx._texture_fwd(spec, env[None], d, dd, None, ())
+    flat, cols = saved[0], tuple(saved[6:])
+    dy = torch.full((3, N), 1e-7, device=d.device)
+    ids, w = tcc.cube_grad_entries(cols, meta, "linear-mipmap-linear")
+    vals = (dy.repeat(1, w.shape[0] // N) * w).contiguous()
+    return ids, vals, flat, cols, meta
 
 
 def _cube(pos, tri, vtxp, res):
@@ -297,23 +435,12 @@ def _cube(pos, tri, vtxp, res):
     from .ops import texture_cube_cuda as tcc
 
     dev = pos.device
-    normals = vtxp / np.linalg.norm(vtxp, axis=1, keepdims=True)
-    view = vtxp - np.array([0.0, 0.0, 3.5], np.float32)
-    refl = view - 2.0 * normals * (normals * view).sum(1, keepdims=True)
-    refl = torch.as_tensor(refl / np.linalg.norm(refl, axis=1, keepdims=True),
-                           dtype=torch.float32, device=dev)
     env_ref = torch.as_tensor(primitives.procedural_cubemap(512), device=dev)
     env = torch.full_like(env_ref, 0.5)
     phong = torch.tensor([1.0, 1.0, 1.0, 10.0], device=dev)
     ldir = torch.tensor([0.3, -0.8, 0.52], device=dev)
     rgb_ref = torch.tensor([1.0, 0.8, 0.6], device=dev)
-
-    def directions():
-        with torch.no_grad():
-            rast, rast_db = ra.rasterize(None, pos, tri, res, grad_db=True)
-            d, dd = interpolate(refl, rast, tri, rast_db, diff_attrs="all")
-            d = d / (torch.sum(d ** 2, -1, keepdim=True) + 1e-8) ** 0.5
-            return d, dd, rast[..., -1:] == 0
+    directions = _reflections(pos, tri, vtxp, res)
 
     def step():
         d, dd, mask = directions()
@@ -324,16 +451,10 @@ def _cube(pos, tri, vtxp, res):
         img = shade(e, ph[:3], ph[3], d, dd, ldir, mask)
         return torch.autograd.grad(((img - ref) ** 2).mean(), (e, ph))
 
-    spec = ("linear-mipmap-linear", "cube", -1, True)
     d, dd, _ = directions()
     N = d.shape[1] * d.shape[2]
-    _, saved, meta = tx._texture_fwd(spec, env[None], d, dd, None, ())
-    flat, cols = saved[0], tuple(saved[6:])
-    dy = torch.full((3, N), 1e-7, device=dev)
-    ids, w = tcc.cube_grad_entries(cols, meta, "linear-mipmap-linear")
-    vals = (dy.repeat(1, w.shape[0] // N) * w).contiguous()
-    ent = scatter.entries(ids, vals, flat.shape[0])
-    g_flat = scatter.scatter_entries(*ent, vals)
+    ids, vals, flat, cols, meta = _cube_taps(env, d, dd)
+    g_flat = scatter.scatter_add_by_id(ids, vals, flat.shape[0])
     uvf = d.reshape(N, 3)
     return step, [
         ("fwd: rasterize + interpolate (directions)", directions),
@@ -345,9 +466,56 @@ def _cube(pos, tri, vtxp, res):
                                                          "linear-mipmap-linear")),
         ("bwd: cube taps (glue)", lambda: tcc.cube_grad_entries(cols, meta,
                                                                 "linear-mipmap-linear")),
-        ("bwd: tap entries (index glue)", lambda: scatter.entries(ids, vals, flat.shape[0])),
-        ("bwd: scatter_rows kernel", lambda: scatter.scatter_entries(*ent, vals)),
+        ("bwd: scatter_rows per-chunk partials (2 passes, 1 sync)",
+         lambda: scatter.chunk_partials(ids, vals, flat.shape[0])),
+        ("bwd: scatter_rows in all", lambda: scatter.scatter_add_by_id(ids, vals, flat.shape[0])),
         ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 6, 3)),
+    ]
+
+
+def _clip(vtxp, dev):
+    """[1, V, 4] clip-space positions of the bench camera."""
+    posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
+    mvp = camera.projection(x=0.4) @ camera.translate(0, 0, -3.5)
+    return torch.as_tensor((posw @ mvp.T)[None], dtype=torch.float32, device=dev)
+
+
+def _reductions(pos, tri, cidx, col, vtxp, res):
+    """[(case, fn, iters)]: the B4 and B10 calls of --reductions."""
+    dev = pos.device
+    T = tri.shape[0]
+    N = res[0] * res[1]
+    sargs = scatter_args(pos, tri, col, cidx, res)
+    dargs, da4 = with_da4(sargs, 6)
+    qp, qt, qa = (torch.as_tensor(x, device=dev) for x in quad_scene())
+    qargs = scatter_args(qp, qt, qa, qt, res)
+    qdargs, qda4 = with_da4(qargs, 6)
+    big_idx, big_vtx, _, _ = primitives.uv_sphere(512, 1024)
+    btri = torch.as_tensor(big_idx, dtype=torch.int32, device=dev)
+    bargs = scatter_args(_clip(big_vtx, dev), btri,
+                         torch.as_tensor(big_vtx * 0.5 + 0.5, device=dev), btri, res)
+    # B10 on the covered pixels' own rows; an empty pixel (own row 0, a
+    # zero gs column) gets row T, which is dropped.
+    live = (sargs[1] != 0).any(0)
+    rows = torch.where(live, sargs[0], T)
+    rng = np.random.default_rng(11)
+    g9 = torch.from_numpy(rng.standard_normal((9, N)).astype(np.float32)).to(dev)
+    g9 = g9 * live
+    hot = torch.where(live & (torch.arange(N, device=dev) % 2 == 0), 0, rows)
+    rnd = torch.from_numpy(rng.integers(0, T, N).astype(np.int32)).to(dev)
+    d, dd, _ = _reflections(pos, tri, vtxp, res)()
+    env = torch.full((6, 512, 512, 3), 0.5, device=dev)
+    ids, vals, flat = _cube_taps(env, d, dd)[:3]
+    return [
+        ("B4 bench", lambda: pb.grad_scatter(*sargs), 20),
+        ("B4 da4 bench (seeded columns)", lambda: pb.grad_scatter(*dargs, da4=da4), 20),
+        ("B4 quad", lambda: pb.grad_scatter(*qargs), 20),
+        ("B4 da4 quad", lambda: pb.grad_scatter(*qdargs, da4=qda4), 20),
+        ("B4 1M triangles", lambda: pb.grad_scatter(*bargs), 10),
+        ("B10 own-pixel rows (K = 9)", lambda: scatter.scatter_add_by_id(rows, g9, T), 20),
+        ("B10 hot row", lambda: scatter.scatter_add_by_id(hot.to(torch.int32), g9, T), 20),
+        ("B10 random ids", lambda: scatter.scatter_add_by_id(rnd, g9, T), 20),
+        ("B10 cube taps", lambda: scatter.scatter_add_by_id(ids, vals, flat.shape[0]), 10),
     ]
 
 
@@ -362,6 +530,8 @@ def main(argv=None):
                          "antialias ops instead")
     ap.add_argument("--cube", action="store_true",
                     help="profile an envphong-shaped cube-map step instead")
+    ap.add_argument("--reductions", action="store_true",
+                    help="time the gradient reductions B4 and B10 alone instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -370,12 +540,17 @@ def main(argv=None):
     res = (args.res, args.res)
 
     pos_idx, vtxp, col_idx, _ = primitives.uv_sphere(32, 64)
-    posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
-    mvp = camera.projection(x=0.4) @ camera.translate(0, 0, -3.5)
-    pos = torch.as_tensor((posw @ mvp.T)[None], dtype=torch.float32, device=dev)
+    pos = _clip(vtxp, dev)
     tri = torch.as_tensor(pos_idx, dtype=torch.int32, device=dev)
     cidx = torch.as_tensor(col_idx, dtype=torch.int32, device=dev)
     col = torch.as_tensor(vtxp * 0.5 + 0.5, dtype=torch.float32, device=dev)
+    if args.reductions:
+        for case, fn, iters in _reductions(pos, tri, cidx, col, vtxp, res):
+            dev_ms, dev_ops = _device_ms(fn, iters)
+            print(f"[r] {case} {args.res}^2: in all {_event_ms(fn, iters):.4f} ms, device "
+                  f"time {dev_ms:.4f} ms in {dev_ops:.0f} device ops, {host_syncs(fn)} host "
+                  f"sync(s) a call ({card})", flush=True)
+        return
     if args.textured:
         what = "textured fwd+bwd"
         step, stages = _textured(pos, tri, cidx, vtxp, res)

@@ -33,7 +33,10 @@ KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL
            rasterize_cuda.RANGE_KERNEL, rasterize_cuda.BAND_KERNEL,
            rasterize_cuda.SETUP_KERNEL, rasterize_cuda.BIN_EMIT_KERNEL,
            rasterize_cuda.BIN_SEGMENT_KERNEL, texture_bwd_cuda.GRAD_COMPACT_KERNEL,
-           texture_bwd_cuda.GRAD_SEGMENT_KERNEL, texture_bwd_cuda.GRAD_SUM_KERNEL]
+           texture_bwd_cuda.GRAD_SEGMENT_KERNEL, texture_bwd_cuda.GRAD_SUM_KERNEL,
+           pipeline_bwd_cuda.SCATTER_COMPACT_KERNEL, pipeline_bwd_cuda.SCATTER_SEGMENT_KERNEL,
+           pipeline_bwd_cuda.SCATTER_SUM_KERNEL, scatter.COMPACT_KERNEL,
+           scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -83,7 +86,7 @@ def test_cuda_sources_exist():
             "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu",
             "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu",
             "interpolate_bwd.cu", "aa_bwd.cu", "table_take.cu", "scatter_rows.cu",
-            "texture_cube.cu", "raster_bin.cu", "raster_setup.cu"} <= names
+            "texture_cube.cu", "raster_bin.cu", "raster_setup.cu", "segment_sum.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
         assert f'extern "C" int {kernel.symbol}(' in text
@@ -91,9 +94,12 @@ def test_cuda_sources_exist():
     assert (_build.SRC_DIR / "aa_pair.cuh").exists()
     for name in ("shade_fwd.cu", "aa_fwd.cu", "pipeline_bwd.cu", "aa_bwd.cu", "grad_scatter.cu"):
         assert '#include "aa_pair.cuh"' in (_build.SRC_DIR / name).read_text()
-    # The segmented float64 sums share their warp reduction.
-    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu"):
+    # The gradient reductions share their tile grouping, warp reduction,
+    # scratch move and row sums (segment_sum.cuh, segment_sum.cu).
+    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu", "segment_sum.cu"):
         assert '#include "segment_sum.cuh"' in (_build.SRC_DIR / name).read_text()
+    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu"):
+        assert "nvdr_segment_compact(" in (_build.SRC_DIR / name).read_text()
     # The samplers' corner setup and level weights: one header.
     for name in ("texture_fwd.cu", "texture_bwd.cu", "texture_grad.cu", "texture_cube.cu"):
         assert '#include "texture_corner.cuh"' in (_build.SRC_DIR / name).read_text()

@@ -161,6 +161,104 @@ def test_backward_kernels_match_twins(dev, name, make):
         assert x.abs().max() > 0
 
 
+def _partials_equal(got, ref):
+    """Kernel partials (key, partial, counts) equal the twin's (key,
+    tile, partial, entries) bit for bit, in the same order."""
+    key, part, counts = got
+    rkey, rtile, rpart, _ = ref
+    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device),
+                                   counts.long())
+    return (torch.equal(key.long(), rkey.long()) and torch.equal(tile, rtile)
+            and torch.equal(part.view(torch.int64), rpart.view(torch.int64)))
+
+
+def _bwd_scatter_args(dev, pos, tri, attr, cidx, res, seed=4):
+    """grad_scatter's inputs from a render's saved state and a seeded dy."""
+    p, t, a, c = inputs_from_numpy(pos, tri, attr, cidx, device=dev)
+    T = t.shape[0]
+    _, saved = pl._pipeline_fwd_core(p, a, t, c, build_opposite_table(t), res)
+    b0, b1, idf, c0, al0, ax0, al1, ax1, atbl, vtbl = saved
+    dy = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(c0.shape)).astype(np.float32) * 1e-3).to(dev)
+    gs, dd2, rid2 = pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, (al0, ax0, al1, ax1), res, T)
+    return (pl.own_rows(idf, T, res), gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, res)
+
+
+@pytest.mark.parametrize("name,make", BWD_SCENES, ids=[s[0] for s in BWD_SCENES])
+def test_grad_scatter_partials_match_twin(dev, name, make):
+    """B4's per-tile partials equal tile_partials_plain bit for bit."""
+    sargs = _bwd_scatter_args(dev, *make())
+    got = pb.scatter_partials(*sargs)
+    assert _partials_equal(got, pb.tile_partials_plain(*sargs))
+    assert got[0].shape[0] < int((sargs[1] != 0).any(0).sum() + (sargs[2] != 0).sum())
+
+
+def _quad(res):
+    """Two triangles past the frame: one row feeds every pixel of its half."""
+    pos = np.array([[[-1.2, -1.2, 0.0, 1.0], [1.2, -1.2, 0.0, 1.0], [-1.2, 1.2, 0.0, 1.0],
+                     [1.2, 1.2, 0.0, 1.0]]], np.float32)
+    tri = np.array([[0, 1, 2], [1, 3, 2]], np.int32)
+    attr = np.random.default_rng(1).standard_normal((1, 4, 3)).astype(np.float32)
+    return pos, tri, attr, tri, res
+
+
+@pytest.mark.parametrize("da4", [False, True])
+def test_grad_scatter_hot_row_quad(dev, da4):
+    """A quad filling 256^2: each triangle's row takes an entry from
+    every pixel of its half, spread over the tiles' partials; within the
+    twin's bar, repeatable, partials equal to the twin's."""
+    sargs = _bwd_scatter_args(dev, *_quad((256, 256)))
+    extra = {}
+    if da4:
+        N = sargs[0].shape[0]
+        rng = np.random.default_rng(3)
+        live = (sargs[1][0] != 0).float()
+        gs = torch.from_numpy(rng.standard_normal((11, N)).astype(np.float32)).to(dev) * live
+        extra["da4"] = torch.from_numpy(rng.standard_normal((4, N)).astype(np.float32)).to(
+            dev) * live
+        sargs = (sargs[0], gs) + sargs[2:]
+    got = pb.grad_scatter(*sargs, **extra)
+    again = pb.grad_scatter(*sargs, **extra)
+    ref = pb.grad_scatter_plain(*sargs, **extra)
+    for x, y, z in zip(got, again, ref):
+        assert torch.equal(x, y)
+        assert rows_close(x, z, 1e-6)
+    part = pb.scatter_partials(*sargs, **extra)
+    assert _partials_equal(part, pb.tile_partials_plain(*sargs, **extra))
+    assert int(torch.bincount(part[0].long()).max()) >= 128  # a partial from every tile
+
+
+def _crowded_scatter(dev, res, R, seed=7):
+    """Random rows per pixel: every 16x16 tile holds more rows than the
+    scratch's slots (the kernel's second pass)."""
+    rng = np.random.default_rng(seed)
+    H, W = res
+    N = H * W
+    gs = rng.standard_normal((12, N)).astype(np.float32)
+    gs[:, rng.random(N) < 0.2] = 0.0
+    dd2 = (rng.standard_normal((2, N)) * (rng.random((2, N)) < 0.1)).astype(np.float32)
+    ax = (rng.integers(0, 3, (2, N)) + 4 * rng.integers(0, 2, (2, N))).astype(np.float32)
+    vtbl = rng.uniform(-1, 1, (9, R + 1)).astype(np.float32)
+    vtbl[2::3] = rng.uniform(0.5, 2.0, (3, R + 1))
+    t = inputs_from_numpy(rng.integers(0, R, N).astype(np.int32), gs, dd2,
+                          rng.integers(0, R, (2, N)).astype(np.int32),
+                          rng.uniform(0, 0.5, N).astype(np.float32),
+                          rng.uniform(0, 0.5, N).astype(np.float32), ax[0], ax[1], vtbl,
+                          device=dev)
+    return tuple(t) + (res,)
+
+
+def test_grad_scatter_crowded_tiles(dev):
+    sargs = _crowded_scatter(dev, (100, 90), 5000)
+    part = pb.scatter_partials(*sargs)
+    assert int((part[2] > pb.SCATTER_CAP).sum()) > 10
+    assert _partials_equal(part, pb.tile_partials_plain(*sargs))
+    got = pb.grad_scatter(*sargs)
+    for x, y, z in zip(got, pb.grad_scatter(*sargs), pb.grad_scatter_plain(*sargs)):
+        assert torch.equal(x, y)
+        assert rows_close(x, z, 1e-6)
+
+
 def _grads(dev, pos, tri, attr, cidx, res):
     p, t, a, c = inputs_from_numpy(pos, tri, attr, cidx, device=dev)
     p.requires_grad_()
@@ -550,6 +648,74 @@ def test_scatter_rows_kernel_within_one_ulp(dev, K, R, N, hot):
     acc = np.zeros((R, K), np.float64)
     np.add.at(acc, ids[ok], vals[:, ok].T.astype(np.float64))
     assert _ulp_close(got, torch.from_numpy(acc).to(dev))
+
+
+def _chunk_case(kind, seed=11):
+    """B10 inputs: coherent ids in runs along the columns (pixel order),
+    random ids (nothing to reduce in a chunk), a hot row, or short runs
+    (1 to 8 columns, the one-thread sums) with signed zeros among the
+    values."""
+    rng = np.random.RandomState(seed)
+    K, R, N = 9, 3000, 300000
+    if kind in ("coherent", "short"):
+        ids = np.repeat(np.where(rng.rand(N) < 0.3, -1, rng.randint(0, R, N)),
+                        rng.randint(1, 41 if kind == "coherent" else 9, N))[:N]
+    else:
+        ids = rng.randint(-3, R + 3, N)
+        if kind == "hot":
+            ids[rng.rand(N) < 0.7] = 1
+    vals = rng.randn(K, N).astype(np.float32)
+    vals[:, rng.rand(N) < 0.1] = 0.0
+    if kind == "short":
+        vals[rng.rand(K, N) < 0.2] = -0.0
+    return ids.astype(np.int32), vals, R
+
+
+@pytest.mark.parametrize("kind", ["coherent", "random", "hot", "short"])
+def test_scatter_rows_partials_match_twin(dev, kind):
+    """B10's per-chunk partials equal chunk_partials_plain bit for bit;
+    the sums are repeatable and within 1 ulp of float64."""
+    from nvdiffrast_tpu_torch.ops import scatter as ts
+    ids, vals, R = _chunk_case(kind)
+    ti, tv = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+    part = ts.chunk_partials(ti, tv, R)
+    assert _partials_equal(part, ts.chunk_partials_plain(ti, tv, R))
+    if kind == "random":
+        assert int((part[2] > ts.CAP).sum()) > 100  # the second pass
+    got = ts.scatter_add_by_id(ti, tv, R)
+    assert torch.equal(got, ts.scatter_add_by_id(ti, tv, R))
+    ok = (ids >= 0) & (ids < R)
+    acc = np.zeros((R, vals.shape[0]), np.float64)
+    np.add.at(acc, ids[ok], vals[:, ok].T.astype(np.float64))
+    assert _ulp_close(got, torch.from_numpy(acc).to(dev))
+
+
+def test_gradient_reductions_sync_at_most_once(dev):
+    """grad_scatter (plain and da4) and scatter_add_by_id each read one
+    number back to the host (the partials' count), no more."""
+    import warnings
+    from nvdiffrast_tpu_torch.ops import scatter as ts
+    sargs = _bwd_scatter_args(dev, *sphere_scene(B=1, seed=1), (48, 64))
+    N = sargs[0].shape[0]
+    gs2 = torch.cat([sargs[1][:2], sargs[1][3:]])
+    da4 = torch.ones((4, N), device=dev) * (sargs[1][0] != 0)
+    ids, vals, R = _chunk_case("coherent")
+    ti, tv = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+    calls = [lambda: pb.grad_scatter(*sargs),
+             lambda: pb.grad_scatter(sargs[0], gs2, *sargs[2:], da4=da4),
+             lambda: ts.scatter_add_by_id(ti, tv, R)]
+    for fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+        assert len(syncs) <= 1, syncs
 
 
 def _op_scene(dev, B=2, seed=3, res=(64, 80)):

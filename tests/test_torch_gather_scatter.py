@@ -9,8 +9,10 @@
   with out-of-range ids and a hot row of 150,000 entries; and within
   3e-5 of the scale of JAX ``scatter_add_by_id``
   (tests/test_gather_scatter.py's bar for the JAX kernel's bf16 hi/lo
-  split). The kernel's index glue (``scatter.entries``) is checked
-  against numpy: live columns only, stably sorted by row, pieces of 256.
+  split). The kernel's per-chunk partials (``scatter.chunk_partials_plain``,
+  their plain twin) on coherent, random, hot-row and wide cases: every
+  live column in one (id, chunk) partial, id sums within 1 ulp, and
+  within JAX's bar of its Pallas kernel.
 """
 
 import jax.numpy as jnp
@@ -103,19 +105,66 @@ def test_scatter_twin_matches_jax():
         np.testing.assert_allclose(got, ref, rtol=0, atol=3e-5 * np.abs(ref).max())
 
 
-def test_scatter_entries_glue():
-    """The kernel's entry list: live columns (id in range, column not all
-    zero) in stable id order, row segments and their pieces of 256."""
+def _coherent_case(seed, K, R, N):
+    """Ids in runs along the columns, as pixel rows are (a run of 1-40
+    columns per id, -1 for background), with zero columns."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, 41, N)
+    runs = np.where(rng.rand(N) < 0.3, -1, rng.randint(0, R, N))
+    ids = np.repeat(runs, lens)[:N].astype(np.int32)
+    vals = rng.randn(K, N).astype(np.float32)
+    vals[:, rng.rand(N) < 0.1] = 0.0
+    return ids, vals
+
+
+CHUNK_CASES = {
+    "coherent": lambda: _coherent_case(5, 9, 500, 20000),
+    "random": lambda: _scatter_case(6, 9, 300, 20000),
+    "hot": lambda: _scatter_case(7, 3, 8, 40000, hot=30000),
+    "wide": lambda: _scatter_case(8, 48, 30, 3000),
+}
+
+
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_chunk_partials_twin(name):
+    """Kernel B10's per-chunk structure (plain twin): every live column
+    (id in [0, R), a non-zero value) in exactly one (id, chunk) partial,
+    chunks ascending and ids ascending within a chunk; the partials' id
+    sums within 1 ulp of float64 np.add.at sums."""
+    ids, vals = CHUNK_CASES[name]()
+    K, N = vals.shape
+    R = int(ids.max()) - 2 if name in ("random", "hot", "wide") else 500
+    ti, tv = torch.from_numpy(ids), torch.from_numpy(vals)
+    id_, chunk, part, n = ts.chunk_partials_plain(ti, tv, R)
+    order = chunk * R + id_
+    assert bool((order[1:] > order[:-1]).all())
+    live = (ids >= 0) & (ids < R) & (vals != 0).any(0)
+    assert int(n.sum()) == live.sum()
+    np.testing.assert_array_equal(np.unique(chunk.numpy()),
+                                  np.unique(np.nonzero(live)[0] // ts.CHUNK))
+    got = torch.zeros((R, K), dtype=torch.float64).index_add_(0, id_, part).float()
+    assert _ulps(got.numpy(), _f64_sum(ids, vals, R).astype(np.float32)).max() <= 1
+    if name == "coherent":
+        assert id_.shape[0] * 8 < live.sum()  # a chunk's runs reduce
+    if name == "random":
+        assert int(torch.bincount(chunk).max()) > ts.CAP  # past the kernel's scratch
+    if name == "hot":
+        assert int(n.max()) > 4 * 32  # its lanes take turns
+
+
+def test_chunk_partials_twin_matches_jax():
+    """The partials' id sums against JAX scatter_add_by_id's Pallas
+    kernel (interpret mode), at its bar."""
+    ids, vals = _coherent_case(9, 5, 40, 1 << 15)
+    id_, _, part, _ = ts.chunk_partials_plain(torch.from_numpy(ids), torch.from_numpy(vals), 40)
+    got = torch.zeros((40, 5), dtype=torch.float64).index_add_(0, id_, part).float().numpy()
+    ref = np.asarray(js.scatter_add_by_id(jnp.asarray(ids), jnp.asarray(vals), 40,
+                                          method="pallas_interpret"))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=3e-5 * np.abs(ref).max())
+
+
+def test_scatter_dispatch_and_checks():
     ids, vals = _scatter_case(3, 4, 6, 3000, hot=1000)
-    codes, off, first, n_pieces = ts.entries(torch.from_numpy(ids), torch.from_numpy(vals), 6)
-    live = (ids >= 0) & (ids < 6) & (vals != 0).any(0)
-    ref_codes = np.nonzero(live)[0][np.argsort(ids[live], kind="stable")]
-    np.testing.assert_array_equal(codes.numpy(), ref_codes)
-    counts = np.bincount(ids[live], minlength=6)
-    np.testing.assert_array_equal(off.numpy(), np.concatenate([[0], np.cumsum(counts)]))
-    pieces = -(-counts // ts.PIECE)
-    np.testing.assert_array_equal(first.numpy(), np.concatenate([[0], np.cumsum(pieces)]))
-    assert n_pieces == pieces.sum() and pieces[1] >= 4
     before = ts.KERNEL.launches
     ts.scatter_add_by_id(torch.from_numpy(ids), torch.from_numpy(vals), 6)
     assert ts.KERNEL.launches == before  # CPU tensors run the twin
@@ -124,3 +173,5 @@ def test_scatter_entries_glue():
                              torch.from_numpy(vals).to("meta"), 6)
     with pytest.raises(ValueError):
         ts.scatter_add_by_id(torch.from_numpy(ids[:-1]), torch.from_numpy(vals), 6)
+    with pytest.raises(ValueError):
+        ts.chunk_partials_plain(torch.from_numpy(ids).long(), torch.from_numpy(vals), 6)

@@ -265,23 +265,82 @@ def test_grad_scatter_device_dispatch(bwd_case):
         tpb.grad_scatter(*args, RES, da4=da4)
 
 
-def test_entries_group_rows_in_pixel_order(bwd_case):
-    """The kernel's index glue: every live entry once, grouped by row,
-    own pixels first, then axis 0 and axis 1 pairs, each in pixel order."""
-    rid0, gs, dd2, rid2 = _scatter_args(bwd_case)[:4]
+def _partial_rows(row, partial, R):
+    """Each row's partials added in float64, rounded to float32 once."""
+    return torch.zeros((R, partial.shape[1]), dtype=torch.float64).index_add_(
+        0, row.long(), partial).float()
+
+
+def test_tile_partials_twin_sums_to_rows_and_jax(bwd_case):
+    """Kernel B4's per-tile structure (plain twin): every live entry in
+    exactly one (row, 16x16 tile) partial, tiles ascending and rows
+    ascending within a tile; the partials' row sums within 1 ulp of
+    float64 np.add.at sums, and JAX's pipeline_grad_scatter within its
+    2^-16 bar of them."""
+    args = _scatter_args(bwd_case)
+    rid0, gs, dd2, rid2 = args[:4]
     R = bwd_case["R"]
-    N = rid0.shape[0]
-    codes, off = tpb._entries(rid0, gs, dd2, rid2, R)
-    assert codes.dtype == torch.int32 and off.shape == (R + 1,)
-    live = torch.stack([(gs != 0).any(0), dd2[0] != 0, dd2[1] != 0])
-    assert sorted(codes.tolist()) == torch.nonzero(live.reshape(-1))[:, 0].tolist()
-    keys = torch.stack([rid0, rid2[0], rid2[1]]).reshape(-1)
-    assert off[0] == 0 and off[-1] == codes.shape[0]
-    for r in range(R):
-        seg = codes[off[r]:off[r + 1]].long()
-        assert (keys[seg] == r).all()
-        assert (seg[1:] > seg[:-1]).all()  # type-major, then pixel order
-    assert int((codes // N > 0).sum()) > 50
+    A = gs.shape[0] - 9
+    row, tile, part, n = tpb.tile_partials_plain(*args, RES)
+    assert part.shape == (row.shape[0], 3 * A + 18) and part.dtype == torch.float64
+    order = tile * R + row
+    assert bool((order[1:] > order[:-1]).all())
+    live = int((gs != 0).any(0).sum() + (dd2 != 0).sum())
+    assert int(n.sum()) == live and int((n > 1).sum()) > 0
+    assert row.shape[0] < live  # the tiles reduce
+    got = _partial_rows(row, part, R)
+    for name, g, jax_out, (ref, ref_abs) in zip(
+            ("gt", "gaa"), (got[:, :3 * A + 9], got[:, 3 * A + 9:]), bwd_case["scatter"],
+            _f64_sums(bwd_case)):
+        g = g.numpy()
+        ulp = np.spacing(np.abs(ref).astype(np.float32))
+        assert (np.abs(g - ref) <= ulp).all(), name
+        assert (np.abs(jax_out - g) <= 2.0 ** -16 * ref_abs + ulp).all(), name
+
+
+def _synthetic_scatter(seed, res, R, hot=False, da4=False):
+    """grad_scatter inputs drawn from a seed: random rows per pixel (so a
+    16x16 tile holds more rows than the kernel's scratch keeps), or one
+    row for every pixel (hot); sparse AA pairs with valid aux codes."""
+    rng = np.random.default_rng(seed)
+    H, W = res
+    N = 2 * H * W
+    A = 2 if da4 else 3
+    rid0 = np.zeros(N, np.int32) if hot else rng.integers(0, R, N).astype(np.int32)
+    gs = rng.standard_normal((A + 9, N)).astype(np.float32)
+    gs[:, rng.random(N) < 0.2] = 0.0
+    dd2 = (rng.standard_normal((2, N)) * (rng.random((2, N)) < 0.1)).astype(np.float32)
+    rid2 = (np.zeros((2, N)) if hot else rng.integers(0, R, (2, N))).astype(np.int32)
+    b0, b1 = (rng.uniform(0, 0.5, N).astype(np.float32) for _ in range(2))
+    ax0, ax1 = ((rng.integers(0, 3, N) + 4 * rng.integers(0, 2, N)).astype(np.float32)
+                for _ in range(2))
+    vtbl = rng.uniform(-1, 1, (9, R + 1)).astype(np.float32)
+    vtbl[2::3] = rng.uniform(0.5, 2.0, (3, R + 1))
+    extra = [rng.standard_normal((4, N)).astype(np.float32)] if da4 else []
+    return inputs_from_numpy(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, *extra)
+
+
+@pytest.mark.parametrize("hot,da4", [(False, False), (True, False), (False, True),
+                                     (True, True)])
+def test_tile_partials_twin_hot_row_and_crowded_tiles(hot, da4):
+    """A row fed by every pixel (one partial a tile, split over tiles),
+    and tiles of more rows than the scratch's SCATTER_CAP (the kernel's second
+    pass): the partials' row sums within B4's bar (1e-6 of each row's
+    largest value) of grad_scatter_plain."""
+    res, R = (40, 36), 300
+    *args, da = _synthetic_scatter(7 + hot + 2 * da4, res, R, hot, da4) + ((None,) * (1 - da4))
+    row, tile, part, n = tpb.tile_partials_plain(*args, res, da4=da)
+    K = 3 * (args[1].shape[0] - 9) + 9
+    got = _partial_rows(row, part, R)
+    gt, gaa = tpb.grad_scatter_plain(*args, res, da4=da)
+    for g, ref in ((got[:, :K], gt), (got[:, K:], gaa)):
+        scale = ref.abs().amax(1, keepdim=True)
+        assert bool(((g - ref).abs() <= 1e-6 * scale).all())
+    counts = torch.bincount(tile, minlength=int(tile.max()) + 1)
+    if hot:
+        assert set(row.tolist()) == {0} and int(n.max()) > 4 * 32  # lanes take turns
+    else:
+        assert int(counts.max()) > tpb.SCATTER_CAP
 
 
 def test_vertex_sum_is_a_dense_fixed_order_sum():

@@ -230,6 +230,27 @@ def test_grad_scatter_da4_twin_matches_f64_and_jax(case):
     assert not torch.equal(tpb.grad_scatter(*args, vtbl, RES)[0][:, :6], gt[:, :6])
 
 
+def test_tile_partials_da4_twin_sums_to_rows_and_jax(case):
+    """Kernel B4's per-tile partials with the da4 terms (plain twin):
+    every live entry (gs or da4 column non-zero, or a kept AA pair) in
+    one (row, tile) partial; their row sums within 1 ulp of float64
+    np.add.at sums and JAX's pipeline_grad_scatter(da4=...) within its
+    2^-16 bar."""
+    *args, vtbl, da4 = _scatter_args(case)
+    R = case["R"]
+    row, tile, part, n = tpb.tile_partials_plain(*args, vtbl, RES, da4=da4)
+    gs, dd2 = args[1], args[2]
+    live = int(((gs != 0).any(0) | (da4 != 0).any(0)).sum() + (dd2 != 0).sum())
+    assert int(n.sum()) == live and row.shape[0] < live
+    got = torch.zeros((R, 24), dtype=torch.float64).index_add_(0, row, part).float()
+    for name, g, jax_out, (ref, ref_abs) in zip(("gt", "gaa"), (got[:, :15], got[:, 15:]),
+                                                case["scatter"], _f64_sums(case)):
+        g = g.numpy()
+        ulp = np.spacing(np.abs(ref).astype(np.float32))
+        assert (np.abs(g - ref) <= ulp).all(), name
+        assert (np.abs(jax_out - g) <= 2.0 ** -16 * ref_abs + ulp).all(), name
+
+
 def test_render_pipeline_textured_grads_match_jax():
     """linear-mipmap-linear, wrap, one texture, no boost."""
     mode = ("linear-mipmap-linear", "wrap", 1, 1.0)
