@@ -90,16 +90,23 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
  13. CubeFitModel(16) for 150 steps (error < 0.08) and
      PoseFitModel(64).fit(300) (angle < 2 degrees) on the card, their
      ms per step;
- 14. B12, the cube sampler, against its twins at 2048^2 on the bench
-     sphere's 8 views, reflection vectors (interpolate with diff_attrs=
-     'all') as directions into procedural_cubemap(512), 10 levels,
-     linear-mipmap-linear: cube_fwd and cube_bwd bit for bit, the texture
-     gradient (B10 on the cube taps) within 1 ulp of its float64 twin,
-     bitwise repeatable, its partials bit for bit with the twin's on
-     65,536 taps, their times (no PyTorch call samples cube maps);
-     then texture(boundary_mode='cube') fwd + bwd on the 8 views: all
-     three kernels launched, bitwise repeatable, ms/step, peak memory, a
-     256^2 view within the CPU bars of the CPU path;
+ 14. B12, the cube sampler and the cube texture gradient, against their
+     twins at 2048^2 on the bench sphere's 8 views, reflection vectors
+     (interpolate with diff_attrs='all') as directions into
+     procedural_cubemap(512), 10 levels, linear-mipmap-linear: cube_fwd
+     and cube_bwd's (gs, gt, gfl) (16x16 tiles) bit for bit, the tiles
+     pass's (texel, tile) partials bit for bit with
+     cube_tile_partials_plain, the gradient within 1 ulp of the float64
+     sums of the taps (+0 where they are), bitwise repeatable, one host
+     sync; the joint pass texture() runs ((gs, gt, gfl) and the
+     partials in one run) bit for bit with cube_bwd_plain and with the
+     texture-only run, its stages timed, beside the earlier design (the
+     taps' glue and B10) on the same inputs (no PyTorch call samples
+     cube maps); then
+     texture(boundary_mode='cube') fwd + bwd on the 8 views: all five
+     kernels launched and scatter_rows never, bitwise repeatable,
+     ms/step, peak memory, a 256^2 view within the CPU bars of the CPU
+     path;
  15. the repaired calls (antialias at 17 channels, render_pipeline at 9,
      render_pipeline_textured with per-image uvs, 9 channels, 'nearest'
      and a cube map) at 64^2, B = 2: finite, bitwise repeatable, within
@@ -130,11 +137,11 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      rows than the scratch) within 1e-6 of each row's largest, timed.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
-operations over 67 TFLOP/s; grad_scatter, grad_scatter_da4 and
-scatter_rows also carry all_ms, the whole reduction with its glue, and
-its bound) and, last, the device line. Any failed
-check raises, so the exit code is not 0. Without a CUDA device, or
-without the package beside it, it fails at once.
+operations over 67 TFLOP/s; grad_scatter, grad_scatter_da4,
+scatter_rows and texture_cube_bwd also carry all_ms, the whole
+reduction with its glue, and its bound) and, last, the device line. Any
+failed check raises, so the exit code is not 0. Without a CUDA device,
+or without the package beside it, it fails at once.
 """
 
 import json
@@ -181,8 +188,10 @@ MID_SPHERE = (128, 320)   # 81,280 triangles: the binned kernel against its twin
 # rasterizer and the texture gradient (PERF.md section 6 at commit
 # cbbd73c), the gradient scatters B4 and B10 (PERF.md section 6 at commit
 # 54206d4; the quad, 1 M, hot-row, random-id and cube-tap calls from
-# `profile_step --reductions` on that commit, whose cases are like these);
-# NVIDIA H100 80GB HBM3 at 700 W.
+# `profile_step --reductions` on that commit, whose cases are like these),
+# the cube sampler and the cube texture gradient (PERF.md sections 5 and 6
+# at commit 91a76fc: its kernels, and the taps' glue and B10 in
+# `profile_step --cube`); NVIDIA H100 80GB HBM3 at 700 W.
 BEFORE_MS = {"raster": "0.299", "raster_db": "0.324", "prepass": "5.0-7.4",
           "peel": "0.363", "range": "0.622 (binned)", "band": "0.095",
           "binned_1M": "2.446", "glue_1M": "0.419", "prepass_1M": "3.469-7.212",
@@ -194,7 +203,8 @@ BEFORE_MS = {"raster": "0.299", "raster_db": "0.324", "prepass": "5.0-7.4",
           "grad_scatter_1M": "1.91-1.96",
           "scatter_rows": "kernel 0.063 + index glue 0.52-0.60 (PERF.md section 5)",
           "scatter_rows_hot": "0.65-0.91", "scatter_rows_random": "0.79-0.81",
-          "scatter_rows_cube": "3.89-3.93"}
+          "scatter_rows_cube": "3.89-3.93", "cube_fwd": "0.0785", "cube_bwd": "0.0885",
+          "cube_grad": "20.7-20.9 + 3.7-3.9 device ms (profile_step --cube)"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -2067,13 +2077,14 @@ def main():
     _, csaved, cmeta = tx._texture_fwd(cube_spec, env, *dirs[0], None, ())
     cflat, ccols = csaved[0], tuple(csaved[6:])
     n_ctex = cflat.shape[0]
-    cimg = tcc.sample_cube(cflat, ccols, cmeta, FILTER)
+    cshape = (1, RES, RES)
+    cimg = tcc.sample_cube(cflat, ccols, cmeta, FILTER, cshape)
     cube_fwd_err = equal_or_raise((cimg,), (tcc.sample_cube_plain(cflat, ccols, cmeta, FILTER),),
                                   "cube_fwd")
     cdy = (2.0 * cimg / cimg.numel()).contiguous()  # d mean(img**2) / d img
-    cgs = tcc.cube_bwd(cflat, ccols, cdy, cmeta, FILTER)
-    cube_bwd_err = equal_or_raise(cgs, tcc.cube_bwd_plain(cflat, ccols, cdy, cmeta, FILTER),
-                                  "cube_bwd")
+    cgs = tcc.cube_bwd(cflat, ccols, cdy, cmeta, FILTER, cshape)
+    cgs_plain = tcc.cube_bwd_plain(cflat, ccols, cdy, cmeta, FILTER)
+    equal_or_raise(cgs, cgs_plain, "cube_bwd")
     cfin = ccols[3] != 0
     cl0 = ccols[2].floor().clamp(0, len(cmeta) - 1)
     n_cvalid = int(cfin.sum())
@@ -2081,56 +2092,100 @@ def main():
     log(f"[14] cube_fwd, cube_bwd {RES}^2 ({FILTER}, {len(cmeta)} levels, {n_ctex} texels): "
         f"equal to their twins bit for bit; {n_cvalid} valid directions, {n_creads} level "
         f"reads, flevel in [{float(ccols[2].min()):.3f}, {float(ccols[2].max()):.3f}]")
-    cube_fwd_ms = cuda_ms(torch, lambda: tcc.sample_cube(cflat, ccols, cmeta, FILTER), 50)
+    cube_fwd_ms = cuda_ms(torch, lambda: tcc.sample_cube(cflat, ccols, cmeta, FILTER, cshape),
+                          50)
     cube_fwd_plain_ms = cuda_ms(torch, lambda: tcc.sample_cube_plain(cflat, ccols, cmeta,
                                                                      FILTER), 3)
-    cube_bwd_ms = cuda_ms(torch, lambda: tcc.cube_bwd(cflat, ccols, cdy, cmeta, FILTER), 50)
+    cube_bwd_ms = cuda_ms(torch, lambda: tcc.cube_bwd(cflat, ccols, cdy, cmeta, FILTER, cshape),
+                          50)
     cube_bwd_plain_ms = cuda_ms(torch, lambda: tcc.cube_bwd_plain(cflat, ccols, cdy, cmeta,
                                                                   FILTER), 3)
-    log(f"[14] cube_fwd {RES}^2: kernel {cube_fwd_ms:.3f} ms, twin {cube_fwd_plain_ms:.3f} ms; "
-        f"cube_bwd: kernel {cube_bwd_ms:.3f} ms, twin {cube_bwd_plain_ms:.3f} ms; no PyTorch "
-        f"call samples cube maps, so no library yardstick ({card})")
-    # The texture gradient: the cube taps through B10.
+    log(f"[14] cube_fwd {RES}^2 (16x16 tiles): kernel {cube_fwd_ms:.4f} ms (before: "
+        f"{BEFORE_MS['cube_fwd']}), twin {cube_fwd_plain_ms:.3f} ms; cube_bwd, (gs, gt, gfl) "
+        f"alone: kernel {cube_bwd_ms:.4f} ms (before: {BEFORE_MS['cube_bwd']}), twin "
+        f"{cube_bwd_plain_ms:.3f} ms; no PyTorch call samples cube maps, so no library "
+        f"yardstick ({card})")
+    # The texture gradient: the tiles pass's partials against their twin,
+    # the result against the float64 sums of the taps; the joint pass that
+    # texture()'s backward runs ((gs, gt, gfl) and the partials in one
+    # run) against both twins; its stages, and the earlier design (the
+    # taps' glue and B10) on the same inputs.
+    cargs = (ccols, cdy, cmeta, n_ctex, FILTER, cshape)
+    cgrad = tcc.cube_texture_grad(*cargs)
+    cg3, cgj = tcc.cube_grads(cflat, ccols, cdy, cmeta, n_ctex, FILTER, cshape)
+    cube_bwd_err = equal_or_raise(cg3, cgs_plain, "cube tiles pass, (gs, gt, gfl)")
+    if not bits_equal(cgj, cgrad):
+        raise AssertionError("cube tiles pass: the joint run's texture gradient differs")
     cids, cw = tcc.cube_grad_entries(ccols, cmeta, FILTER)
     cvals = (cdy.repeat(1, cw.shape[0] // N) * cw).contiguous()
-    cgrad = scatter.scatter_add_by_id(cids, cvals, n_ctex)
-    if not torch.equal(cgrad, scatter.scatter_add_by_id(cids, cvals, n_ctex)):
+    cref = scatter.scatter_add_by_id_plain(cids, cvals, n_ctex)
+    if not bits_equal(cgrad, tcc.cube_texture_grad(*cargs)):
         raise AssertionError("cube texture gradient not bitwise repeatable")
-    cube_grad_err = ulp_check(cgrad, scatter.scatter_add_by_id_plain(cids, cvals, n_ctex),
-                              "cube texture gradient")
-    n_ctaps = int(((cids >= 0) & (cids < n_ctex) & (cvals != 0).any(0)).sum())
-    cmid = slice(N // 2 - 32768, N // 2 + 32768)  # corner 0's taps across the sphere
-    cmid_args = (cids[cmid], cvals[:, cmid].contiguous(), n_ctex)
-    partials_equal_or_raise(torch, scatter.chunk_partials(*cmid_args),
-                            scatter.chunk_partials_plain(*cmid_args), scatter.CAP,
-                            "cube taps, 65,536 columns")
-    n_cpart = int(scatter.chunk_partials(cids, cvals, n_ctex)[2].sum())
-    cgrad_ms = cuda_ms(torch, lambda: scatter.scatter_add_by_id(cids, cvals, n_ctex), 20)
-    ctaps_ms = cuda_ms(torch, lambda: tcc.cube_grad_entries(ccols, cmeta, FILTER), 10)
-    log(f"[14] cube texture gradient {RES}^2: {n_ctaps} live taps of {cids.shape[0]}, "
-        f"{n_cpart} (texel, chunk) partials, within 1 ulp of its float64 twin (max|err| "
-        f"{cube_grad_err:.3g}), bitwise repeatable; scatter_rows in all {cgrad_ms:.3f} ms "
-        f"(before: {BEFORE_MS['scatter_rows_cube']}) + taps {ctaps_ms:.3f} ms ({card})")
+    cube_grad_err = ulp_check(cgrad, cref, "cube texture gradient")
+    if bool(torch.signbit(cgrad[cref == 0]).any()):
+        raise AssertionError("cube texture gradient: -0 where the float64 sum is +0")
+    cpart = tcc.cube_tile_partials(ccols, cdy, cmeta, FILTER, cshape)
+    partials_equal_or_raise(torch, cpart, tcc.cube_tile_partials_plain(
+        ccols, cdy, cmeta, FILTER, cshape), tcc.CUBE_CAP, f"cube tiles pass {RES}^2")
+    n_ctaps = int((cw != 0).sum())
+    n_cpart = cpart[0].numel()
+    n_sync14 = host_syncs(lambda: tcc.cube_texture_grad(*cargs))
+    if n_sync14 > 1:
+        raise AssertionError(f"cube texture gradient synced with the host {n_sync14} times")
+    cuv = torch.empty((3, N), dtype=torch.float32, device=dev)
+    ctiles = tcc.cube_tiles(cflat, ccols, cdy, cmeta, FILTER, cshape, cuv)  # the joint pass
+    st14, (compact_err14, seg_err14), _ = reduction_stages(
+        torch, dev, ctiles, n_ctex, tcc.GRAD_SEGMENT_KERNEL, tcc.GRAD_SUM_KERNEL)
+    equal_or_raise(tuple(cuv), cgs_plain, "cube tiles pass (stages), (gs, gt, gfl)")
+    cgrad_ms = cuda_ms(torch, lambda: tcc.cube_texture_grad(*cargs), 20)
+    cjoint_ms = cuda_ms(torch, lambda: tcc.cube_grads(cflat, ccols, cdy, cmeta, n_ctex, FILTER,
+                                                      cshape), 20)
+    cparts_plain_ms = cuda_ms(torch, lambda: tcc.cube_tile_partials_plain(
+        ccols, cdy, cmeta, FILTER, cshape), 2)
+
+    def taps_then(sum_fn):  # the taps' glue, then a sum of the taps by texel
+        ids, w = tcc.cube_grad_entries(ccols, cmeta, FILTER)
+        return sum_fn(ids, (cdy.repeat(1, w.shape[0] // N) * w).contiguous(), n_ctex)
+
+    cgrad_plain_ms = cuda_ms(torch, lambda: taps_then(scatter.scatter_add_by_id_plain), 3)
+    cold_ms = cuda_ms(torch, lambda: taps_then(scatter.scatter_add_by_id), 3)
+    log(f"[14] cube tiles pass {RES}^2: {n_ctaps} kept taps into {n_cpart} (texel, tile) "
+        f"partials ({int((cpart[2] > 0).sum())} tiles with taps, at most {int(cpart[2].max())} "
+        f"partials a tile, {int((cpart[2] > tcc.CUBE_CAP).sum())} past the scratch of "
+        f"{tcc.CUBE_CAP}); the gradient within 1 ulp of the float64 sums of the taps (max|err| "
+        f"{cube_grad_err:.3g}), bitwise repeatable, {n_sync14} host sync; the joint run's "
+        f"(gs, gt, gfl) equal cube_bwd_plain's and its gradient the texture-only run's, bit "
+        f"for bit; the compacted partials equal the scratch (max|err| {compact_err14:.3g}), "
+        f"the segment starts searchsorted's (max|err| {seg_err14:.3g})")
+    log(f"[14] cube gradients {RES}^2, the joint pass as texture() runs it: in all "
+        f"{cjoint_ms:.4f} ms, stages " + ", ".join(f"{k} {v:.4f}" for k, v in st14.items())
+        + f" ms; the texture gradient alone {cgrad_ms:.4f} ms (before, the taps' glue and "
+        f"B10: {BEFORE_MS['cube_grad']}; in this run {cold_ms:.3f} ms), with (gs, gt, gfl) "
+        f"alone {cgrad_ms + cube_bwd_ms:.4f} ms apart; partials twin {cparts_plain_ms:.3f} "
+        f"ms, float64 index_add_ twin {cgrad_plain_ms:.3f} ms ({card})")
 
     # The cube texture op, fwd + bwd (gradients to the map, uv and uv_da)
-    # on the 8 views: the main path of B12.
-    cube_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL) + b10_kernels
+    # on the 8 views: the main path of B12. B10 leaves it.
+    cube_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, tcc.GRAD_COMPACT_KERNEL,
+                    tcc.GRAD_SEGMENT_KERNEL, tcc.GRAD_SUM_KERNEL)
 
     def cube_step(uv, uv_da, tex=env):
         xs = [x.detach().clone().requires_grad_() for x in (tex, uv, uv_da)]
         img = dr.texture(xs[0], xs[1], xs[2], filter_mode=FILTER, boundary_mode="cube")
         return (img.detach(),) + torch.autograd.grad((img ** 2).mean(), xs)
 
-    for k in cube_kernels:
+    for k in cube_kernels + b10_kernels:
         k.launches = 0
     cg = [cube_step(*d) for d in dirs]
     torch.cuda.synchronize()
-    cube_launches = {k.name: k.launches for k in cube_kernels}
+    cube_launches = {k.name: k.launches for k in cube_kernels + b10_kernels}
     log(f"[14] launches during the cube texture slice (8 views): {cube_launches}")
-    if min(cube_launches.values()) <= 0:
+    if min(cube_launches[k.name] for k in cube_kernels) <= 0:
         raise AssertionError(f"a kernel of the cube path never launched: {cube_launches}")
+    if any(cube_launches[k.name] for k in b10_kernels):
+        raise AssertionError(f"scatter_rows launched on the cube path: {cube_launches}")
     for x, y in zip(cg[0], cube_step(*dirs[0])):
-        if not torch.equal(x, y):
+        if not bits_equal(x, y):
             raise AssertionError("cube texture gradients not bitwise repeatable")
     for i, out in enumerate(cg):
         if not all(bool(torch.isfinite(x).all()) for x in out) or not bool(
@@ -2251,7 +2306,8 @@ def main():
         return m0, metric(model), losses, ms, launches
 
     env_metric = lambda m: m.metrics()[0]  # noqa: E731
-    model_kernels = (tcc.FWD_KERNEL, scatter.KERNEL, rc.DB_KERNEL, ic.KERNEL)
+    model_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, tcc.GRAD_SUM_KERNEL, rc.DB_KERNEL,
+                     ic.KERNEL)
     e0, e1, el, env_ms, el_launch = run_model(
         EnvPhongFitModel(res=128, env_res=32, subdiv=2, seed=0, device=dev), ENV_STEPS,
         env_metric, model_kernels)
@@ -2393,8 +2449,24 @@ def main():
     cvalid_words = n_cvalid * (4 + ("mipmap" in FILTER))
     cube_fwd_bound = bound((N + cvalid_words + n_ctex * 3 + 3 * N) * f32,
                            n_creads * (40 + 8 * 3))
-    cube_bwd_bound = bound((N + cvalid_words + 3 * n_cvalid + n_ctex * 3 + 3 * N) * f32,
-                           n_creads * (40 + 14 * 3))
+    # The cube backward as texture() runs it, the joint tiles pass: it
+    # reads the same pixel streams, C cotangents of the valid directions and
+    # the pyramid once, writes 3 gradients of every pixel, the tile counts
+    # and each (texel, tile) partial (its texel and C float64 sums); ~(40 +
+    # 14C) operations a level read and ~16 a kept tap. In all, the partials
+    # are also sorted (texels read, sorted texels and their order written)
+    # and read back with their order, and the [n_texels, C] gradient written.
+    # The second run moves the partials (read and write), the segment starts
+    # read the sorted texels, the sums read each partial with its order.
+    cent = 4 + 8 * 3
+    n_ctiles = cpart[2].numel()
+    cstream = (N + cvalid_words + 3 * n_cvalid + n_ctex * 3 + 3 * N + n_ctiles) * f32
+    cube_bwd_bound = bound(cstream + n_cpart * cent, n_creads * (40 + 14 * 3) + n_ctaps * 16)
+    cube_bwd_all_bound = bound(cstream + n_cpart * (cent + 16 + cent + 12) + n_ctex * 3 * f32,
+                               n_creads * (40 + 14 * 3) + n_ctaps * 16 + n_cpart * 3)
+    ccompact_bound = bound(2 * n_cpart * cent + n_ctiles * 12, 0)
+    cseg_bound = bound((n_cpart + n_ctex + 1) * f32, 0)
+    csum_bound = bound(n_cpart * (cent + 8) + (n_ctex + 1 + n_ctex * 3) * f32, n_cpart * 3)
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib,
               all_ms=None, all_bnd=None):
@@ -2510,8 +2582,22 @@ def main():
               "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.FWD_KERNEL.name],
               cube_fwd_err, cube_fwd_ms, cube_fwd_plain_ms, cube_fwd_bound, None),
         entry("texture_cube_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube.cu",
-              "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.BWD_KERNEL.name],
-              cube_bwd_err, cube_bwd_ms, cube_bwd_plain_ms, cube_bwd_bound, None),
+              "nvdiffrast_tpu/ops/texture_pallas.py:1508", cube_launches[tcc.BWD_KERNEL.name],
+              cube_bwd_err, st14["tiles pass 1"], cube_bwd_plain_ms + cparts_plain_ms,
+              cube_bwd_bound, None, cjoint_ms, cube_bwd_all_bound),
+        entry("texture_cube_grad_compact", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84",
+              cube_launches[tcc.GRAD_COMPACT_KERNEL.name], compact_err14,
+              st14["pass 2 (compact, tiles over the cap)"], cparts_plain_ms, ccompact_bound,
+              None),
+        entry("texture_cube_grad_segments", "cuda", "nvdiffrast_tpu_torch/csrc/raster_bin.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84",
+              cube_launches[tcc.GRAD_SEGMENT_KERNEL.name], seg_err14, st14["segment starts"],
+              cgrad_plain_ms, cseg_bound, None),
+        entry("texture_cube_grad_sum", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84",
+              cube_launches[tcc.GRAD_SUM_KERNEL.name], cube_grad_err, st14["sums"],
+              cgrad_plain_ms, csum_bound, None),
     ] + phase16_kernels
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "

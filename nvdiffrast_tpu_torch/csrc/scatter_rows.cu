@@ -4,8 +4,8 @@
 // Replaces: nvdiffrast_tpu/ops/scatter.py, _scatter_pallas
 // (scatter_add_by_id): the reduction that ends the standalone ops'
 // backwards (rasterize to triangle rows, interpolate to attribute rows,
-// antialias to triangle rows) and sums the cube and `nearest` texture
-// taps into texels.
+// antialias to triangle rows) and sums the `nearest` texture taps into
+// texels (the cube taps have their own tiles pass, texture_cube.cu).
 //
 // The TPU kernel builds a one-hot [chunk, rows] matrix per pixel chunk
 // over only the 128-row windows the chunk touches and multiplies it into
@@ -15,10 +15,10 @@
 // coherent (pixel order; the AA pairs' axis 0, then axis 1), so each chunk
 // of CHUNK consecutive columns pre-reduces its own columns by id in shared
 // memory, as grad_scatter.cu does per tile, and only those partial sums are
-// sorted. The cube taps (corner after corner in pixel order) are not: the
-// mip level puts about one texel under a pixel, so a chunk's taps mostly
-// hit distinct texels (on the bench sphere at 2048^2, 12.4 M live taps make
-// 8.8 M partials) and most chunks pass CAP:
+// sorted. Incoherent ids are not: cube taps in corner-major pixel order,
+// about one texel under a pixel, mostly hit distinct texels in a chunk (on
+// the bench sphere at 2048^2, 12.4 M live taps make 8.8 M partials) and
+// most chunks pass CAP:
 //   chunks  one block per chunk, one thread per column, reads the id and,
 //           for an id in [0, R), its first KC values (kept in shared
 //           memory for the walk; the rest up to a non-zero one, if none
@@ -61,13 +61,9 @@
 
 namespace {
 
-using nvdr_seg::warp_sum;
-
 constexpr int CHUNK = 256;  // columns a chunk, one thread each (scatter.CHUNK)
 constexpr int CAP = 32;     // partials a chunk keeps in the scratch (scatter.CAP)
 constexpr int KC = 16;      // channels summed per walk of a run
-constexpr int SHORT = 8;    // a run of at most SHORT columns is summed by one thread
-constexpr int MANY = 32;    // ... in a chunk of more than MANY runs (ids that barely reduce)
 using Runs = nvdr_seg::BlockRuns<CHUNK, 1>;
 
 __global__ void __launch_bounds__(CHUNK)
@@ -123,88 +119,21 @@ scatter_chunks(const int* __restrict__ ids, const float* __restrict__ vals, int 
         if (nruns > CAP) return;  // the second pass writes this chunk
     }
 
-    // Each run's float64 sum in a fixed order: pieces of PIECE columns,
-    // one warp a piece (segment_sum.cuh), then the pieces of a run in
-    // order; KC channels at a time.
+    // Each run's float64 sum in a fixed order (segment_sum.cuh sum_runs):
+    // pieces of PIECE columns, one warp a piece, then the pieces of a run
+    // in order; in a chunk of many runs (incoherent ids) a short run by
+    // one thread, the same bits. KC channels at a time.
     const int npieces = Runs::pieces(sm, nruns);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    // Few runs (coherent ids): every run goes to the warps, in parallel.
-    // Many: most are short, and a warp a lone column would spend 5
-    // shuffles a channel; those go to one thread each (uniform per block).
-    const int short_max = nruns > MANY ? SHORT : 0;
     for (int k0 = 0; k0 < K; k0 += KC) {
-        const int nc = min(KC, K - k0);
         if (k0 > 0) __syncthreads();  // the slots' last readers are done
-        for (int pc = warp; pc < npieces; pc += CHUNK / 32) {
-            const int r = sm.prun[pc];
-            if (sm.start[r + 1] - sm.start[r] <= short_max) continue;  // a thread's, below
-            const int e0 = sm.start[r] + (pc - sm.pfirst[r]) * nvdr_seg::PIECE;
-            const int e1 = min(e0 + nvdr_seg::PIECE, sm.start[r + 1]);
-            const bool multi = sm.pfirst[r + 1] - sm.pfirst[r] > 1;
-            double acc[KC];
-#pragma unroll
-            for (int j = 0; j < KC; ++j) acc[j] = 0.0;
-            for (int q = e0 + lane; q < e1; q += 32) {
-                const int item = sm.item[q];
-#pragma unroll
-                for (int j = 0; j < KC; ++j)
-                    if (j < nc)
-                        acc[j] += static_cast<double>(
-                            k0 == 0 ? s_val[j][item]
-                                    : vals[static_cast<size_t>(k0 + j) * N + c0 + item]);
-            }
-#pragma unroll
-            for (int j = 0; j < KC; ++j)
-                if (j < nc) acc[j] = warp_sum(acc[j]);
-            if (lane == 0) {
-                double* out = multi ? s_ps[sm.mfirst[r] + pc - sm.pfirst[r]]
-                                    : part_out + (o0 + r) * K + k0;
-#pragma unroll
-                for (int j = 0; j < KC; ++j)
-                    if (j < nc) out[j] = acc[j];
-                if (!multi && k0 == 0) id_out[o0 + r] = lo + static_cast<int>(sm.rkey[r]);
-            }
-        }
-        __syncthreads();
-        for (int r = threadIdx.x; r < nruns; r += CHUNK) {  // short and multi-piece runs
-            const int s0 = sm.start[r], n = sm.start[r + 1] - s0;
-            if (n <= short_max) {
-                // The warp's sum of a run of n <= SHORT columns, by one
-                // thread: lane q < n holds +0 + value q, the lanes past
-                // SHORT hold +0 (the butterfly's first steps add +0 to
-                // lanes that already start at +0), then the last steps of
-                // the butterfly as lane 0 sees them. The same bits as a
-                // warp, without 5 shuffles per channel for a lone column.
-                for (int j = 0; j < nc; ++j) {
-                    double a[SHORT];
-#pragma unroll
-                    for (int q = 0; q < SHORT; ++q) {
-                        const int item = q < n ? sm.item[s0 + q] : 0;
-                        const size_t col = static_cast<size_t>(k0 + j) * N + c0;
-                        a[q] = q < n ? 0.0 + static_cast<double>(k0 == 0 ? s_val[j][item]
-                                                                         : vals[col + item])
-                                     : 0.0;
-                    }
-#pragma unroll
-                    for (int o = SHORT / 2; o > 0; o >>= 1)
-#pragma unroll
-                        for (int q = 0; q < o; ++q) a[q] += a[q + o];
-                    part_out[(o0 + r) * K + k0 + j] = a[0];
-                }
-                if (k0 == 0) id_out[o0 + r] = lo + static_cast<int>(sm.rkey[r]);
-                continue;
-            }
-            const int np = sm.pfirst[r + 1] - sm.pfirst[r];
-            if (np < 2) continue;
-            const int m = sm.mfirst[r];
-            for (int j = 0; j < nc; ++j) {
-                double t = s_ps[m][j];
-                for (int i = 1; i < np; ++i) t += s_ps[m + i][j];
-                part_out[(o0 + r) * K + k0 + j] = t;
-            }
-            if (k0 == 0) id_out[o0 + r] = lo + static_cast<int>(sm.rkey[r]);
-        }
+        const auto value = [&](int item, int j) {
+            return k0 == 0 ? s_val[j][item] : vals[static_cast<size_t>(k0 + j) * N + c0 + item];
+        };
+        Runs::sum_runs<KC>(sm, nruns, npieces, min(KC, K - k0), s_ps, value,
+                           part_out + o0 * K + k0, K);
     }
+    for (int r = threadIdx.x; r < nruns; r += CHUNK)
+        id_out[o0 + r] = lo + static_cast<int>(sm.rkey[r]);
 }
 
 }  // namespace

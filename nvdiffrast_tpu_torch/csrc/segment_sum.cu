@@ -1,7 +1,7 @@
 // The second half of the per-tile gradient reductions (texture_grad.cu,
-// grad_scatter.cu, scatter_rows.cu): each tile pass writes one float64
-// partial sum per (row, tile) it touched; these entry points move the
-// partials into place and add them up by row.
+// texture_cube.cu, grad_scatter.cu, scatter_rows.cu): each tile pass
+// writes one float64 partial sum per (row, tile) it touched; these entry
+// points move the partials into place and add them up by row.
 //
 //   compact  moves each tile's entries from its CAP slots of the first
 //            pass's scratch to its offset (the exclusive scan of the

@@ -1,9 +1,10 @@
 // Pieces of the deterministic segmented sums (grad_scatter.cu,
-// scatter_rows.cu, texture_grad.cu, segment_sum.cu): a tile's items
-// grouped by row in shared memory and each group summed in float64 in a
-// fixed order, by warps over pieces of 64; the (row, tile) partial sums
-// then sorted by row and added in sorted order (segment_sum.cu). No
-// float atomics: the same inputs give the same bits on every run.
+// scatter_rows.cu, texture_grad.cu, texture_cube.cu, segment_sum.cu): a
+// tile's items grouped by row in shared memory and each group summed in
+// float64 in a fixed order, by warps over pieces of 64; the (row, tile)
+// partial sums then sorted by row and added in sorted order
+// (segment_sum.cu). No float atomics: the same inputs give the same bits
+// on every run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +30,12 @@ __device__ __forceinline__ double warp_sum(double v) {
 // lane l takes the piece's entries l and l + 32, the fixed butterfly adds
 // the lanes; a run of several pieces then adds their sums in piece order.
 constexpr int PIECE = 64;
+// In a tile of more than MANY runs (keys that barely reduce: the cube
+// taps, random ids), a run of at most SHORT items goes to one thread,
+// which replays the butterfly: the same bits, without 5 shuffles a
+// channel for a lone item.
+constexpr int MANY = 32;
+constexpr int SHORT = 8;
 
 // Block-wide minimum of a and of b over NT threads; every thread gets
 // both. s_red holds 2 * NT / 32 ints.
@@ -180,6 +187,77 @@ struct BlockRuns {
         if (threadIdx.x == 0) s.pfirst[nruns] = total;
         __syncthreads();
         return total;
+    }
+
+    // After pieces(): each run's float64 sums of nc <= WC channels, run r's
+    // channel j to out[r * stride + j]. value(item, j) is the item's float
+    // value. A piece goes to a warp, lane l adding its entries l and
+    // l + 32 to +0, then warp_sum; a run of several pieces adds their sums
+    // (ps, SLOTS rows of shared memory) in piece order. With more than
+    // MANY runs, a run of at most SHORT items goes to one thread: lane
+    // q < n of the warp would hold +0 + item q, the lanes past SHORT +0
+    // (the butterfly's first steps add +0 to lanes that start at +0), so
+    // the butterfly's last steps as lane 0 sees them give the same bits.
+    // Called by the whole block; ps may be reused once it returns.
+    template <int WC, class Value>
+    __device__ static void sum_runs(const Storage& s, int nruns, int npieces, int nc,
+                                    double (*ps)[WC], const Value& value, double* out,
+                                    int stride) {
+        const int short_max = nruns > MANY ? SHORT : 0;  // uniform over the block
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        for (int pc = warp; pc < npieces; pc += NT / 32) {
+            const int r = s.prun[pc];
+            if (s.start[r + 1] - s.start[r] <= short_max) continue;  // a thread's, below
+            const int e0 = s.start[r] + (pc - s.pfirst[r]) * PIECE;
+            const int e1 = min(e0 + PIECE, s.start[r + 1]);
+            const bool multi = s.pfirst[r + 1] - s.pfirst[r] > 1;
+            double acc[WC];
+#pragma unroll
+            for (int j = 0; j < WC; ++j) acc[j] = 0.0;
+            for (int q = e0 + lane; q < e1; q += 32) {
+                const int item = s.item[q];
+#pragma unroll
+                for (int j = 0; j < WC; ++j)
+                    if (j < nc) acc[j] += static_cast<double>(value(item, j));
+            }
+#pragma unroll
+            for (int j = 0; j < WC; ++j)
+                if (j < nc) acc[j] = warp_sum(acc[j]);
+            if (lane == 0) {
+                double* o = multi ? ps[s.mfirst[r] + pc - s.pfirst[r]]
+                                  : out + static_cast<size_t>(r) * stride;
+#pragma unroll
+                for (int j = 0; j < WC; ++j)
+                    if (j < nc) o[j] = acc[j];
+            }
+        }
+        __syncthreads();
+        for (int r = threadIdx.x; r < nruns; r += NT) {  // short and multi-piece runs
+            const int s0 = s.start[r], n = s.start[r + 1] - s0;
+            double* o = out + static_cast<size_t>(r) * stride;
+            if (n <= short_max) {
+                for (int j = 0; j < nc; ++j) {
+                    double a[SHORT];
+#pragma unroll
+                    for (int q = 0; q < SHORT; ++q)
+                        a[q] = q < n ? 0.0 + static_cast<double>(value(s.item[s0 + q], j)) : 0.0;
+#pragma unroll
+                    for (int h = SHORT / 2; h > 0; h >>= 1)
+#pragma unroll
+                        for (int q = 0; q < h; ++q) a[q] += a[q + h];
+                    o[j] = a[0];
+                }
+                continue;
+            }
+            const int np = s.pfirst[r + 1] - s.pfirst[r];
+            if (np < 2) continue;
+            const int m = s.mfirst[r];
+            for (int j = 0; j < nc; ++j) {
+                double t = ps[m][j];
+                for (int i = 1; i < np; ++i) t += ps[m + i][j];
+                o[j] = t;
+            }
+        }
     }
 };
 

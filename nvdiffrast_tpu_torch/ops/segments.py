@@ -1,9 +1,10 @@
 """Deterministic segmented sums shared by the gradient reductions (torch).
 
-The texture gradient (``texture_bwd_cuda``, B13), the render pipeline's
-gradient scatter (``pipeline_bwd_cuda.grad_scatter``, B4) and the
-standalone ops' row scatter (``scatter.scatter_add_by_id``, B10) reduce
-in the same three steps on the card:
+The texture gradient (``texture_bwd_cuda``, B13), the cube texture
+gradient (``texture_cube_cuda``, B12), the render pipeline's gradient
+scatter (``pipeline_bwd_cuda.grad_scatter``, B4) and the standalone ops'
+row scatter (``scatter.scatter_add_by_id``, B10) reduce in the same
+three steps on the card:
 
 1. a tile pass (one block per screen tile or column chunk) groups its
    own entries by row in shared memory and writes one float64 partial
@@ -100,9 +101,10 @@ def run_sums(tile, key, item, vals):
     j % 32, which adds it in float64 in turn j // 32 to a sum that starts
     at +0, and the 32 lane sums are added by the butterfly of
     ``csrc/segment_sum.cuh`` warp_sum; a run's piece sums are then added
-    in piece order (in a chunk of more than 32 runs ``csrc/scatter_rows.cu``
-    gives a run of at most 8 entries to one thread that replays that
-    butterfly: the same bits).
+    in piece order (in a chunk or tile of more than 32 runs
+    ``csrc/scatter_rows.cu`` and ``csrc/texture_cube.cu`` give a run of at
+    most 8 entries to one thread that replays that butterfly: the same
+    bits).
     Returns (tile [E], key [E], partial [E, W] float64,
     entries [E] int64), runs by tile, then key: the kernel's partials bit
     for bit, given the same float32 values.

@@ -12,9 +12,10 @@ the public op ``texture`` (``_texture_impl``) as a
 the 2-D sampler B11 (``texture_cuda.sample``), its uv / level backward
 (``texture_bwd_cuda.texture_bwd``) and texture gradient B13
 (``texture_bwd_cuda.texture_grad``); the cube sampler B12 and its
-backward (``texture_cube_cuda``), whose texture gradient goes through
-B10 (``scatter.scatter_add_by_id``). ``filter_mode='nearest'`` is tensor
-glue, as the JAX package's XLA-only ``_sample_nearest``. Textures of
+backward (``texture_cube_cuda``), whose tiles pass also pre-reduces the
+cube texture gradient per screen tile (``texture_cube_cuda.cube_grads``:
+(gs, gt, gfl) and the gradient from one pass). ``filter_mode='nearest'``
+is tensor glue, as the JAX package's XLA-only ``_sample_nearest``. Textures of
 more than 8 channels run in groups of 8 through the same kernels. The
 pyramid, the level and the cube glue (``texture_cube``) are plain tensor
 code on both routes, so a kernel and its plain twin read the same bits.
@@ -359,8 +360,8 @@ def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
         finfo = cube_faceid(x, y, z)
         s, t, finite = cube_project(finfo, x, y, z)
         cols = (s, t, flevel) + tuple(a.to(torch.int32) for a in (finite, finfo[0], tz))
-        out = torch.cat([sample_cube(flat[:, a:b].contiguous(), cols, meta, filter_mode)
-                         for a, b in channel_groups(C, MAX_C)])
+        out = torch.cat([sample_cube(flat[:, a:b].contiguous(), cols, meta, filter_mode,
+                                     (B, H, W)) for a, b in channel_groups(C, MAX_C)])
     else:
         out = torch.cat([sample(flat[:, a:b].contiguous(), uvf[:, 0], uvf[:, 1], flevel,
                                 meta, (B, H, W), D > 1, boundary_mode, filter_mode)
@@ -375,7 +376,7 @@ def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
     from .scatter import scatter_add_by_id
     from .texture_bwd_cuda import texture_bwd, texture_grad
     from .texture_cube import cube_project_vjp, cube_st_da_vjp
-    from .texture_cube_cuda import cube_bwd, cube_texture_grad
+    from .texture_cube_cuda import cube_grads
     from .texture_cuda import MAX_C
 
     filter_mode, boundary_mode, _, use_mip = spec
@@ -391,16 +392,20 @@ def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
     groups = channel_groups(C, MAX_C)
     g_tex = g_uv = g_da = g_bias = None
     g_mips = [None] * len(mip_shapes)
+    want_tex = needs[0] or any(needs[4:])
+    if cube and filter_mode != "nearest":  # both gradients from one pass per group
+        cube_parts = [cube_grads(flat[:, a:b], tuple(cols), gc[a:b], meta, n_tex, filter_mode,
+                                 (B, H, W), uv=any(needs[1:4]), tex=want_tex)
+                      for a, b in groups]
 
     # Texture gradient: to the base texture through the pyramid, or to the
     # level tensors the caller passed.
-    if needs[0] or any(needs[4:]):
+    if want_tex:
         if filter_mode == "nearest":
             idx, valid = _nearest_taps(meta, uvf, tz, boundary_mode, cube)
             g_flat = scatter_add_by_id(torch.where(valid, idx, -1).to(torch.int32), gc, n_tex)
         elif cube:
-            g_flat = torch.cat([cube_texture_grad(cols, gc[a:b], meta, n_tex, filter_mode)
-                                for a, b in groups], dim=1)
+            g_flat = torch.cat([part[1] for part in cube_parts], dim=1)
         else:
             g_flat = torch.cat([texture_grad(uvf[:, 0], uvf[:, 1], flevel, gc[a:b], meta,
                                              n_tex, (B, H, W), D > 1, boundary_mode,
@@ -425,10 +430,9 @@ def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
     # Gradients to the sampling coordinates and the level, summed over the
     # channel groups in order.
     g3 = None
-    for a, b in groups:
+    for i, (a, b) in enumerate(groups):
         if cube:
-            part = cube_bwd(flat[:, a:b].contiguous(), tuple(cols), gc[a:b].contiguous(),
-                            meta, filter_mode)
+            part = cube_parts[i][0]
         else:
             part = texture_bwd(flat[:, a:b].contiguous(), uvf[:, 0], uvf[:, 1], flevel,
                                gc[a:b].contiguous(), meta, (B, H, W), D > 1, boundary_mode,

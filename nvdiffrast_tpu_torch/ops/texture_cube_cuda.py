@@ -1,7 +1,9 @@
-"""Cube-map sampler, forward and backward: two CUDA kernels (torch).
+"""Cube-map sampler, forward and backward, and the cube texture
+gradient: CUDA kernels (torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/texture_pallas.py``'s ``_call_cube``
-(B12; kernel body ``_build_cube_kernel``) in its modes:
+(B12; kernel body ``_build_cube_kernel``) in its modes, and of the
+texture gradient of its vjp (``_sample_cube_bwd``):
 
 * ``sample_cube`` (kernel ``csrc/texture_cube.cu``, ``cube_fwd``):
   seamless cube-map samples [C, N] of the flat-packed 6-face pyramid at
@@ -10,18 +12,29 @@ Counterpart of ``nvdiffrast_tpu/ops/texture_pallas.py``'s ``_call_cube``
   linear-mipmap-linear filters: corners that fall off a face wrap to the
   neighbour face, a missing cube-corner texel takes the average of the
   other three, an invalid direction gives zeros;
-* ``cube_bwd`` (kernel ``cube_bwd``): the gradients (gs, gt, gfl) of the
-  samples to s, t and the level from the colour cotangent.
+* ``cube_bwd`` (kernel ``cube_tiles``): the gradients (gs, gt, gfl) of
+  the samples to s, t and the level from the colour cotangent;
+* ``cube_texture_grad`` (the same tiles pass, then the shared
+  ``csrc/segment_sum.cu`` sums of ``segments``): the gradient of the
+  packed pyramid. Each 16x16 screen tile forms its pixels' texel taps
+  (texel, effective weight times the cotangent) and sums them by texel
+  in shared memory, in float64; the (texel, tile) partial sums are
+  sorted by texel and each texel's are added in float64 in that order
+  and rounded once, with no float atomics and one host sync (the
+  partial count). ``cube_grads`` computes (gs, gt, gfl) and the texture
+  gradient in one pass.
 
-``sample_cube_plain`` and ``cube_bwd_plain`` are their plain PyTorch
-twins with the same arithmetic. The texture gradient is no kernel of its
-own, as in the JAX package (``_sample_cube_bwd``): ``cube_grad_entries``
-recomputes each tap's texel and effective weight, and
-``scatter.scatter_add_by_id`` (B10, ``csrc/scatter_rows.cu``) sums them.
-The seam wrap sends corners to other faces, so the lattice reduction of
-the 2-D texture (B13) does not apply.
+``sample_cube_plain`` and ``cube_bwd_plain`` are the plain PyTorch twins
+of the samplers with the same arithmetic; ``cube_grad_entries`` expands
+every tap as ``_sample_cube_bwd`` does, and the CPU path sums them with
+``scatter.scatter_add_by_id_plain`` (float64 ``index_add_``);
+``cube_tile_partials_plain`` replays the tiles pass's partials bit for
+bit (``segments.run_sums``).
 
-CPU tensors run the twins; CUDA tensors launch the kernels or raise.
+Pixels lie on a (B, H, W) grid, p = (b * H + y) * W + x (``shape``,
+which the kernels' 16x16 tiles need: CUDA tensors without it raise; the
+samplers' twins ignore it). CPU tensors run the twins; CUDA tensors
+launch the kernels or raise.
 """
 
 import ctypes
@@ -29,54 +42,80 @@ import ctypes
 import torch
 
 from .. import _build
-from .scatter import scatter_add_by_id
+from . import segments
+from .pipeline_bwd_cuda import _device_of
+from .scatter import scatter_add_by_id_plain
+from .texture_bwd_cuda import _meta_arg
 from .texture_cube import cube_corner_setup
 from .texture_cuda import FILTER, MAX_C, MAX_LEVELS, level_weights
 
 FWD_KERNEL = _build.Kernel(
     "nvdr_texture_cube_fwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4)
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6)
 
+# The backward tiles pass's first run: (gs, gt, gfl) and / or the texture
+# gradient's partials (counts and the scratch).
 BWD_KERNEL = _build.Kernel(
     "nvdr_texture_cube_bwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4)
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7)
+# Its second run: the scratch moved into place and the tiles of more than
+# CUBE_CAP partials computed again.
+GRAD_COMPACT_KERNEL = _build.Kernel("nvdr_texture_cube_compact", BWD_KERNEL.argtypes,
+                                    symbol="nvdr_texture_cube_bwd")
+GRAD_SEGMENT_KERNEL = _build.Kernel("nvdr_texture_cube_segments", segments.SEGMENT_ARGS,
+                                    symbol="nvdr_segment_starts")
+GRAD_SUM_KERNEL = _build.Kernel("nvdr_texture_cube_sum", segments.SUM_ARGS,
+                                symbol="nvdr_segment_sums")
+
+CUBE_TILE = 16  # screen tile of the kernels (csrc/texture_cube.cu TILE)
+CUBE_CAP = 256  # partials a tile keeps in the first pass's scratch
 
 
-def _check(flat, cols, meta, filter_mode, dy=None):
+def _grid(shape, N, what):
+    """(B, H, W) of the N pixels, checked."""
+    if shape is None:
+        raise ValueError(f"{what}: the kernels need the pixels' (B, H, W) shape")
+    B, H, W = (int(x) for x in shape)
+    if B * H * W != N or (N and min(B, H, W) <= 0):
+        raise ValueError(f"{what}: shape {tuple(shape)} does not hold {N} pixels")
+    return B, H, W
+
+
+def _check(n_tex, C, dev, cols, meta, filter_mode, dy=None, what="sample_cube"):
     s, t, flevel, finite, face, tz = cols
-    n_tex, C = flat.shape
     N = s.shape[0]
     L = len(meta)
     if not 1 <= C <= MAX_C:
-        raise ValueError(f"sample_cube: {C} channels; the sampler serves 1 to {MAX_C}")
+        raise ValueError(f"{what}: {C} channels; the sampler serves 1 to {MAX_C}")
     if not 1 <= L <= MAX_LEVELS or filter_mode not in FILTER:
-        raise ValueError(f"sample_cube: {L} levels, filter {filter_mode!r}")
+        raise ValueError(f"{what}: {L} levels, filter {filter_mode!r}")
     if any(x.shape != (N,) for x in cols):
-        raise ValueError(f"sample_cube: s, t, flevel, finite, face, tz must be flat [{N}]")
-    if any(x.dtype != torch.float32 for x in (flat, s, t, flevel)) or any(
+        raise ValueError(f"{what}: s, t, flevel, finite, face, tz must be flat [{N}]")
+    if any(x.dtype != torch.float32 for x in (s, t, flevel)) or any(
             x.dtype != torch.int32 for x in (finite, face, tz)):
-        raise ValueError("sample_cube: float32 pyramid, s, t, flevel; int32 finite, face, tz")
-    if any(x.device != flat.device for x in cols):
-        raise ValueError("sample_cube: tensors on several devices")
+        raise ValueError(f"{what}: float32 pyramid, s, t, flevel; int32 finite, face, tz")
+    if any(x.device != dev for x in cols):
+        raise ValueError(f"{what}: tensors on several devices")
     if n_tex * C >= 2 ** 31:
-        raise ValueError("sample_cube: pyramid of 2**31 floats or more")
+        raise ValueError(f"{what}: pyramid of 2**31 floats or more")
     for off, h, w in meta:
         if h != w or off < 0 or off + 6 * w * w > n_tex:
-            raise ValueError(f"sample_cube: level ({off}, {h}, {w}) outside the "
+            raise ValueError(f"{what}: level ({off}, {h}, {w}) outside the "
                              f"{n_tex}-texel pyramid or not square")
     if dy is not None and (dy.shape != (C, N) or dy.dtype != torch.float32
-                           or dy.device != flat.device):
-        raise ValueError(f"cube_bwd: dy must be float32 [{C}, {N}] on the pyramid's device")
+                           or dy.device != dev):
+        raise ValueError(f"{what}: dy must be float32 [{C}, {N}] on the pyramid's device")
     return C, N, L
 
 
-def _args(flat, cols, meta):
-    m = (ctypes.c_int * (3 * len(meta)))(*(x for lev in meta for x in lev))
-    return ([_build.ptr(flat)] + [_build.ptr(x) for x in cols],
-            ctypes.cast(m, ctypes.c_void_p))
+def _check_flat(flat, cols, meta, filter_mode, dy=None, what="sample_cube"):
+    """_check for a pyramid flat [n_texels, C] float32."""
+    if flat.ndim != 2 or flat.dtype != torch.float32:
+        raise ValueError(f"{what}: the pyramid must be float32 [n_texels, C]")
+    return _check(flat.shape[0], flat.shape[1], flat.device, cols, meta, filter_mode, dy, what)
 
 
-def sample_cube(flat, cols, meta, filter_mode):
+def sample_cube(flat, cols, meta, filter_mode, shape=None):
     """Cube-map samples [C, N].
 
     Args:
@@ -86,35 +125,117 @@ def sample_cube(flat, cols, meta, filter_mode):
         in [0, 1] and level (float32; flevel unread by 'linear'), the
         validity, face and texture index (int32).
       meta: ((offset, w, w), ...) per level (texture._static_meta).
+      shape: the pixels' (B, H, W) grid (the kernel's 16x16 tiles);
+        needed on CUDA tensors, unread by the CPU twin.
     """
-    if flat.device.type == "cpu":
+    if _device_of(flat, "sample_cube") == "cpu":
         return sample_cube_plain(flat, cols, meta, filter_mode)
-    if flat.device.type != "cuda":
-        raise ValueError(f"sample_cube: unsupported device {flat.device}")
     flat = flat.contiguous()
     cols = tuple(x.contiguous() for x in cols)
-    C, N, L = _check(flat, cols, meta, filter_mode)
+    C, N, L = _check_flat(flat, cols, meta, filter_mode)
+    B, H, W = _grid(shape, N, "sample_cube")
     out = torch.empty((C, N), dtype=torch.float32, device=flat.device)
-    ptrs, m = _args(flat, cols, meta)
-    FWD_KERNEL.launch(flat.device, *ptrs, _build.ptr(out), m, N, C, L, FILTER[filter_mode])
+    if N:
+        FWD_KERNEL.launch(flat.device, _build.ptr(flat), *(_build.ptr(x) for x in cols),
+                          _build.ptr(out), _meta_arg(meta), B, H, W, C, L, FILTER[filter_mode])
     return out
 
 
-def cube_bwd(flat, cols, dy, meta, filter_mode):
+def _tile_blocks(shape):
+    """(tiles in x, tiles in y, tiles in all) of the 16x16 screen tiles."""
+    B, H, W = shape
+    ntx, nty = -(-W // CUBE_TILE), -(-H // CUBE_TILE)
+    return ntx, nty, B * ntx * nty
+
+
+def cube_tiles(flat, cols, dy, meta, filter_mode, shape, uv_out=None, cap=CUBE_CAP):
+    """(launch, tiles, C, cap): the backward tiles pass of
+    csrc/texture_cube.cu on contiguous CUDA tensors, as
+    ``segments.tile_partials`` runs it; its first run also writes (gs,
+    gt, gfl) into uv_out [3, N] when given (then flat is read).
+    ``launch(None, None, ...)`` runs the uv part alone."""
+    C = dy.shape[0]
+    dims = (cap, *shape, C, len(meta), FILTER[filter_mode])
+    m = _meta_arg(meta)
+    ins = [None if flat is None else _build.ptr(flat)] + [_build.ptr(x) for x in (*cols, dy)]
+
+    def launch(offsets, counts, texel_s, part_s, texel, partial):
+        kernel = BWD_KERNEL if offsets is None else GRAD_COMPACT_KERNEL
+        uv = None if offsets is not None or uv_out is None else _build.ptr(uv_out)
+        kernel.launch(dy.device, *ins, uv, m,
+                      *(None if x is None or x.numel() == 0 else _build.ptr(x) for x in (
+                          offsets, counts, texel_s, part_s, texel, partial)), *dims)
+
+    return launch, _tile_blocks(shape)[2], C, cap
+
+
+def cube_grads(flat, cols, dy, meta, n_texels, filter_mode, shape=None, uv=True, tex=True):
+    """((gs, gt, gfl) flat [N] or None, texture gradient [n_texels, C]
+    float32 or None): the gradients of ``sample_cube`` from the
+    cotangent dy [C, N], to s, t, flevel when `uv`, to the packed pyramid
+    when `tex`; on the card both from one tiles pass."""
+    if _device_of(dy, "cube_grads") == "cpu":
+        return (cube_bwd_plain(flat, cols, dy, meta, filter_mode) if uv else None,
+                cube_texture_grad(cols, dy, meta, n_texels, filter_mode) if tex else None)
+    dy = dy.contiguous()
+    cols = tuple(x.contiguous() for x in cols)
+    flat = flat.contiguous() if uv else None
+    C, N, _ = _check(n_texels, dy.shape[0], dy.device, cols, meta, filter_mode, dy,
+                     "cube_grads")
+    if uv and (flat.shape != (n_texels, C) or flat.dtype != torch.float32
+               or flat.device != dy.device):
+        raise ValueError(f"cube_grads: the pyramid must be float32 [{n_texels}, {C}] on "
+                         "the device of dy")
+    shape = _grid(shape, N, "cube_grads")
+    uv_out = torch.empty((3, N), dtype=torch.float32, device=dy.device) if uv else None
+    g3 = g_flat = None
+    tiles = cube_tiles(flat, cols, dy, meta, filter_mode, shape, uv_out)
+    if tex:
+        texel, partial, _ = segments.tile_partials(*tiles, dy.device, "cube_texture_grad")
+        g_flat = segments.row_sums(texel, partial, n_texels, GRAD_SEGMENT_KERNEL,
+                                   GRAD_SUM_KERNEL)
+    elif uv and N:
+        tiles[0](None, None, None, None, None, None)
+    if uv:
+        g3 = (uv_out[0], uv_out[1], uv_out[2])
+    return g3, g_flat
+
+
+def cube_bwd(flat, cols, dy, meta, filter_mode, shape=None):
     """(gs, gt, gfl) flat [N]: gradients of ``sample_cube`` to s, t and
     flevel from the cotangent dy [C, N]."""
-    if flat.device.type == "cpu":
+    if _device_of(flat, "cube_bwd") == "cpu":
         return cube_bwd_plain(flat, cols, dy, meta, filter_mode)
-    if flat.device.type != "cuda":
-        raise ValueError(f"cube_bwd: unsupported device {flat.device}")
-    flat, dy = flat.contiguous(), dy.contiguous()
+    return cube_grads(flat, cols, dy, meta, flat.shape[0], filter_mode, shape, tex=False)[0]
+
+
+def cube_texture_grad(cols, dy, meta, n_texels, filter_mode, shape=None):
+    """Gradient of the packed cube pyramid [n_texels, C] float32 from dy
+    [C, N]. CPU tensors expand the taps (``cube_grad_entries``) and sum
+    them with float64 ``index_add_``; CUDA tensors run the tiles pass,
+    sort the partials stably by texel and launch the segment-starts and
+    sum kernels (``segments.row_sums``)."""
+    if _device_of(dy, "cube_texture_grad") == "cuda":
+        return cube_grads(None, cols, dy, meta, n_texels, filter_mode, shape, uv=False)[1]
+    _check(n_texels, dy.shape[0], dy.device, cols, meta, filter_mode, dy, "cube_texture_grad")
+    ids, w = cube_grad_entries(cols, meta, filter_mode)
+    vals = dy.repeat(1, w.shape[0] // dy.shape[1]) * w
+    return scatter_add_by_id_plain(ids, vals, n_texels)
+
+
+def cube_tile_partials(cols, dy, meta, filter_mode, shape, cap=CUBE_CAP):
+    """The per-tile pre-reduction on CUDA tensors (the tiles pass, two
+    runs around the one host sync, ``segments.tile_partials``): (texel
+    [E] int32, partial [E, C] float64, counts [tiles] int32), tile-major:
+    tile (b * nty + ty) * ntx + tx of the 16x16 screen tiles holds
+    counts[tile] partials, one per run of equal keys in its sort."""
+    dy = dy.contiguous()
     cols = tuple(x.contiguous() for x in cols)
-    C, N, L = _check(flat, cols, meta, filter_mode, dy)
-    out = torch.empty((3, N), dtype=torch.float32, device=flat.device)
-    ptrs, m = _args(flat, cols, meta)
-    BWD_KERNEL.launch(flat.device, *ptrs, _build.ptr(dy), _build.ptr(out), m, N, C, L,
-                      FILTER[filter_mode])
-    return out[0], out[1], out[2]
+    _check(int(max(off + 6 * w * w for off, _, w in meta)), dy.shape[0], dy.device, cols,
+           meta, filter_mode, dy, "cube_tile_partials")
+    shape = _grid(shape, dy.shape[1], "cube_tile_partials")
+    return segments.tile_partials(*cube_tiles(None, cols, dy, meta, filter_mode, shape,
+                                              cap=cap), dy.device, "cube_texture_grad")
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +266,7 @@ def _fill_corners(q, ok4):
 
 def sample_cube_plain(flat, cols, meta, filter_mode):
     """Plain PyTorch twin of the cube_fwd kernel (same arithmetic)."""
-    C, N, L = _check(flat, cols, meta, filter_mode)
+    C, N, L = _check_flat(flat, cols, meta, filter_mode)
     s, t, flevel, finite, face, tz = cols
     l0, l1, frac = level_weights(flevel, L, filter_mode)
     fin = finite != 0
@@ -165,8 +286,9 @@ def sample_cube_plain(flat, cols, meta, filter_mode):
 
 
 def cube_bwd_plain(flat, cols, dy, meta, filter_mode):
-    """Plain PyTorch twin of the cube_bwd kernel (same arithmetic)."""
-    C, N, L = _check(flat, cols, meta, filter_mode, dy)
+    """Plain PyTorch twin of the cube_tiles kernel's (gs, gt, gfl) (same
+    arithmetic)."""
+    C, N, L = _check_flat(flat, cols, meta, filter_mode, dy, "cube_bwd")
     s, t, flevel, finite, face, tz = cols
     l0, l1, frac = level_weights(flevel, L, filter_mode)
     fin = finite != 0
@@ -201,16 +323,16 @@ def cube_bwd_plain(flat, cols, dy, meta, filter_mode):
 # Gradient of the pyramid.
 # ---------------------------------------------------------------------------
 
-def cube_grad_entries(cols, meta, filter_mode):
-    """The texture-gradient taps of every pixel (``_sample_cube_bwd``):
-    (ids [S*4*N] int32, w [S*4*N] float32) for S mip slots, slot-major
-    then corner-major. A tap adds w * dy to texel id; the effective
-    weight folds in the average-of-3 rule,
+def _slot_taps(cols, meta, filter_mode):
+    """The texture-gradient taps of every pixel, one item per (slot,
+    corner) in code order (slot * 4 + corner): (texel [N] int64, weight
+    [N] float32). A tap adds dy * weight to its texel; the weight folds in
+    the average-of-3 rule,
 
         w_eff[j] = w_j ok_j + ok_j / n_ok * sum_i w_i (1 - ok_i),
 
-    times the validity and the slot's level weight. Invalid pixels have
-    zero weights, which the scatter's live filter drops."""
+    times the validity and the slot's level weight; it is 0 for an
+    invalid pixel."""
     s, t, flevel, finite, face, tz = cols
     L = len(meta)
     l0, l1, frac = level_weights(flevel, L, filter_mode)
@@ -219,7 +341,6 @@ def cube_grad_entries(cols, meta, filter_mode):
     else:
         slots = ((l0, torch.ones_like(frac)),)
     fin = finite.to(torch.float32)
-    ids, wts = [], []
     for lsel, lw in slots:
         _, ok4, _, _, w4, ids4, _ = _level_taps(None, s, t, face, tz, lsel, meta)
         inv_w = ((w4[0] * (1.0 - ok4[0]) + w4[1] * (1.0 - ok4[1]))
@@ -227,15 +348,36 @@ def cube_grad_entries(cols, meta, filter_mode):
         n_ok = torch.clamp(((ok4[0] + ok4[1]) + ok4[2]) + ok4[3], min=1.0)
         for k in range(4):
             w_eff = (w4[k] * ok4[k] + ok4[k] / n_ok * inv_w) * fin
-            ids.append(ids4[k])
-            wts.append(w_eff * lw)
-    return torch.cat(ids).to(torch.int32), torch.cat(wts)
+            yield ids4[k], w_eff * lw
 
 
-def cube_texture_grad(cols, dy, meta, n_texels, filter_mode):
-    """Gradient of the packed cube pyramid [n_texels, C] from dy [C, N]:
-    the taps of ``cube_grad_entries`` summed by B10 (float64 sums in a
-    fixed order on the card; the plain twin's index_add_ on the CPU)."""
-    ids, w = cube_grad_entries(cols, meta, filter_mode)
-    vals = (dy.repeat(1, w.shape[0] // dy.shape[1]) * w).contiguous()
-    return scatter_add_by_id(ids, vals, n_texels)
+def cube_grad_entries(cols, meta, filter_mode):
+    """The texture-gradient taps of every pixel (``_sample_cube_bwd``):
+    (ids [S*4*N] int32, w [S*4*N] float32) for S mip slots, slot-major
+    then corner-major (``_slot_taps``). Invalid pixels have zero
+    weights."""
+    ids, w = zip(*_slot_taps(cols, meta, filter_mode))
+    return torch.cat(ids).to(torch.int32), torch.cat(w)
+
+
+def cube_tile_partials_plain(cols, dy, meta, filter_mode, shape):
+    """Plain twin of ``cube_tile_partials``: (texel [E], tile [E] int64,
+    partial [E, C] float64, taps [E] int64) in the kernel's order (tile,
+    then texel), each partial the kernel's bit for bit: a 16x16 tile's
+    kept taps (valid direction, weight != 0) of one texel, items pixel *
+    8 + code in order, summed as ``segments.run_sums`` sums them."""
+    N = cols[0].shape[0]
+    B, H, W = _grid(shape, N, "cube_tile_partials_plain")
+    ntx, nty, _ = _tile_blocks((B, H, W))
+    p = torch.arange(N, device=dy.device)
+    y, x = (p // W) % H, p % W
+    tile_p = ((p // max(H * W, 1)) * nty + y // CUBE_TILE) * ntx + x // CUBE_TILE
+    pix = (y % CUBE_TILE) * CUBE_TILE + x % CUBE_TILE
+    fin = cols[3] != 0
+    parts = []
+    for code, (texel, wt) in enumerate(_slot_taps(cols, meta, filter_mode)):
+        k = torch.nonzero(fin & (wt != 0.0)).squeeze(1)
+        parts.append((tile_p[k], texel[k], pix[k] * 8 + code, (dy[:, k] * wt[k]).T))
+    tile, texel, item, vals = (torch.cat(z) for z in zip(*parts))
+    rtile, rtexel, partial, n = segments.run_sums(tile, texel, item, vals)
+    return rtexel, rtile, partial, n

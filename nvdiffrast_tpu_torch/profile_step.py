@@ -16,7 +16,10 @@ forward, mean(img**2) and the backward to pos and the colours. With
 the bench sphere's reflection vectors with their screen derivatives, a
 seamless trilinear lookup in procedural_cubemap(512) (10 levels) plus a
 Phong highlight, mean squared error against the reference map's image,
-and the backward to the map and the Phong parameters.
+and the backward to the map and the Phong parameters; its stages include
+the cube texture gradient's (the tiles pass's two runs around the scan
+and the sync, the partials' sort, segment starts, sums) and, beside
+them, the earlier design's (the taps' glue and B10).
 With --reductions it times no step but the gradient reductions B4
 (``grad_scatter``) and B10 (``scatter_add_by_id``) in all, glue included,
 on calls no step above makes: B4 on the bench scene with seeded da4
@@ -34,6 +37,11 @@ calls only entry points that the package has had since commit 54206d4
 (the reductions and what feeds them), so this file copied into an older
 checkout's package times that checkout's reductions.
 Prints:
+  0. with --cube, the cube texture gradient's partials, its device time
+     and device ops a call and host syncs, beside the earlier design's,
+     then the gradient with a first-pass scratch of 0 (count, then
+     write), 64, 256 (the wrappers' CUBE_CAP), 512 and 1,024 partials a
+     tile: device time, CUDA-event time, peak memory, tiles run twice;
   1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
   2. each stage of the step run alone and synchronised, mean of 20;
   3. torch.profiler over --steps steps: device kernels and device time
@@ -50,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from . import _build
 from .models import primitives
 from .ops import antialias as aa
 from .ops import antialias_cuda as ac
@@ -431,6 +440,7 @@ def _cube_taps(env, d, dd):
 def _cube(pos, tri, vtxp, res):
     """(step, stages) of an envphong-shaped step with a 512^2 cube map."""
     from .models.fit_envphong import shade
+    from .ops import segments
     from .ops import texture_cube as tcg
     from .ops import texture_cube_cuda as tcc
 
@@ -456,19 +466,82 @@ def _cube(pos, tri, vtxp, res):
     ids, vals, flat, cols, meta = _cube_taps(env, d, dd)
     g_flat = scatter.scatter_add_by_id(ids, vals, flat.shape[0])
     uvf = d.reshape(N, 3)
+    n_tex, shape, mode = flat.shape[0], (1,) + tuple(res), "linear-mipmap-linear"
+    dy = torch.full((3, N), 1e-7, device=dev)  # _cube_taps' cotangent
+    # The texture gradient's stages, as segments.tile_partials and
+    # segments.row_sums run them.
+    launch, n_tiles, C, cap = tcc.cube_tiles(None, cols, dy, meta, mode, shape)
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    key_s = torch.empty((n_tiles * cap,), dtype=torch.int32, device=dev)
+    part_s = torch.empty((n_tiles * cap, C), dtype=torch.float64, device=dev)
+    launch(None, counts, key_s, part_s, None, None)
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    E = int(ends[-1])
+    key = torch.empty((E,), dtype=torch.int32, device=dev)
+    part = torch.empty((E, C), dtype=torch.float64, device=dev)
+    launch(ends - counts, counts, key_s, part_s, key, part)
+    skey, perm = torch.sort(key, stable=True)
+    starts = torch.empty((n_tex + 1,), dtype=torch.int32, device=dev)
+    pp = torch.empty((max(E, 1), C), dtype=torch.float64, device=dev)
+    out = torch.empty((n_tex, C), dtype=torch.float32, device=dev)
+
+    def earlier():  # the earlier cube_texture_grad: the taps' glue, then B10
+        tid, w = tcc.cube_grad_entries(cols, meta, mode)
+        return scatter.scatter_add_by_id(tid, (dy.repeat(1, w.shape[0] // N) * w).contiguous(),
+                                         n_tex)
+
+    new_ms, new_ops = _device_ms(lambda: tcc.cube_texture_grad(cols, dy, meta, n_tex, mode,
+                                                               shape), 10)
+    old_ms, old_ops = _device_ms(earlier, 5)
+    print(f"[0] cube texture gradient {res[0]}^2: {E} (texel, tile) partials, "
+          f"{int((counts > 0).sum())} tiles with taps, {int((counts > cap).sum())} over the "
+          f"scratch of {cap} a tile; device time a call {new_ms:.4f} ms in {new_ops:.0f} device "
+          f"ops, {host_syncs(lambda: tcc.cube_texture_grad(cols, dy, meta, n_tex, mode, shape))} "
+          f"host sync(s); the earlier design (taps glue + B10) {old_ms:.4f} ms in "
+          f"{old_ops:.0f} ops ({_card()})", flush=True)
+    for c in (0, 64, 256, 512, 1024):  # the scratch: count-then-write (0) or c slots a tile
+        def at_cap(c=c):
+            k, p, _ = segments.tile_partials(*tcc.cube_tiles(None, cols, dy, meta, mode, shape,
+                                                             cap=c), dev, "cube")
+            return segments.row_sums(k, p, n_tex, tcc.GRAD_SEGMENT_KERNEL, tcc.GRAD_SUM_KERNEL)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        at_cap()
+        torch.cuda.synchronize()
+        mib = (torch.cuda.max_memory_allocated() - m0) / 2 ** 20
+        print(f"[0] cube texture gradient, scratch of {c} a tile: device time a call "
+              f"{_device_ms(at_cap, 5)[0]:.4f} ms, CUDA events {_event_ms(at_cap, 10):.4f} ms, "
+              f"peak {mib:.1f} MiB, {int((counts > c).sum())} tiles run twice", flush=True)
     return step, [
         ("fwd: rasterize + interpolate (directions)", directions),
         ("fwd: mip pyramid", lambda: tx.build_mip_stack(env[None], -1, True)),
         ("fwd: cube glue (face, s, t, footprint, level)",
          lambda: (tcg.cube_project(tcg.cube_faceid(*uvf.unbind(1)), *uvf.unbind(1)),
                   tcg.cube_st_da(*uvf.unbind(1), dd.reshape(N, 6).T))),
-        ("fwd: cube_fwd kernel", lambda: tcc.sample_cube(flat, cols, meta,
-                                                         "linear-mipmap-linear")),
-        ("bwd: cube taps (glue)", lambda: tcc.cube_grad_entries(cols, meta,
-                                                                "linear-mipmap-linear")),
-        ("bwd: scatter_rows per-chunk partials (2 passes, 1 sync)",
-         lambda: scatter.chunk_partials(ids, vals, flat.shape[0])),
-        ("bwd: scatter_rows in all", lambda: scatter.scatter_add_by_id(ids, vals, flat.shape[0])),
+        ("fwd: cube_fwd kernel", lambda: tcc.sample_cube(flat, cols, meta, mode, shape)),
+        ("bwd: cube_bwd, (gs, gt, gfl) alone", lambda: tcc.cube_bwd(flat, cols, dy, meta,
+                                                                    mode, shape)),
+        ("bwd: cube tiles pass 1 (texture gradient partials)",
+         lambda: launch(None, counts, key_s, part_s, None, None)),
+        ("bwd: scan + sync", lambda: int(torch.cumsum(counts, 0, dtype=torch.int64)[-1])),
+        ("bwd: tiles pass 2 (compact, tiles over the cap)",
+         lambda: launch(ends - counts, counts, key_s, part_s, key, part)),
+        ("bwd: stable sort of the partials", lambda: torch.sort(key, stable=True)),
+        ("bwd: segment starts", lambda: tcc.GRAD_SEGMENT_KERNEL.launch(
+            dev, _build.ptr(skey), E, 0, n_tex, 4, None, None, _build.ptr(starts), None)),
+        ("bwd: sums", lambda: tcc.GRAD_SUM_KERNEL.launch(
+            dev, _build.ptr(skey), _build.ptr(perm), E, _build.ptr(starts), _build.ptr(part),
+            _build.ptr(pp), _build.ptr(out), n_tex, C)),
+        ("bwd: cube texture gradient in all", lambda: tcc.cube_texture_grad(
+            cols, dy, meta, n_tex, mode, shape)),
+        ("bwd: (gs, gt, gfl) and the gradient in one pass (cube_grads)",
+         lambda: tcc.cube_grads(flat, cols, dy, meta, n_tex, mode, shape)),
+        ("bwd, earlier design: cube taps (glue)", lambda: tcc.cube_grad_entries(cols, meta,
+                                                                                mode)),
+        ("bwd, earlier design: scatter_rows in all", lambda: scatter.scatter_add_by_id(
+            ids, vals, n_tex)),
         ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 6, 3)),
     ]
 

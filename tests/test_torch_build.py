@@ -36,7 +36,8 @@ KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL
            texture_bwd_cuda.GRAD_SEGMENT_KERNEL, texture_bwd_cuda.GRAD_SUM_KERNEL,
            pipeline_bwd_cuda.SCATTER_COMPACT_KERNEL, pipeline_bwd_cuda.SCATTER_SEGMENT_KERNEL,
            pipeline_bwd_cuda.SCATTER_SUM_KERNEL, scatter.COMPACT_KERNEL,
-           scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL]
+           scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL, texture_cube_cuda.GRAD_COMPACT_KERNEL,
+           texture_cube_cuda.GRAD_SEGMENT_KERNEL, texture_cube_cuda.GRAD_SUM_KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -96,9 +97,10 @@ def test_cuda_sources_exist():
         assert '#include "aa_pair.cuh"' in (_build.SRC_DIR / name).read_text()
     # The gradient reductions share their tile grouping, warp reduction,
     # scratch move and row sums (segment_sum.cuh, segment_sum.cu).
-    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu", "segment_sum.cu"):
+    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu", "segment_sum.cu",
+                 "texture_cube.cu"):
         assert '#include "segment_sum.cuh"' in (_build.SRC_DIR / name).read_text()
-    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu"):
+    for name in ("grad_scatter.cu", "texture_grad.cu", "scatter_rows.cu", "texture_cube.cu"):
         assert "nvdr_segment_compact(" in (_build.SRC_DIR / name).read_text()
     # The samplers' corner setup and level weights: one header.
     for name in ("texture_fwd.cu", "texture_bwd.cu", "texture_grad.cu", "texture_cube.cu"):

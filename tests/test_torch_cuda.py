@@ -691,10 +691,12 @@ def test_scatter_rows_partials_match_twin(dev, kind):
 
 
 def test_gradient_reductions_sync_at_most_once(dev):
-    """grad_scatter (plain and da4) and scatter_add_by_id each read one
-    number back to the host (the partials' count), no more."""
+    """grad_scatter (plain and da4), scatter_add_by_id and the cube texture
+    gradient each read one number back to the host (the partials' count),
+    no more."""
     import warnings
     from nvdiffrast_tpu_torch.ops import scatter as ts
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
     sargs = _bwd_scatter_args(dev, *sphere_scene(B=1, seed=1), (48, 64))
     N = sargs[0].shape[0]
     gs2 = torch.cat([sargs[1][:2], sargs[1][3:]])
@@ -704,6 +706,10 @@ def test_gradient_reductions_sync_at_most_once(dev):
     calls = [lambda: pb.grad_scatter(*sargs),
              lambda: pb.grad_scatter(sargs[0], gs2, *sargs[2:], da4=da4),
              lambda: ts.scatter_add_by_id(ti, tv, R)]
+    flat, meta, cols, n_tex = _cube_cols(dev)
+    cdy = torch.ones((3, cols[0].shape[0]), device=dev)
+    calls.append(lambda: tcc.cube_grads(flat, cols, cdy, meta, n_tex, "linear-mipmap-linear",
+                                        CUBE_SHAPE))
     for fn in calls:
         fn()
         torch.cuda.synchronize()
@@ -852,6 +858,9 @@ def _cube_cols(dev, B=2, H=40, W=72, fw=16, D=2, seed=0):
     return tx._pack_pyramid(levels), meta, cols, n_tex
 
 
+CUBE_SHAPE = (2, 40, 72)  # _cube_cols' default pixel grid
+
+
 @pytest.mark.parametrize("D", [1, 2])
 @pytest.mark.parametrize("filter_mode", ["linear", "linear-mipmap-nearest",
                                          "linear-mipmap-linear"])
@@ -861,8 +870,8 @@ def test_cube_kernels_match_twins(dev, filter_mode, D):
     flat, meta, cols, _ = _cube_cols(dev, D=D, seed=D)
     dy = torch.randn((3, cols[0].shape[0]), generator=torch.Generator().manual_seed(D)).to(dev)
     f0, b0 = tcc.FWD_KERNEL.launches, tcc.BWD_KERNEL.launches
-    got = tcc.sample_cube(flat, cols, meta, filter_mode)
-    gb = tcc.cube_bwd(flat, cols, dy, meta, filter_mode)
+    got = tcc.sample_cube(flat, cols, meta, filter_mode, CUBE_SHAPE)
+    gb = tcc.cube_bwd(flat, cols, dy, meta, filter_mode, CUBE_SHAPE)
     ref = tcc.sample_cube_plain(flat, cols, meta, filter_mode)
     rb = tcc.cube_bwd_plain(flat, cols, dy, meta, filter_mode)
     torch.cuda.synchronize()
@@ -880,14 +889,76 @@ def test_cube_texture_grad_within_one_ulp(dev):
 
     flat, meta, cols, n_tex = _cube_cols(dev, seed=3)
     dy = torch.randn((3, cols[0].shape[0]), generator=torch.Generator().manual_seed(3)).to(dev)
-    got = tcc.cube_texture_grad(cols, dy, meta, n_tex, "linear-mipmap-linear")
-    again = tcc.cube_texture_grad(cols, dy, meta, n_tex, "linear-mipmap-linear")
+    got = tcc.cube_texture_grad(cols, dy, meta, n_tex, "linear-mipmap-linear", CUBE_SHAPE)
+    again = tcc.cube_texture_grad(cols, dy, meta, n_tex, "linear-mipmap-linear", CUBE_SHAPE)
     ref = tcc.cube_texture_grad(tuple(c.cpu() for c in cols), dy.cpu(), meta, n_tex,
                                 "linear-mipmap-linear")
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     ulp = torch.from_numpy(np.spacing(ref.abs().numpy()))
     assert bool(((got.cpu() - ref).abs() <= ulp).all())
+
+
+def test_cube_kernels_need_the_pixel_shape(dev):
+    """On the card the cube wrappers launch 16x16 tiles of the pixels'
+    (B, H, W): a call without it, or with one that does not hold the
+    pixels, raises and launches nothing."""
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    flat, meta, cols, n_tex = _cube_cols(dev, seed=4)
+    dy = torch.ones((3, cols[0].shape[0]), device=dev)
+    mode = "linear-mipmap-linear"
+    calls = (lambda *sh: tcc.sample_cube(flat, cols, meta, mode, *sh),
+             lambda *sh: tcc.cube_bwd(flat, cols, dy, meta, mode, *sh),
+             lambda *sh: tcc.cube_texture_grad(cols, dy, meta, n_tex, mode, *sh),
+             lambda *sh: tcc.cube_grads(flat, cols, dy, meta, n_tex, mode, *sh),
+             lambda *sh: tcc.cube_tile_partials(cols, dy, meta, mode, *sh))
+    before = (tcc.FWD_KERNEL.launches, tcc.BWD_KERNEL.launches)
+    for call in calls:
+        for shape in ((None,), ((2, 40, 71),)):
+            with pytest.raises(ValueError):
+                call(*shape)
+    assert (tcc.FWD_KERNEL.launches, tcc.BWD_KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("filter_mode,D,cap,mixed_tz", [
+    ("linear", 1, None, False), ("linear-mipmap-nearest", 2, None, False),
+    ("linear-mipmap-linear", 2, None, False), ("linear-mipmap-linear", 1, 0, False),
+    ("linear-mipmap-linear", 2, 16, True)])
+def test_cube_tile_partials_match_twin(dev, filter_mode, D, cap, mixed_tz):
+    """The cube tiles pass: partials bit for bit with
+    cube_tile_partials_plain (first-pass scratch, count-only and small
+    caps, tiles that read both maps), the gradient within 1 ulp of the CPU
+    path and bitwise repeatable, (gs, gt, gfl) from the joint pass equal
+    to cube_bwd's, signed zeros included."""
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    flat, meta, cols, n_tex = _cube_cols(dev, D=D, seed=5 + D)
+    if mixed_tz:
+        cols = cols[:5] + (torch.randint(0, D, cols[5].shape, generator=torch.Generator()
+                                         .manual_seed(1)).to(torch.int32).to(dev),)
+    N = cols[0].shape[0]
+    dy = torch.randn((3, N), generator=torch.Generator().manual_seed(D)).to(dev)
+    dy[:, :72] = -0.0
+    cap = tcc.CUBE_CAP if cap is None else cap
+    got = tcc.cube_tile_partials(cols, dy, meta, filter_mode, CUBE_SHAPE, cap)
+    ref = tcc.cube_tile_partials_plain(cols, dy, meta, filter_mode, CUBE_SHAPE)
+    torch.cuda.synchronize()
+    texel, part, counts = got
+    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts.long())
+    assert torch.equal(texel.long(), ref[0]) and torch.equal(tile, ref[1])
+    assert torch.equal(part.view(torch.int64), ref[2].view(torch.int64))
+    (g3, g), (g3b, gb) = (tcc.cube_grads(flat, cols, dy, meta, n_tex, filter_mode, CUBE_SHAPE)
+                          for _ in range(2))
+    cpu = tcc.cube_texture_grad(tuple(c.cpu() for c in cols), dy.cpu(), meta, n_tex,
+                                filter_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(g.view(torch.int32), gb.view(torch.int32))
+    ulp = torch.from_numpy(np.spacing(cpu.abs().numpy()))
+    assert bool(((g.cpu() - cpu).abs() <= ulp).all())
+    assert not bool(torch.signbit(g.cpu()[cpu == 0]).any())
+    for a, b, c in zip(g3, g3b, tcc.cube_bwd(flat, cols, dy, meta, filter_mode, CUBE_SHAPE)):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32)) and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", ["cube", "cube9", "2d_mip", "2d_bias", "2d_nearest"])
