@@ -56,7 +56,12 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      Mpix/s;
   9. the textured backward's kernels against their twins at 2048^2 on
      the bench textured scene, with dy from mean(img**2): texture_bwd and
-     interp_raster_bwd_tex bit for bit, texture_grad within 1 ulp,
+     interp_raster_bwd_tex bit for bit (texture_bwd also in every filter
+     x boundary instantiation at C = 1, 3, 4, one texture or one per
+     image, at 256^2 and at an odd 131x67, B = 2, with NaN and far
+     uvs; its times, and its yardstick's, also by device time after
+     phase 16),
+     texture_grad within 1 ulp,
      bitwise repeatable, its per-tile entries equal to their twin's and
      at most one host sync (also on zero / clamp / per-image cases at
      256^2), grad_scatter with da4 within 1e-6 of each row's largest
@@ -400,6 +405,44 @@ def texgrad_case(torch, np, tx, dev, boundary, filter_mode, D):
     gc = rng.standard_normal((3, N)).astype(np.float32)
     ins = [torch.from_numpy(x).to(dev) for x in (u, v, fl, gc)]
     return (*ins, meta, n_tex, (B, H, W), D > 1, boundary, filter_mode)
+
+
+def texbwd_instances(torch, np, tx, txb, dev):
+    """texture_bwd against texture_bwd_plain bit for bit in every filter x
+    boundary instantiation at C in (1, 3, 4), one texture and one per
+    image (D = B = 2), at 256^2 (whole CTAs) and 131 x 67 (a partial last
+    CTA): a 64x128xC texture, uv in [-0.3, 1.3] with NaNs and values in
+    [-5, 5], flevels over every level. Returns the number of cases."""
+    n = 0
+    for C in (1, 3, 4):
+        for D in (1, 2):
+            rng = np.random.default_rng(100 * C + D)
+            tex = torch.from_numpy(rng.random((D, 64, 128, C), dtype=np.float32)).to(dev)
+            levels = [tex] + tx.build_mip_stack(tex)
+            meta, _ = tx._static_meta(levels)
+            flat = tx._pack_pyramid(levels)
+            for B, H, W in ((2, SMALL, SMALL), (2, 131, 67)):
+                N = B * H * W
+                u, v = (rng.uniform(-0.3, 1.3, N).astype(np.float32) for _ in range(2))
+                u[::5] = rng.uniform(-5, 5, u[::5].shape)
+                u[::7] = np.nan
+                v[::11] = np.nan
+                fl = rng.uniform(-0.5, len(meta) - 0.5, N).astype(np.float32)
+                gc = rng.standard_normal((C, N)).astype(np.float32)
+                ins = [torch.from_numpy(x).to(dev) for x in (u, v, fl, gc)]
+                for filt in ("linear", "linear-mipmap-nearest", "linear-mipmap-linear"):
+                    fm = (flat[:D * 64 * 128], meta[:1]) if filt == "linear" else (flat, meta)
+                    for bnd in ("wrap", "clamp", "zero"):
+                        args = (fm[0], *ins, fm[1], (B, H, W), D > 1, bnd, filt)
+                        got = txb.texture_bwd(*args)
+                        ref = txb.texture_bwd_plain(*args)
+                        for x, y in zip(got, ref):
+                            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                                raise AssertionError(
+                                    f"texture_bwd {filt} {bnd} C={C} D={D} {B}x{H}x{W}: "
+                                    "differs from texture_bwd_plain")
+                        n += 1
+    return n
 
 
 def reduction_stages(torch, dev, tiles, n_rows, seg_kernel, sum_kernel):
@@ -1075,6 +1118,7 @@ def main():
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
     from nvdiffrast_tpu_torch.ops.antialias import _build_tables, pair_ids
     from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
+    from nvdiffrast_tpu_torch.profile_step import _device_ms as device_ms
     from nvdiffrast_tpu_torch.profile_step import host_syncs, quad_scene, scatter_args, with_da4
     from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
@@ -1582,6 +1626,10 @@ def main():
     texbwd_err = equal_or_raise((gu9, gv9, gfl9), txb.texture_bwd_plain(*bargs9), "texture_bwd")
     texbwd_ms = cuda_ms(torch, lambda: txb.texture_bwd(*bargs9), 50)
     texbwd_plain_ms = cuda_ms(torch, lambda: txb.texture_bwd_plain(*bargs9), 5)
+    n_inst9 = texbwd_instances(torch, np, tx, txb, dev)
+    log(f"[9] texture_bwd: {n_inst9} cases (3 filters x 3 boundaries, C in 1, 3, 4, one "
+        f"texture or one per image, {SMALL}^2 and 131x67, B = 2, NaN and far uvs) equal "
+        "to texture_bwd_plain bit for bit")
     # Library yardstick: grid_sample's backward (bilinear, border, not
     # align_corners) computes both gradients for filter 'linear' with
     # 'clamp' on the base level: to the grid (here du = 2 dgrid_x) and to
@@ -1604,8 +1652,8 @@ def main():
     texbwd_lib_ms = cuda_ms(torch, lambda: library_bwd([False, True]), 50)
     log(f"[9] texture_bwd {RES}^2: equal to its twin bit for bit; max|gu| "
         f"{float(gu9.abs().max()):.3g}, max|gfl| {float(gfl9.abs().max()):.3g}; kernel "
-        f"{texbwd_ms:.3f} ms, twin {texbwd_plain_ms:.3f} ms; linear+clamp: kernel "
-        f"{lin_bwd_ms:.3f} ms, grid_sample backward to the grid {texbwd_lib_ms:.3f} ms "
+        f"{texbwd_ms:.4f} ms, twin {texbwd_plain_ms:.3f} ms; linear+clamp: kernel "
+        f"{lin_bwd_ms:.4f} ms, grid_sample backward to the grid {texbwd_lib_ms:.4f} ms "
         f"(max|du diff| {gs_bwd_diff:.3g}) ({card})")
 
     n_tex9 = flat9.shape[0]
@@ -2412,8 +2460,9 @@ def main():
     segments_bound = bound((n_ent9 + n_tex9 + 1) * f32, 0)
     sums_bound = bound(n_ent9 * (ent_bytes + 8) + (n_tex9 + 1) * f32 + n_tex9 * C * f32,
                        n_ent9 * C)
-    lin_bound = bound((3 * N + TEX_SIZE * TEX_SIZE * C + C * N) * f32, N * (30 + 8 * C))
-    lin_bwd_bound = bound(((3 + C + 3) * N + TEX_SIZE * TEX_SIZE * C) * f32, N * (40 + 14 * C))
+    # Filter 'linear' reads no flevel: u, v and the base level.
+    lin_bound = bound((2 * N + TEX_SIZE * TEX_SIZE * C + C * N) * f32, N * (30 + 8 * C))
+    lin_bwd_bound = bound(((2 + C + 3) * N + TEX_SIZE * TEX_SIZE * C) * f32, N * (40 + 14 * C))
     b14_bound = bound((iargs9[0].numel() + vtbl9.numel() + 16 * N + 10 * n_valid9) * f32,
                       220 * n_valid9)
     da4_bound, da4_all_bound = scatter_bounds(N, 11, n_own9, n_aa9, n_part9, R9, 24,
@@ -2469,16 +2518,29 @@ def main():
     csum_bound = bound(n_cpart * (cent + 8) + (n_ctex + 1 + n_ctex * 3) * f32, n_cpart * 3)
 
     def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib,
-              all_ms=None, all_bnd=None):
+              all_ms=None, all_bnd=None, **device):
         e = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
         if all_ms is not None:  # the whole reduction: its glue and every stage
             e.update(all_ms=all_ms, all_bound_ms=all_bnd[0], all_bound_by=all_bnd[1])
+        e.update(device)  # device time a call (torch.profiler), where measured
         return e
 
     # -- 16. the rest of the rasterizer: peel, range, bands, binning -----------
     phase16_kernels = phase16(dev, card, entry)
+
+    # texture_bwd's rows also by device time (torch.profiler, after every
+    # other phase: the profiler leaves later launches slower on the host);
+    # `ms` and `library_ms` stay phase 9's CUDA-event times, which include
+    # what the wrapper's host work adds when calls run back to back.
+    texbwd_dev_ms, lin_bwd_dev_ms, texbwd_lib_dev_ms = (device_ms(fn, 50)[0] for fn in (
+        lambda: txb.texture_bwd(*bargs9), lambda: txb.texture_bwd(*lbargs),
+        lambda: library_bwd([False, True])))
+    log(f"[9] texture_bwd {RES}^2, device time a call: kernel {texbwd_dev_ms:.4f} ms, "
+        f"linear+clamp {lin_bwd_dev_ms:.4f} ms, grid_sample backward to the grid "
+        f"{texbwd_lib_dev_ms:.4f} ms (CUDA events in phase 9: {texbwd_ms:.4f}, "
+        f"{lin_bwd_ms:.4f}, {texbwd_lib_ms:.4f} ms) ({card})")
 
     kernels = [
         entry("rasterize", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
@@ -2524,10 +2586,12 @@ def main():
               aa_err, aa_ms, aa_plain_ms, aa_bound, None),
         entry("texture_bwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_bwd.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:894", ttrain_launches[txb.BWD_KERNEL.name],
-              texbwd_err, texbwd_ms, texbwd_plain_ms, texbwd_bound, None),
+              texbwd_err, texbwd_ms, texbwd_plain_ms, texbwd_bound, None,
+              device_ms=texbwd_dev_ms),
         entry("texture_bwd_linear_clamp", "cuda", "nvdiffrast_tpu_torch/csrc/texture_bwd.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:894", lin_launches[txb.BWD_KERNEL.name],
-              lin_bwd_err, lin_bwd_ms, lin_bwd_plain_ms, lin_bwd_bound, texbwd_lib_ms),
+              lin_bwd_err, lin_bwd_ms, lin_bwd_plain_ms, lin_bwd_bound, texbwd_lib_ms,
+              device_ms=lin_bwd_dev_ms, library_device_ms=texbwd_lib_dev_ms),
         entry("texture_grad", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
               "nvdiffrast_tpu/ops/lattice_scatter.py:179", ttrain_launches[txb.GRAD_KERNEL.name],
               ent_err9, texgrad_ms, entries_plain_ms, texgrad_bound, None),

@@ -1,18 +1,20 @@
 """nvdiffrast_tpu_torch — the PyTorch + CUDA port of nvdiffrast_tpu.
 
 The JAX package ``nvdiffrast_tpu`` is the reference; this package holds
-the ported slices, with the same public layouts (``pos [B, V, 4]``,
-``tri [T, 3]``, ``attr [B|1, V, A]``, images ``[B, H, W, A]``). It
-imports torch and numpy only.
+every op of its public surface, with the same public layouts (``pos
+[B, V, 4]``, ``tri [T, 3]``, ``attr [B|1, V, A]``, images ``[B, H, W,
+A]``). It imports torch and numpy only.
 
-Ported so far, each a ``torch.autograd.Function`` with a hand-written
-backward and hand-written CUDA kernels for Hopper (``csrc/``, built with
-nvcc at first use on a GPU):
+Each op is a ``torch.autograd.Function`` with a hand-written backward
+and hand-written CUDA kernels for Hopper (``csrc/``, built with nvcc at
+first use on a GPU):
 
-* the composable ops ``rasterize`` (instance mode, with ``rast_db``),
-  ``interpolate`` (with ``diff_attrs``) and ``antialias``;
-* ``render_pipeline`` (rasterize + interpolate + antialias fused):
-  gradients to the clip-space positions and the vertex attributes;
+* the composable ops ``rasterize`` (instance and range mode, with
+  ``rast_db`` and viewport bands) and ``DepthPeeler``, ``interpolate``
+  (with ``diff_attrs``) and ``antialias`` (any channel count);
+* ``render_pipeline`` (rasterize + interpolate + antialias fused; more
+  than 8 attributes through the composed ops): gradients to the
+  clip-space positions and the vertex attributes;
 * ``texture`` (2-D textures in every filter and boundary mode, cube maps
   with seamless filtering; ``uv_da``, ``mip_level_bias``, mip stacks from
   ``texture_construct_mip`` or lists): gradients to the texture (or its

@@ -113,10 +113,19 @@ __device__ __forceinline__ Corners corner_setup(int hl, int wl, float u, float v
     k.w[1] = k.fu * gv * k.ok[1];
     k.w[2] = gu * k.fv * k.ok[2];
     k.w[3] = k.fu * k.fv * k.ok[3];
-    iu0 = clampi(iu0, 0, wl - 1);
-    iu1 = clampi(iu1, 0, wl - 1);
-    iv0 = clampi(iv0, 0, hl - 1);
-    iv1 = clampi(iv1, 0, hl - 1);
+    // Wrapped indices lie in the level already (u - floor(u) is in [0, 1]
+    // or NaN, which converts to 0), and so do clamped ones but for the
+    // second corner of a NaN (index 1) on a level one texel wide. The zero
+    // boundary's outside corners are clamped into the level.
+    if (boundary == CLAMP) {
+        iu1 = min(iu1, wl - 1);
+        iv1 = min(iv1, hl - 1);
+    } else if (boundary == ZERO) {
+        iu0 = clampi(iu0, 0, wl - 1);
+        iu1 = clampi(iu1, 0, wl - 1);
+        iv0 = clampi(iv0, 0, hl - 1);
+        iv1 = clampi(iv1, 0, hl - 1);
+    }
     k.idx[0] = iv0 * wl + iu0;
     k.idx[1] = iv0 * wl + iu1;
     k.idx[2] = iv1 * wl + iu0;

@@ -28,6 +28,19 @@ def pixel_scale_offset(height, width):
     return xs, xo, ys, yo
 
 
+def pixel_centers(height, width, dtype=torch.float32, device=None):
+    """Clip-space coordinates of all pixel centers: (fx [width], fy
+    [height]), each index times the scale plus the offset, in dtype."""
+    xs, xo, ys, yo = pixel_scale_offset(height, width)
+
+    def axis(n, s, o):
+        return (torch.arange(n, dtype=dtype, device=device)
+                * torch.tensor(s, dtype=dtype, device=device)
+                + torch.tensor(o, dtype=dtype, device=device))
+
+    return axis(width, xs, xo), axis(height, ys, yo)
+
+
 def triidx_to_float(idx):
     """Encode int32 triangle IDs (1-based, 0 = empty) as float32."""
     idx = torch.as_tensor(idx, dtype=torch.int32)

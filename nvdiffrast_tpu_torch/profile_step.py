@@ -1,7 +1,7 @@
 """Where the time of one training step of render_pipeline goes, on a GPU.
 
     python -m nvdiffrast_tpu_torch.profile_step [--res 2048] [--steps 16]
-        [--textured | --ops | --cube | --reductions]
+        [--textured | --ops | --cube | --reductions | --texture]
 
 The bench scene (uv-sphere 32x64, 3,968 triangles, vertex colours,
 A = 3, B = 1, camera projection(x=0.4) @ translate(0, 0, -3.5)). One
@@ -36,6 +36,16 @@ host syncs of one call. That mode
 calls only entry points that the package has had since commit 54206d4
 (the reductions and what feeds them), so this file copied into an older
 checkout's package times that checkout's reductions.
+With --texture it times no step but the 2-D sampler's kernels on the
+textured step's own inputs (the bench textured scene, the colour
+cotangent of mean(img**2)): texture_bwd (B11's backward) and
+texture_fwd in linear-mipmap-linear + wrap and in linear + clamp on the
+base level, and F.grid_sample and its backward to the grid, the PyTorch
+calls for linear + clamp. Each case prints the same median CUDA-event
+time, the device time a call and the bytes bound (inputs read once,
+outputs written once, at 3.35 TB/s). It calls only entry points the
+package has had since commit 54206d4, so it too runs in an older
+checkout.
 Prints:
   0. with --cube, the cube texture gradient's partials, its device time
      and device ops a call and host syncs, beside the earlier design's,
@@ -546,6 +556,63 @@ def _cube(pos, tri, vtxp, res):
     ]
 
 
+def _texture_inputs(pos, tri, cidx, vtxp, res):
+    """The 2-D sampler's calls on the bench textured scene: (texture_bwd
+    args, linear + clamp args on the base level, grid_sample's (input,
+    grid, colour cotangent))."""
+    dev = pos.device
+    uv = torch.as_tensor(np.stack(
+        [np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
+         np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1),
+        dtype=torch.float32, device=dev)
+    tex = torch.as_tensor(np.random.RandomState(0).rand(1, 512, 512, 3),
+                          dtype=torch.float32, device=dev)
+    mode = ("linear-mipmap-linear", "wrap")
+    H, W = res
+    N, T, C = H * W, tri.shape[0], 3
+    shape = (1, H, W)
+    img, saved, meta = ptx._ptex_fwd_core(pos, uv, tex, tri, cidx, build_opposite_table(tri),
+                                          res, *mode, -1)
+    idf = saved[2]
+    uvc, _, fl, flat, color = saved[7:12]
+    img = img.detach().requires_grad_()
+    dy = torch.autograd.grad((img ** 2).mean(), img)[0].reshape(N, C).T.contiguous()
+    gc = ptb.aa_bwd_slim(dy, color, idf, saved[12:16], shape, T)[0]
+
+    bargs = (flat, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])
+    largs = (flat[:512 * 512], uvc[0], uvc[1], fl, gc, meta[:1], shape, False, "clamp",
+             "linear")
+    grid = (uvc.T.reshape(1, H, W, 2) * 2.0 - 1.0).contiguous()
+    return bargs, largs, (tex.permute(0, 3, 1, 2).contiguous(), grid,
+                                 gc.reshape(1, C, H, W).contiguous())
+
+
+def _texture_calls(pos, tri, cidx, vtxp, res):
+    """[(case, fn, iters, bound ms)]: the 2-D sampler's calls of --texture."""
+    bargs, largs, (base, grid, gout) = _texture_inputs(pos, tri, cidx, vtxp, res)
+    N, C, n_base = res[0] * res[1], 3, 512 * 512
+
+    def ms(words):
+        return words * 4 / 3.35e12 * 1e3
+
+    n_tex = bargs[0].shape[0]
+    return [
+        ("texture_bwd, trilinear + wrap", lambda: tb.texture_bwd(*bargs), 50,
+         ms((3 + C + 3) * N + n_tex * C)),
+        ("texture_bwd, linear + clamp, base level", lambda: tb.texture_bwd(*largs), 50,
+         ms((2 + C + 3) * N + n_base * C)),
+        ("grid_sample backward to the grid", lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, base, grid, 0, 1, False, [False, True]), 50, ms((2 + C + 2) * N + n_base * C)),
+        ("texture_fwd, trilinear + wrap", lambda: tc.sample(*bargs[:4], *bargs[5:]), 50,
+         ms((3 + C) * N + n_tex * C)),
+        ("texture_fwd, linear + clamp, base level", lambda: tc.sample(*largs[:4], *largs[5:]),
+         50, ms((2 + C) * N + n_base * C)),
+        ("F.grid_sample", lambda: torch.nn.functional.grid_sample(
+            base, grid, mode="bilinear", padding_mode="border", align_corners=False), 50,
+         ms((2 + C) * N + n_base * C)),
+    ]
+
+
 def _clip(vtxp, dev):
     """[1, V, 4] clip-space positions of the bench camera."""
     posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
@@ -605,6 +672,8 @@ def main(argv=None):
                     help="profile an envphong-shaped cube-map step instead")
     ap.add_argument("--reductions", action="store_true",
                     help="time the gradient reductions B4 and B10 alone instead")
+    ap.add_argument("--texture", action="store_true",
+                    help="time the 2-D texture sampler's kernels alone instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -623,6 +692,14 @@ def main(argv=None):
             print(f"[r] {case} {args.res}^2: in all {_event_ms(fn, iters):.4f} ms, device "
                   f"time {dev_ms:.4f} ms in {dev_ops:.0f} device ops, {host_syncs(fn)} host "
                   f"sync(s) a call ({card})", flush=True)
+        return
+    if args.texture:
+        calls = _texture_calls(pos, tri, cidx, vtxp, res)
+        event = [_event_ms(fn, iters) for _, fn, iters, _ in calls]
+        for (case, fn, iters, bound_ms), ev in zip(calls, event):
+            dev_ms = _device_ms(fn, iters)[0]
+            print(f"[t] {case} {args.res}^2: {ev:.4f} ms, device time {dev_ms:.4f} ms a "
+                  f"call, bytes bound {bound_ms:.4f} ms ({card})", flush=True)
         return
     if args.textured:
         what = "textured fwd+bwd"

@@ -90,10 +90,12 @@ def q_unit():
     return np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
 
 
-def q_scale_small(q, scale):
+def q_scale_small(q, scale, rng=None):
     """Shrink rotation `q` toward the identity by factor `scale`: the
     short-arc slerp(identity, q, scale), so the angle scales about
-    linearly with `scale` (numpy)."""
+    linearly with `scale` (numpy). `rng` is accepted and unused, as in
+    the reference."""
+    del rng
     q = np.asarray(q, np.float64)
     if q[0] < 0.0:  # short arc: identity is (1, 0, 0, 0)
         q = -q

@@ -1,11 +1,13 @@
-"""Image helpers of the models (torch): bilinear 2x downsample and PSNR.
+"""Image helpers of the models and samples (torch): bilinear 2x
+downsample, PSNR, save and display.
 
 Counterparts of ``nvdiffrast_tpu/utils/image.py``'s
-``bilinear_downsample`` and ``psnr``.
+``bilinear_downsample``, ``psnr``, ``save_image`` and ``display_image``.
 """
 
 import math
 
+import numpy as np
 import torch
 
 _TAPS = (0.125, 0.375, 0.375, 0.125)  # [1, 3, 3, 1] / 8
@@ -43,3 +45,31 @@ def psnr(a, b, peak=1.0):
     if mse == 0:
         return float("inf")
     return 10.0 * math.log10(peak * peak / mse)
+
+
+def _to_uint8(x):
+    """An HWC (or HW) image in [0, 1], tensor or array, as uint8: rounded
+    to the nearest of 256 levels and clipped."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.rint(np.asarray(x) * 255.0)
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+def save_image(fn, x):
+    """Write the image x (values in [0, 1]) to the file fn through PIL."""
+    from PIL import Image
+
+    Image.fromarray(_to_uint8(x)).save(fn)
+
+
+def display_image(x, title=None):
+    """Show the image x in PIL's viewer. Returns True if it was shown, and
+    False where that fails (no display, no viewer)."""
+    try:
+        from PIL import Image
+
+        Image.fromarray(_to_uint8(x)).show(title=title)
+        return True
+    except Exception:
+        return False

@@ -5,9 +5,17 @@ arrays to the JAX package and to the port.
 """
 
 import numpy as np
+import torch
 
 from nvdiffrast_tpu_torch.models import primitives
 from nvdiffrast_tpu_torch.utils import camera
+
+# One intra-op thread a process. The suite runs six xdist workers on an
+# eight-core machine; with torch's default of one thread a core each,
+# 48 threads contend for 8 cores, and test_earth_fit_psnr's 50 steps took
+# 589-592 s a worker with six at once, against 4.7-5.9 s (same PSNR) with
+# one thread each. Every test_torch_*.py imports this module.
+torch.set_num_threads(1)
 
 
 def sphere_scene(B=1, seed=0, A=3):

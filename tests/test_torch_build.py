@@ -21,6 +21,8 @@ from nvdiffrast_tpu_torch.ops import (antialias_cuda, gather, interpolate_cuda,
                                       rasterize_cuda, scatter, texture_bwd_cuda,
                                       texture_cube_cuda, texture_cuda)
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL,
            pipeline_bwd_cuda.BWD_KERNEL, pipeline_bwd_cuda.SCATTER_KERNEL,

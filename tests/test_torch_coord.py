@@ -8,6 +8,8 @@ import torch
 from nvdiffrast_tpu.ops import coord as jcoord
 from nvdiffrast_tpu_torch.ops import coord as tcoord
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 _SPECIAL = [0, 1, 2, 1000, (1 << 24) - 1, 1 << 24, (1 << 24) + 1,
             (1 << 24) + 7, 123456789, jcoord.MAX_TRIANGLE_ID]
 
@@ -43,3 +45,12 @@ def test_float_to_triidx_roundtrip(seed):
 @pytest.mark.parametrize("hw", [(1, 1), (48, 64), (67, 130), (2048, 2048)])
 def test_pixel_scale_offset(hw):
     assert tcoord.pixel_scale_offset(*hw) == jcoord.pixel_scale_offset(*hw)
+
+
+@pytest.mark.parametrize("height,width", [(1, 1), (7, 13), (2048, 2048)])
+def test_pixel_centers_bitwise(height, width):
+    fx, fy = tcoord.pixel_centers(height, width)
+    jfx, jfy = jcoord.pixel_centers(height, width)
+    assert fx.shape == (width,) and fy.shape == (height,) and fx.dtype == torch.float32
+    np.testing.assert_array_equal(fx.numpy().view(np.int32), np.asarray(jfx).view(np.int32))
+    np.testing.assert_array_equal(fy.numpy().view(np.int32), np.asarray(jfy).view(np.int32))

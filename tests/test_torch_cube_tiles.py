@@ -33,6 +33,8 @@ from nvdiffrast_tpu_torch.ops import texture as tx
 from nvdiffrast_tpu_torch.ops import texture_cube as tcg
 from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 FILTERS = ("linear", "linear-mipmap-nearest", "linear-mipmap-linear")
 SHAPE = (2, 36, 40)  # B, H, W: partial tiles on both edges
 

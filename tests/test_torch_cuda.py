@@ -406,14 +406,16 @@ def test_render_pipeline_textured_gpu_matches_cpu(dev, filter_mode):
 # The textured backward's kernels.
 # ---------------------------------------------------------------------------
 
-def _texture_case(dev, D, L_hot=0):
-    """A 32x64x3 pyramid (D textures), B = 2 images of 40x72 pixels with
-    uv in [-0.2, 1.2] and flevels over every level; the first L_hot
-    pixels of each image sample uv (0, 0) at level 0 (a hot spot)."""
-    B, H, W = 2, 40, 72
+def _texture_case(dev, D, L_hot=0, C=3, shape=(2, 40, 72), odd_uv=False):
+    """A 32x64xC pyramid (D textures), B images of H x W pixels (shape)
+    with uv in [-0.2, 1.2] and flevels over every level; the first L_hot
+    pixels of each image sample uv (0, 0) at level 0 (a hot spot). With
+    odd_uv, every 7th u and 11th v is NaN and every 5th u and 13th v lies
+    in [-5, 5] (clip_nan's inputs)."""
+    B, H, W = shape
     N = B * H * W
     rng = np.random.RandomState(10 + D)
-    tex = torch.from_numpy(rng.rand(D, 32, 64, 3).astype(np.float32)).to(dev)
+    tex = torch.from_numpy(rng.rand(D, 32, 64, C).astype(np.float32)).to(dev)
     levels = [tex] + tx.build_mip_stack(tex)
     meta, n_tex = tx._static_meta(levels)
     flat = tx._pack_pyramid(levels)
@@ -423,24 +425,70 @@ def _texture_case(dev, D, L_hot=0):
     for b in range(B):
         s = slice(b * H * W, b * H * W + L_hot)
         u[s] = v[s] = fl[s] = 0.0
-    gc = rng.standard_normal((3, N)).astype(np.float32)
+    if odd_uv:
+        u[::5] = rng.uniform(-5, 5, u[::5].shape)
+        v[::13] = rng.uniform(-5, 5, v[::13].shape)
+        u[::7] = np.nan
+        v[::11] = np.nan
+    gc = rng.standard_normal((C, N)).astype(np.float32)
     return (flat, *inputs_from_numpy(u, v, fl, gc, device=dev)), meta, n_tex, (B, H, W)
 
 
-@pytest.mark.parametrize("D", [1, 2])
+# (3, 40, 72): eight whole CTAs of 1,024 pixels and a last of 448;
+# (3, 37, 53): odd N, a last CTA of 763.
+@pytest.mark.parametrize("shape", [(3, 40, 72), (3, 37, 53)], ids=["even", "odd"])
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
 @pytest.mark.parametrize("boundary_mode", ["wrap", "clamp", "zero"])
-@pytest.mark.parametrize("filter_mode", ["linear-mipmap-nearest", "linear-mipmap-linear"])
-def test_texture_bwd_kernel_matches_twin(dev, filter_mode, boundary_mode, D):
+@pytest.mark.parametrize("filter_mode",
+                         ["linear", "linear-mipmap-nearest", "linear-mipmap-linear"])
+def test_texture_bwd_kernel_matches_twin(dev, filter_mode, boundary_mode, C, per_image,
+                                         shape):
     from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
-    (flat, u, v, fl, gc), meta, _, shape = _texture_case(dev, D)
-    args = (flat, u, v, fl, gc, meta, shape, D > 1, boundary_mode, filter_mode)
+    D = shape[0] if per_image else 1
+    (flat, u, v, fl, gc), meta, _, shape = _texture_case(dev, D, C=C, shape=shape,
+                                                         odd_uv=True)
+    if filter_mode == "linear":  # the base level alone, as texture() calls it
+        flat, meta = flat[:D * 32 * 64], meta[:1]
+    args = (flat, u, v, fl, gc, meta, shape, per_image, boundary_mode, filter_mode)
     before = tb.BWD_KERNEL.launches
     got = tb.texture_bwd(*args)
     ref = tb.texture_bwd_plain(*args)
     torch.cuda.synchronize()
     assert tb.BWD_KERNEL.launches == before + 1
     for x, y in zip(got, ref):
-        assert torch.equal(x, y)
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_texture_op_bwd_chunks_match_twin(dev, monkeypatch):
+    """texture() at C = 11 runs texture_bwd on channel groups of 8 and 3:
+    two launches, and uv and bias gradients equal to the twin's bit for
+    bit."""
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
+    rng = np.random.RandomState(6)
+    B, H, W, C = 3, 29, 45, 11
+    tex = rng.rand(B, 32, 64, C)
+    uv = rng.uniform(-0.2, 1.2, (B, H, W, 2))
+    uv_da = rng.randn(B, H, W, 4) * 0.05
+    bias = rng.uniform(-1, 3, (B, H, W))
+
+    def grads():
+        xs = [torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True)
+              for a in (tex, uv, uv_da, bias)]
+        img = dr.texture(xs[0], xs[1], xs[2], xs[3], filter_mode="linear-mipmap-linear",
+                         boundary_mode="wrap")
+        return torch.autograd.grad((img ** 2).sum(), xs[1:])
+
+    before = tb.BWD_KERNEL.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert tb.BWD_KERNEL.launches == before + 2
+    monkeypatch.setattr(tb, "texture_bwd", tb.texture_bwd_plain)
+    ref = grads()
+    assert tb.BWD_KERNEL.launches == before + 2
+    for x, y in zip(got, ref):
+        assert bool(torch.isfinite(x).all())
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.parametrize("D,boundary_mode,filter_mode,hot", [

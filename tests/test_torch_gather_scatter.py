@@ -25,6 +25,8 @@ from nvdiffrast_tpu.ops import scatter as js
 from nvdiffrast_tpu_torch.ops import gather as tg
 from nvdiffrast_tpu_torch.ops import scatter as ts
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 
 def _ulps(a, b):
     """Distance in float32 ulps (same-sign values; zeros of either sign)."""

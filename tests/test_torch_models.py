@@ -25,6 +25,8 @@ from nvdiffrast_tpu_torch.models import primitives
 from nvdiffrast_tpu_torch.models.fit_cube import CubeFitModel
 from nvdiffrast_tpu_torch.utils import camera
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 
 @pytest.mark.parametrize("discontinuous", [False, True])
 def test_cube_first_step_matches_jax(discontinuous):

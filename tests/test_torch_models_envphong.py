@@ -23,6 +23,8 @@ from nvdiffrast_tpu.models import primitives as jprim
 from nvdiffrast_tpu_torch.models import primitives
 from nvdiffrast_tpu_torch.models.fit_envphong import EnvPhongFitModel, _vertex_normals
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 
 def test_envphong_primitives_match_jax():
     for sub in (0, 2):

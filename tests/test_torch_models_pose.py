@@ -18,6 +18,8 @@ import torch
 from nvdiffrast_tpu.models import fit_pose as jfp
 from nvdiffrast_tpu_torch.models.fit_pose import PoseFitModel
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 
 def test_pose_first_step_matches_jax():
     jm = jfp.PoseFitModel(resolution=24, seed=0)

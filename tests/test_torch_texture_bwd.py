@@ -37,6 +37,8 @@ from nvdiffrast_tpu_torch.ops import texture as tx
 from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
 from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 FILTERS = ("linear-mipmap-nearest", "linear-mipmap-linear")
 BOUNDARIES = ("wrap", "clamp", "zero")
 SHAPE = (2, 16, 24)  # B, H, W of the sampled image

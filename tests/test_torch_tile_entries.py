@@ -27,6 +27,8 @@ import torch
 from nvdiffrast_tpu_torch.ops import texture as tx
 from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as tb
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 SHAPE = (2, 20, 37)  # B, H, W: partial tiles on both edges
 
 

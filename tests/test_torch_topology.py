@@ -11,6 +11,8 @@ from nvdiffrast_tpu_torch.ops.antialias import (
     TopologyHashWrapper, antialias_construct_topology_hash)
 from nvdiffrast_tpu_torch.ops.topology import build_opposite_table as tbuild
 
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
+
 
 def _random_mesh(seed, V=40, T=120):
     """Random triangles plus duplicate, degenerate and non-manifold ones."""

@@ -1,4 +1,5 @@
-"""Port parity: numpy scene helpers, input conversion and log level."""
+"""Port parity: numpy scene helpers, input conversion, log level and the
+image and quaternion helpers."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -7,11 +8,15 @@ import torch
 
 from nvdiffrast_tpu.models import primitives as jprim
 from nvdiffrast_tpu.utils import camera as jcam
+from nvdiffrast_tpu.utils import image as jimg
 from nvdiffrast_tpu.utils import log as jlog
 import nvdiffrast_tpu_torch as dr
 from nvdiffrast_tpu_torch.models import primitives as tprim
 from nvdiffrast_tpu_torch.utils import camera as tcam
+from nvdiffrast_tpu_torch.utils import image as timg
 from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
+
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
 
 
 @pytest.mark.parametrize("lat_lon", [(8, 12), (32, 64)])
@@ -70,3 +75,51 @@ def test_inputs_from_numpy_carries_texture_and_uvs_exactly():
     np.testing.assert_array_equal(u.numpy().view(np.int32),
                                   uv.astype(np.float32).view(np.int32))
     assert t.is_contiguous() and u.is_contiguous()
+
+
+def test_q_scale_small_takes_rng_as_the_reference():
+    q = jcam.q_rnd(np.random.default_rng(3))
+    for scale in (0.0, 0.25, 1.0):
+        ref = jcam.q_scale_small(q, scale, rng=np.random.default_rng(0))
+        got = tcam.q_scale_small(q, scale, rng=np.random.default_rng(0))
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(tcam.q_scale_small(q, scale), ref)
+
+
+def _test_image():
+    """A 5x7x3 image with values below 0, above 1 and on the rounding
+    boundaries, so clipping and rounding both show."""
+    x = np.random.default_rng(4).uniform(-0.2, 1.2, (5, 7, 3)).astype(np.float32)
+    x[0, :4, 0] = np.array([0.5, 1.5, 2.5, 254.5], np.float32) / 255.0
+    return x
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_save_image_writes_the_reference_bytes(tmp_path, as_tensor):
+    from PIL import Image
+
+    x = _test_image()
+    jimg.save_image(tmp_path / "ref.png", x)
+    arg = torch.from_numpy(x).requires_grad_() if as_tensor else x
+    timg.save_image(tmp_path / "got.png", arg)
+    ref = np.asarray(Image.open(tmp_path / "ref.png"))
+    got = np.asarray(Image.open(tmp_path / "got.png"))
+    assert got.dtype == np.uint8 and got.shape == (5, 7, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_display_image_returns_a_bool_without_a_display(monkeypatch):
+    from PIL import Image, ImageShow
+
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.setattr(ImageShow, "_viewers", [])  # no viewer to start
+    x = _test_image()
+    for arg in (x, torch.from_numpy(x)):
+        got = timg.display_image(arg, title="t")
+        assert isinstance(got, bool) and got == jimg.display_image(x, title="t")
+
+    def refuse(*args, **kwargs):
+        raise OSError("no display")
+
+    monkeypatch.setattr(Image.Image, "show", refuse)
+    assert timg.display_image(x) is False and jimg.display_image(x) is False

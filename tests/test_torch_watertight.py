@@ -23,6 +23,7 @@ from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
 from test_parity_sweep import _ESCAPEE_VERTS, _sliver_scene
 from test_watertight import _fan, _nearclip_scene, _strictly_inside
+import _torch_parity  # noqa: F401  (one intra-op thread a test worker)
 
 
 def _ids(pos, tri, res):
