@@ -139,7 +139,23 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      glue stage by stage, the kernel in longest-list-first and in grid
      order) beside the earlier design's, one host sync, render_pipeline fwd + bwd
      ms/step and peak memory, and its grad_scatter call (tiles of more
-     rows than the scratch) within 1e-6 of each row's largest, timed.
+     rows than the scratch) within 1e-6 of each row's largest, timed;
+ 17. parallel (nvdiffrast_tpu_torch.parallel): two ranks sharing the card
+     over gloo (halos and gradient sums through host memory). The bench
+     scene at 2048^2 split into two 1,024-row bands by make_sp_render,
+     fwd + bwd of mean(img**2): each band's rast bit for bit with the
+     single-process render's rows, the image and the gradients (each
+     vertex row, of its largest) within 1e-5, the cross-band pairs firing,
+     B9 and B10 launched by the boundary pass; one SGD step of
+     shard_map_train_step on the bench textured scene, a view a rank, the
+     texture and a position offset as parameters, within 1e-6 of each
+     parameter's largest entry of the single-process B = 2 step; the
+     ranks' launch counts over both steps; graft_entry.dryrun_multichip(2,
+     "cuda"); ms a step, the boundary pass's ms, the halo bytes (two ranks
+     on one card: not a scaling figure); B9 and B10 at the boundary's
+     shapes against their twins, timed.
+With ``--ranks N`` (a machine with N cards) it runs phase 17 alone, one
+rank a card over nccl: the multi-card check of the collectives.
 It prints one JSON line of per-kernel results (with each kernel's
 bound: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s; grad_scatter, grad_scatter_da4,
@@ -210,6 +226,12 @@ BEFORE_MS = {"raster": "0.299", "raster_db": "0.324", "prepass": "5.0-7.4",
           "scatter_rows_hot": "0.65-0.91", "scatter_rows_random": "0.79-0.81",
           "scatter_rows_cube": "3.89-3.93", "cube_fwd": "0.0785", "cube_bwd": "0.0885",
           "cube_grad": "20.7-20.9 + 3.7-3.9 device ms (profile_step --cube)"}
+SP_RANKS = 2        # phase 17: two ranks sharing the card over gloo
+SP_RTOL = 1e-5      # row bands vs the single process (tests/test_spatial.py's bar)
+DP_LR = 1.0         # phase 17's SGD step: large enough that the update shows
+DP_RTOL = 1e-6      # the dp step vs the single-process step, of each parameter's largest
+DP_UPDATE_RTOL = 1e-5  # ... and its update, of the largest update
+PARALLEL_STEPS = 10  # steps timed in each phase-17 rank
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -561,6 +583,18 @@ def zfight_check(ref, got, what):
         raise AssertionError(f"{what}: u/v/zw differ by {err}")
     return err, n_diff
 
+
+
+def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib,
+          all_ms=None, all_bnd=None, **device):
+    """One kernel's entry of the JSON line."""
+    e = {"name": name, "route": route, "source": source, "replaces": replaces,
+         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+    if all_ms is not None:  # the whole reduction: its glue and every stage
+        e.update(all_ms=all_ms, all_bound_ms=all_bnd[0], all_bound_by=all_bnd[1])
+    e.update(device)  # device time a call (torch.profiler), where measured
+    return e
 
 
 def four_spheres(cams):
@@ -1092,9 +1126,400 @@ def phase16(dev, card, entry):
     ]
 
 
-def main():
+
+# -- 17. parallel: row bands and data parallelism in two ranks --------------------
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_ms(dev, fn, iters):
+    """ms a call: CUDA events on the card. (The host clock on the CPU only
+    serves a rehearsal of phase 17's ranks there; main() runs the phase
+    on the card.)"""
+    import torch
+
+    if dev.type == "cuda":
+        return cuda_ms(torch, fn, iters)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _step_ms(dev, fn, iters):
+    """Synchronised host-clock ms a step after two warm ones (each rank
+    runs the same steps: they meet in the collectives)."""
+    for _ in range(2):
+        fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def textured_loss(view, off, tex, tri, uv, uv_tri, size):
+    """mean(img**2) of render_pipeline_textured on the bench textured scene
+    (phase 17's data-parallel step), the positions moved by `off`."""
+    from nvdiffrast_tpu_torch.ops import pipeline_tex as ptx
+
+    img = ptx.render_pipeline_textured(view + off, tri, uv, tex, size, uv_tri=uv_tri,
+                                       filter_mode=FILTER, boundary_mode=BOUNDARY)
+    return (img ** 2).mean()
+
+
+def _phase17_sp(rank, n, tmp, dev, res):
+    """The row-band step in one rank: the bench scene split into n bands
+    through make_sp_render, fwd + bwd of mean(img**2) (each rank's band
+    sum over the whole image's pixel count) to pos and the colours."""
     import numpy as np
     import torch
+    import nvdiffrast_tpu_torch as dr
+    from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.ops import gather, scatter
+    from nvdiffrast_tpu_torch.parallel import make_mesh, make_sp_render, spatial
+    from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
+
+    pos, tri, col, cidx = sphere_scene(cameras(1, seed=0))
+    p, t, a, c = inputs_from_numpy(pos, tri, col, cidx, device=dev)
+    mesh = make_mesh((n,), ("sp",), dev.type)
+    render = make_sp_render(mesh, t, c, (res, res))
+    hb = res // n
+    ntot = res * res * a.shape[-1]
+
+    def step(grad=True):
+        pv = p.detach().clone().requires_grad_(grad)
+        cv = a.detach().clone().requires_grad_(grad)
+        band = render(pv, cv)
+        if not grad:
+            return band
+        return (band.detach(),) + torch.autograd.grad((band ** 2).sum() / ntot, (pv, cv))
+
+    step()
+    # The boundary pass, watched: its B9 / B10 launches and its inputs.
+    orig = (spatial.aa_boundary, spatial.table_take, spatial.scatter_add_by_id)
+    seen = {"take": 0, "scatter": 0}
+
+    def take(tbl, rid):
+        k0 = gather.KERNEL.launches
+        out = orig[1](tbl, rid)
+        seen["take"] += gather.KERNEL.launches - k0
+        seen.setdefault("take_args", (tbl, rid))
+        return out
+
+    def scat(ids, vals, num_rows):
+        k0 = scatter.KERNEL.launches
+        out = orig[2](ids, vals, num_rows)
+        seen["scatter"] += scatter.KERNEL.launches - k0
+        seen.setdefault("scatter_args", (ids, vals, num_rows))
+        return out
+
+    def boundary(*args, **kw):
+        seen.setdefault("args", (args, kw))
+        return orig[0](*args, **kw)
+
+    spatial.aa_boundary, spatial.table_take, spatial.scatter_add_by_id = boundary, take, scat
+    try:
+        _build.reset_launches()
+        band, gp, gc = step()
+        _sync(dev)
+        launches = _build.launch_counts()
+    finally:
+        spatial.aa_boundary, spatial.table_take, spatial.scatter_add_by_id = orig
+    rast, _ = dr.rasterize(None, p, t, (hb, res), grad_db=False, viewport=(rank * hb, res))
+    for name, x in (("band", band), ("rast", rast), ("gpos", gp), ("gcol", gc)):
+        np.save(os.path.join(tmp, f"sp{rank}_{name}.npy"), x.cpu().numpy())
+
+    sp_ms = _step_ms(dev, step, PARALLEL_STEPS)
+    with torch.no_grad():
+        sp_fwd_ms = _step_ms(dev, lambda: step(False), PARALLEL_STEPS)
+
+    # The boundary pass alone (fwd + bwd, no collective) and its two
+    # kernels at the shapes it gives them, against their plain versions.
+    bargs, bkw = seen["args"]
+    ct0, cb0, rt0, rb0, pos0 = (x.detach() for x in bargs[:5])
+    gdelta = torch.ones_like(ct0)
+
+    def bstep():
+        ct, cb, pv = (x.clone().requires_grad_() for x in (ct0, cb0, pos0))
+        out = orig[0](ct, cb, rt0, rb0, pv, *bargs[5:], **bkw)
+        return torch.autograd.grad(out, (ct, cb, pv), (gdelta, gdelta))
+
+    bnd_ms = _timed_ms(dev, bstep, 20)
+    tbl, rid = seen["take_args"]
+    got = gather.table_take(tbl, rid)
+    if not bits_equal(got, gather.table_take_plain(tbl, rid)):
+        raise AssertionError("table_take at the band boundary differs from its twin")
+    ids, vals, num_rows = seen["scatter_args"]
+    sgot = scatter.scatter_add_by_id(ids, vals, num_rows)
+    sref = scatter.scatter_add_by_id_plain(ids, vals, num_rows)
+    ulp = torch.from_numpy(np.spacing(sref.abs().cpu().numpy())).to(dev)
+    if not bool(((sgot - sref).abs() <= ulp).all()):
+        raise AssertionError("scatter_rows at the band boundary beyond 1 ulp of its twin")
+    rows = torch.zeros((num_rows + 1, vals.shape[0]), dtype=torch.float32, device=dev)
+    okid = torch.where((ids >= 0) & (ids < num_rows), ids, num_rows).long()
+    kern = {
+        "take_ms": _timed_ms(dev, lambda: gather.table_take(tbl, rid), 50),
+        "take_plain_ms": _timed_ms(dev, lambda: gather.table_take_plain(tbl, rid), 20),
+        "take_lib_ms": _timed_ms(dev, lambda: torch.index_select(tbl, 1, rid.long()), 50),
+        "scatter_ms": _timed_ms(dev, lambda: scatter.scatter_add_by_id(ids, vals, num_rows),
+                                50),
+        "scatter_plain_ms": _timed_ms(
+            dev, lambda: scatter.scatter_add_by_id_plain(ids, vals, num_rows), 20),
+        "scatter_lib_ms": _timed_ms(dev, lambda: rows.index_add_(0, okid, vals.T), 50),
+        "scatter_err": float((sgot - sref).abs().max()),
+        "take_shape": [list(tbl.shape), rid.shape[0]],
+        "scatter_shape": [list(vals.shape), num_rows],
+    }
+    return {"sp_ms": sp_ms, "sp_fwd_ms": sp_fwd_ms, "bnd_ms": bnd_ms, "sp_launches": launches,
+            "bnd_take": seen["take"], "bnd_scatter": seen["scatter"], **kern}
+
+
+def _phase17_dp(rank, n, tmp, dev, res):
+    """The data-parallel step in one rank: one view of the bench textured
+    scene a rank, one SGD step of shard_map_train_step on the texture and
+    a position offset."""
+    import numpy as np
+    import torch
+    from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.parallel import make_mesh, multihost, shard_map_train_step
+    from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
+
+    pos, tri, _, cidx = sphere_scene(cameras(n, seed=17))
+    p, t, c, uv, tex0 = inputs_from_numpy(pos, tri, cidx, sphere_uv(), bench_texture(),
+                                          device=dev)
+    mesh = make_mesh((n,), ("dp",), dev.type)
+    tex = tex0.clone().requires_grad_()
+    off = torch.zeros_like(p[0]).requires_grad_()
+    opt = torch.optim.SGD([tex, off], lr=DP_LR)
+    step = shard_map_train_step(lambda v: textured_loss(v, off, tex, t, uv, c, (res, res)),
+                                opt, mesh)
+    start, size = multihost.local_batch_slice(n, mesh)
+    view = p[start:start + size]
+    _build.reset_launches()
+    loss = float(step(view))
+    _sync(dev)
+    launches = _build.launch_counts()
+    np.save(os.path.join(tmp, f"dp{rank}_tex.npy"), tex.detach().cpu().numpy())
+    np.save(os.path.join(tmp, f"dp{rank}_off.npy"), off.detach().cpu().numpy())
+    return {"dp_loss": loss, "dp_launches": launches,
+            "dp_ms": _step_ms(dev, lambda: step(view), PARALLEL_STEPS)}
+
+
+def _phase17_rank(rank, n, tmp, device_type, res, backend):
+    """One rank of phase 17 (started by torch.multiprocessing.spawn),
+    meeting the others through a file store in `tmp`; results to
+    tmp/rank{rank}.json and .npy."""
+    import torch
+    import torch.distributed as dist
+    from nvdiffrast_tpu_torch.parallel import multihost
+
+    multihost.initialize(init_method="file://" + os.path.join(tmp, "store"), world_size=n,
+                         rank=rank, backend=backend, device_type=device_type, timeout_s=900)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" \
+        else torch.device("cpu")
+    try:
+        out = _phase17_sp(rank, n, tmp, dev, res)
+        out.update(_phase17_dp(rank, n, tmp, dev, res))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase17_ranks(n, tmp, device_type, res, backend="gloo"):
+    """Start phase 17's n ranks and return their results, in rank order."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_phase17_rank, args=(n, tmp, device_type, res, backend), nprocs=n, join=True)
+    out = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase17_check(ranks, tmp, dev, res):
+    """Phase 17's ranks against the single process on the same device:
+    the bands' rast bit for bit, the image and the gradients within
+    SP_RTOL (the gradients of each vertex row, of the row's largest), the
+    cross-band pairs firing; the dp step's parameters within DP_RTOL of
+    their largest entries. Returns the single-process steps (sp, dp) as
+    functions for timing, and the largest errors."""
+    import numpy as np
+    import torch
+    import nvdiffrast_tpu_torch as dr
+    from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
+
+    n = len(ranks)
+    hb = res // n
+    pos, tri, col, cidx = sphere_scene(cameras(1, seed=0))
+    p, t, a, c = inputs_from_numpy(pos, tri, col, cidx, device=dev)
+
+    def sp_single():
+        pv = p.detach().clone().requires_grad_()
+        cv = a.detach().clone().requires_grad_()
+        rast, _ = dr.rasterize(None, pv, t, (res, res), grad_db=False)
+        img, _ = dr.interpolate(cv[None], rast, c)
+        out = dr.antialias(img, rast, pv, t)
+        return (rast.detach(), img.detach(), out.detach()) + torch.autograd.grad(
+            (out ** 2).mean(), (pv, cv))
+
+    rast, img, out, gp, gc = sp_single()
+    load = lambda name: torch.from_numpy(np.load(os.path.join(tmp, name))).to(dev)  # noqa: E731
+    img_err = grad_err = 0.0
+    for r in range(n):
+        rows = slice(r * hb, (r + 1) * hb)
+        if not bits_equal(load(f"sp{r}_rast.npy"), rast[:, rows]):
+            raise AssertionError(f"band {r}'s rast differs from the single-process rows")
+        img_err = max(img_err, float((load(f"sp{r}_band.npy") - out[:, rows]).abs().max()))
+        for name, ref in (("gpos", gp), ("gcol", gc)):
+            got = load(f"sp{r}_{name}.npy")
+            grad_err = max(grad_err, rows_close(got.reshape(-1, ref.shape[-1]),
+                                                ref.reshape(-1, ref.shape[-1]), SP_RTOL))
+    if not img_err <= SP_RTOL:
+        raise AssertionError(f"row bands' image differs by {img_err}")
+    edges = [r * hb + o for r in range(1, n) for o in (-1, 0)]
+    fired = int(((img - out).abs().sum(-1)[:, edges] > 0).sum())
+    if not fired:
+        raise AssertionError("no cross-band antialias pair fired")
+
+    dpos, dtri, _, dcidx = sphere_scene(cameras(n, seed=17))
+    dp_, dt, dc, duv, dtex = inputs_from_numpy(dpos, dtri, dcidx, sphere_uv(),
+                                               bench_texture(), device=dev)
+
+    def dp_single():
+        tex = dtex.clone().requires_grad_()
+        off = torch.zeros_like(dp_[0]).requires_grad_()
+        opt = torch.optim.SGD([tex, off], lr=DP_LR)
+        opt.zero_grad()
+        textured_loss(dp_, off, tex, dt, duv, dc, (res, res)).backward()
+        opt.step()
+        return tex.detach(), off.detach()
+
+    tex1, off1 = dp_single()
+    dp_err = upd_err = 0.0
+    for r in range(n):
+        for name, ref, start in (("tex", tex1, dtex), ("off", off1, torch.zeros_like(off1))):
+            got = load(f"dp{r}_{name}.npy")
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            # The update itself, of the largest update: the bar above alone
+            # would pass a wrong gradient whose step is small.
+            step_ = float((ref - start).abs().max())
+            uerr = float(((got - start) - (ref - start)).abs().max()) / max(step_, 1e-30)
+            if not (err <= DP_RTOL and uerr <= DP_UPDATE_RTOL and step_ > 0):
+                raise AssertionError(f"dp rank {r} {name}: {err} of its largest entry, "
+                                     f"{uerr} of the largest update ({step_})")
+            dp_err, upd_err = max(dp_err, err), max(upd_err, uerr)
+    return sp_single, dp_single, img_err, grad_err, (dp_err, upd_err), fired
+
+
+def phase17(dev, card, entry, n=SP_RANKS, backend="gloo"):
+    """Row bands and data parallelism in n ranks, held against the single
+    process on the card; then the dry run. By default two ranks share the
+    card over gloo (halos and gradient sums through host memory); with
+    ``--ranks`` one rank a card over nccl. Returns the kernels' JSON
+    entries (B9, B10 at the band boundary)."""
+    import tempfile
+    import torch
+    from nvdiffrast_tpu_torch import graft_entry
+    from nvdiffrast_tpu_torch.ops import antialias_cuda as ac
+    from nvdiffrast_tpu_torch.ops import gather, scatter
+    from nvdiffrast_tpu_torch.ops import interpolate_cuda as ic
+    from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
+    from nvdiffrast_tpu_torch.ops import pipeline_tex_bwd_cuda as ptb
+    from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
+    from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as txb
+    from nvdiffrast_tpu_torch.ops import texture_cuda as tc
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    label = (f"{n} ranks sharing one {kind} over gloo, halos through host memory: not a "
+             "scaling figure") if backend == "gloo" else f"{n} ranks on {n} {kind} over {backend}"
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = phase17_ranks(n, tmp, "cuda", RES, backend)
+        sp_single, dp_single, img_err, grad_err, dp_err, fired = phase17_check(
+            ranks, tmp, dev, RES)
+    sp_paths = (rc.BAND_KERNEL, rc.SETUP_KERNEL, ic.KERNEL, ac.KERNEL, gather.KERNEL,
+                ic.BWD_KERNEL, ac.BWD_KERNEL, scatter.KERNEL, scatter.SUM_KERNEL)
+    dp_paths = (rc.SETUP_KERNEL, rc.DB_KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL,
+                txb.BWD_KERNEL, txb.GRAD_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL,
+                pb.SCATTER_KERNEL, pb.SCATTER_SUM_KERNEL)
+    for r, res_ in enumerate(ranks):
+        log(f"[17] rank {r} launches, row-band step: {res_['sp_launches']}; data-parallel "
+            f"step: {res_['dp_launches']}; the boundary pass's table_take "
+            f"{res_['bnd_take']}, scatter_rows {res_['bnd_scatter']}")
+        for what, ks, got in (("row-band", sp_paths, res_["sp_launches"]),
+                              ("data-parallel", dp_paths, res_["dp_launches"])):
+            missing = [k.name for k in ks if not got.get(k.name)]
+            if missing:
+                raise AssertionError(f"rank {r}'s {what} step never launched {missing}")
+        if not (res_["bnd_take"] > 0 and res_["bnd_scatter"] > 0):
+            raise AssertionError(f"rank {r}'s boundary pass launched no B9 or B10")
+    log(f"[17] row bands ({n} x {RES // n} rows of the bench scene at {RES}^2): "
+        f"rast bit for bit with the single process, image within {img_err:.3g}, gradients "
+        f"within {grad_err:.3g} of each vertex row's largest (bar {SP_RTOL}); {fired} "
+        f"boundary pixels changed by the cross-band pairs")
+    log(f"[17] data parallel ({n} views of the bench textured scene, SGD lr {DP_LR} on "
+        f"the texture and a position offset): within {dp_err[0]:.3g} of each parameter's "
+        f"largest entry of the single-process B = {n} step (bar {DP_RTOL}), the "
+        f"updates within {dp_err[1]:.3g} of the largest update (bar {DP_UPDATE_RTOL})")
+    r0 = ranks[0]
+    B, C, V = 1, 3, sphere_scene(cameras(1, 0))[0].shape[1]
+    halo = 2 * (B * RES * (C + 4) + B * RES * C) * 4  # two exchanges each way
+    allreduce = V * (4 + C) * 4
+    sp_single_ms = _step_ms(dev, sp_single, PARALLEL_STEPS)
+    dp_single_ms = _step_ms(dev, dp_single, PARALLEL_STEPS)
+    log(f"[17] {label}: row-band step (fwd + bwd) {r0['sp_ms']:.3f} ms, forward "
+        f"{r0['sp_fwd_ms']:.3f} ms, the boundary pass (fwd + bwd) {r0['bnd_ms']:.4f} ms; "
+        f"single process on the card, whole image {sp_single_ms:.3f} ms; halos {halo} bytes "
+        f"a step a rank, the gradient sum {allreduce} bytes; data-parallel step "
+        f"{r0['dp_ms']:.3f} ms, single process B = {n} {dp_single_ms:.3f} ms ({card})")
+    dry = graft_entry.dryrun_multichip(n, "cuda")
+    for r in dry:
+        if not r["launches"]:
+            raise AssertionError(f"dry run rank {r['rank']} launched no kernel")
+    log(f"[17] dryrun_multichip({n}, 'cuda'): losses dp {dry[0]['dp_loss']:.6f}, sp "
+        f"{dry[0]['sp_loss']:.6f}, bands within {max(r['sp_err'] for r in dry):.3g} of the "
+        f"single process; {sum(dry[0]['launches'].values())} launches in rank 0")
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+    f32 = 4
+    (tk, tn), tr = r0["take_shape"]
+    (sk, sn), srows = r0["scatter_shape"]
+    take_bound = bound((tk * tn + tr + tk * tr) * f32, 0)
+    scatter_bound = bound((sn + sk * sn + srows * sk) * f32, sk * sn)
+    log(f"[17] at the band boundary ({tr} pixels): table_take {r0['take_ms']:.4f} ms (twin "
+        f"{r0['take_plain_ms']:.4f}, index_select {r0['take_lib_ms']:.4f}); scatter_rows "
+        f"{r0['scatter_ms']:.4f} ms (twin {r0['scatter_plain_ms']:.4f}, index_add_ "
+        f"{r0['scatter_lib_ms']:.4f}) ({card})")
+    return [
+        entry("table_take_band_boundary", "cuda", "nvdiffrast_tpu_torch/csrc/table_take.cu",
+              "nvdiffrast_tpu/ops/gather.py:33", r0["bnd_take"], 0.0, r0["take_ms"],
+              r0["take_plain_ms"], take_bound, r0["take_lib_ms"]),
+        entry("scatter_rows_band_boundary", "cuda", "nvdiffrast_tpu_torch/csrc/scatter_rows.cu",
+              "nvdiffrast_tpu/ops/scatter.py:84", r0["bnd_scatter"], r0["scatter_err"],
+              r0["scatter_ms"], r0["scatter_plain_ms"], scatter_bound, r0["scatter_lib_ms"]),
+    ]
+
+
+def main():
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch + CUDA port.")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run phase 17 alone with one rank a card over nccl, on a machine "
+                         "with at least this many cards (default: every phase, one card)")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1138,6 +1563,16 @@ def main():
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    ptxas:", line.strip())
+    if args.ranks:
+        if torch.cuda.device_count() < args.ranks:
+            raise RuntimeError(f"--ranks {args.ranks}: torch sees {torch.cuda.device_count()} "
+                               "cards")
+        kernels = phase17(dev, card, entry, args.ranks, "nccl")
+        log(card)
+        log(json.dumps({"kernels": kernels}))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                               "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 2. rasterizer kernel vs twin ----------------------------------------
     raster_err = 0.0
@@ -2517,18 +2952,11 @@ def main():
     cseg_bound = bound((n_cpart + n_ctex + 1) * f32, 0)
     csum_bound = bound(n_cpart * (cent + 8) + (n_ctex + 1 + n_ctex * 3) * f32, n_cpart * 3)
 
-    def entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, lib,
-              all_ms=None, all_bnd=None, **device):
-        e = {"name": name, "route": route, "source": source, "replaces": replaces,
-             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
-        if all_ms is not None:  # the whole reduction: its glue and every stage
-            e.update(all_ms=all_ms, all_bound_ms=all_bnd[0], all_bound_by=all_bnd[1])
-        e.update(device)  # device time a call (torch.profiler), where measured
-        return e
-
     # -- 16. the rest of the rasterizer: peel, range, bands, binning -----------
     phase16_kernels = phase16(dev, card, entry)
+
+    # -- 17. parallel: row bands and data parallelism in two ranks -------------
+    phase17_kernels = phase17(dev, card, entry)
 
     # texture_bwd's rows also by device time (torch.profiler, after every
     # other phase: the profiler leaves later launches slower on the host);
@@ -2662,7 +3090,7 @@ def main():
               "nvdiffrast_tpu/ops/scatter.py:84",
               cube_launches[tcc.GRAD_SUM_KERNEL.name], cube_grad_err, st14["sums"],
               cgrad_plain_ms, csum_bound, None),
-    ] + phase16_kernels
+    ] + phase16_kernels + phase17_kernels
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "
             f"{k['ms']:.4f} ms ({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

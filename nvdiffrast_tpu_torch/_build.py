@@ -136,6 +136,9 @@ def library():
     return _lib
 
 
+KERNELS = []  # every Kernel made in this process, for launch_counts
+
+
 class Kernel:
     """One C entry point of the library, with its launch count.
 
@@ -150,6 +153,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def launch(self, device, *args):
         """Launch on `device`'s current stream; raise on a CUDA error."""
@@ -165,6 +169,18 @@ class Kernel:
             msg = library().nvdr_error_string(err).decode()
             raise KernelLaunchError(f"{self.name}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+def reset_launches():
+    """Set every kernel's launch count in this process to 0."""
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts():
+    """{name: launches} of the kernels launched in this process since
+    their counts were last reset (a rank reports its own)."""
+    return {k.name: k.launches for k in KERNELS if k.launches}
 
 
 def ptr(t):
