@@ -21,6 +21,8 @@ import threading
 
 import torch
 
+from .utils import trace
+
 _PKG = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -143,12 +145,15 @@ class Kernel:
     """One C entry point of the library, with its launch count.
 
     `launch` is the only place a kernel is launched; it adds one to
-    `launches` per successful launch. Several counters may bind one
-    entry (`symbol`, by default `name`), one per mode a caller picks.
+    `launches` per successful launch, and under a torch.profiler marks
+    the launch with the span ``nvdr.kernel.<name>``. Several counters may
+    bind one entry (`symbol`, by default `name`), one per mode a caller
+    picks.
     """
 
     def __init__(self, name, argtypes, symbol=None):
         self.name = name
+        self.span = "nvdr.kernel." + name
         self.symbol = symbol or name
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -164,7 +169,8 @@ class Kernel:
             self._fn = fn
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._fn(*args, stream)
+            with trace.span(self.span):
+                err = self._fn(*args, stream)
         if err != 0:
             msg = library().nvdr_error_string(err).decode()
             raise KernelLaunchError(f"{self.name}: CUDA error {err} ({msg})")

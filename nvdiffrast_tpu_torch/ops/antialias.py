@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, spanned
 from .topology import build_opposite_table
 
 _F32_MAX = 3.402823466e38
@@ -248,6 +249,7 @@ def decode_aux(aux):
 # Tables (antialias.py:312-401).
 # ---------------------------------------------------------------------------
 
+@spanned("nvdr.aa.tables")
 def _build_tables(pos, tri, op_table, H, W):
     """Per-triangle screen tables (channel-major) + a dummy zero column.
 
@@ -288,7 +290,8 @@ def _build_tables(pos, tri, op_table, H, W):
              + 4.0 * _same_sign(a2, bb).to(torch.float32))
 
     ftable = torch.cat([sx, sy, sbits[..., None]], dim=-1).reshape(-1, 7).T
-    btable = tv[..., [0, 1, 3]].reshape(-1, 9).T
+    with span("nvdr.sync.aa_table_xyw"):  # the list index is copied to the card
+        btable = tv[..., [0, 1, 3]].reshape(-1, 9).T
     R = ftable.shape[1]
     zcol7 = torch.zeros((7, 1), dtype=torch.float32, device=pos.device)
     zcol9 = torch.zeros((9, 1), dtype=torch.float32, device=pos.device)
@@ -341,6 +344,7 @@ def aa_fwd_groups(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     return (outs[0] if len(outs) == 1 else torch.cat(outs)), res
 
 
+@spanned("nvdr.aa.bwd")
 def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
                 need_pos=True, viewport=None):
     """(g_color [C, N], g_pos (pos_shape: [B, V, 4], or [V, 4] in range
@@ -394,6 +398,7 @@ class _AntialiasFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("nvdr.antialias.bwd")
     def backward(ctx, dy):
         ct, idf, vtbl, tri, *res = ctx.saved_tensors
         (B, H, W, C), pos_shape, boost, viewport = ctx.meta
@@ -405,6 +410,7 @@ class _AntialiasFn(torch.autograd.Function):
         return g_color, None, g_pos, None, None, None, None
 
 
+@spanned("nvdr.antialias")
 def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
               viewport=None):
     """Antialias silhouette edges.

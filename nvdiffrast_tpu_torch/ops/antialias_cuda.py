@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from .antialias import _pixel_grid, decode_aux, pair_alpha, pair_ids, pair_pos_grad
 from .pipeline_cuda import _folded, _roll_next, finish_shade
 
@@ -124,6 +125,7 @@ def aa_cols_plain(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     return (out, ct, negs[0], negs[1], *res)
 
 
+@spanned("nvdr.aa.fwd")
 def aa_forward(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     """Antialiased colour [C, N] and the residuals (al0, ax0, al1, ax1)
     flat [N] row-major, as ``antialias_pallas.aa_forward_fused_cols``

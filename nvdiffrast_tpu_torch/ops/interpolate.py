@@ -15,6 +15,7 @@ zero) and, with ``diff_attrs``, the db gradients in ``rast_db``.
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import spanned
 from .interpolate_cuda import MAX_A, interp_backward, interp_forward
 from .pipeline import _attr_table, vertex_attr_grad
 from .rasterize import as_device_tensor, pixel_rows
@@ -102,6 +103,7 @@ class _InterpolateFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("nvdr.interpolate.bwd")
     def backward(ctx, gy, gda):
         tbl, tri, rast, rast_db = ctx.saved_tensors
         diff_list, hw, attr_shape = ctx.meta
@@ -133,6 +135,7 @@ class _InterpolateFn(torch.autograd.Function):
         return g_attr, g_rast, g_db, None, None
 
 
+@spanned("nvdr.interpolate")
 def interpolate(attr, rast, tri, rast_db=None, diff_attrs=None):
     """Interpolate vertex attributes.
 

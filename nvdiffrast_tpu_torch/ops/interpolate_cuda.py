@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from . import coord
 
 MAX_A = 16  # attributes served by the kernel (interpolate_pallas._MAX_K / 3)
@@ -66,6 +67,7 @@ def _check(tbl, u, v, idf, db, diff_list, T=None, hw=0):
     return A, D, N, T
 
 
+@spanned("nvdr.interp")
 def interp_forward(tbl, u, v, idf, db, diff_list, T=None, hw=0):
     """Interpolated attributes and their screen derivatives.
 
@@ -156,6 +158,7 @@ def _check_bwd(tbl, u, v, idf, db, gy, gda, diff_list, T, hw, grast, gdb):
     return A, D, N, T
 
 
+@spanned("nvdr.interp.bwd")
 def interp_backward(tbl, u, v, idf, db, gy, gda, diff_list, T=None, hw=0,
                     grast=None, gdb=None):
     """Interpolate backward of one launch (up to MAX_A attributes).

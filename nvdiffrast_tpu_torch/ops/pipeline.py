@@ -16,6 +16,7 @@ kernels.
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, spanned
 from . import coord
 from .antialias import TopologyHashWrapper, _build_tables
 from .pipeline_bwd_cuda import grad_scatter, pipeline_bwd
@@ -25,6 +26,7 @@ from .rasterize_cuda import rasterize_fused
 from .topology import build_opposite_table
 
 
+@spanned("nvdr.attr_table")
 def _attr_table(attr, atri, B, T):
     """[3A, B*T + 1] attribute table (dummy zero column last).
 
@@ -87,8 +89,11 @@ def _corner_table(idx, V):
     flat = idx.reshape(-1).long()
     n = flat.shape[0]
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=V)
-    D = int(counts.max()) if n else 0
+    # On the card bincount reads the ids' min and max back: two syncs.
+    with span("nvdr.sync.corner_count_min"), span("nvdr.sync.corner_count_max"):
+        counts = torch.bincount(flat, minlength=V)
+    with span("nvdr.sync.corner_degree"):
+        D = int(counts.max()) if n else 0
     slot = torch.arange(D, device=idx.device)
     pos = (torch.cumsum(counts, 0) - counts)[:, None] + slot
     has = slot < counts[:, None]
@@ -126,6 +131,7 @@ def _pipeline_bwd_core(tri, atri, saved, resolution, boost, pos_shape,
             vertex_attr_grad(gt[:, :K], atri, attr_shape, B))
 
 
+@spanned("nvdr.vertex_sums")
 def vertex_attr_grad(ga, atri, attr_shape, B):
     """Triangle-corner attribute rows [B*T, 3A] -> the gradient shaped
     like attr; broadcast attributes sum the batch first."""
@@ -138,6 +144,7 @@ def vertex_attr_grad(ga, atri, attr_shape, B):
     return _vertex_sum(ga, acorners)
 
 
+@spanned("nvdr.vertex_sums")
 def vertex_pos_grad(g9, gaa, tri, pos_shape, boost):
     """Triangle-corner clip-space rows (raster [B*T, 9], antialias
     [B*T, 9]) -> g_pos [B, V, 4], the antialias part times boost."""
@@ -148,7 +155,8 @@ def vertex_pos_grad(g9, gaa, tri, pos_shape, boost):
     g_aa = gv[..., 3:] * boost if boost != 1.0 else gv[..., 3:]
     g_xyw = gv[..., :3] + g_aa
     g_pos = torch.zeros((B, V, 4), dtype=torch.float32, device=g9.device)
-    g_pos[..., [0, 1, 3]] = g_xyw
+    with span("nvdr.sync.pos_grad_xyw"):  # the list index is copied to the card
+        g_pos[..., [0, 1, 3]] = g_xyw
     return g_pos
 
 
@@ -168,6 +176,7 @@ class _PipelineFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("nvdr.render_pipeline.bwd")
     def backward(ctx, dy):
         tri, atri, *saved = ctx.saved_tensors
         g_pos, g_attr = _pipeline_bwd_core(
@@ -178,6 +187,7 @@ class _PipelineFn(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+@spanned("nvdr.render_pipeline")
 def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
                     topology_hash=None, pos_gradient_boost=1.0):
     """Render the fused rasterize + interpolate + antialias pipeline.

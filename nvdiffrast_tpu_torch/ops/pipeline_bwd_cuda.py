@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from . import segments
 from .antialias import _pixel_grid, decode_aux, pair_pos_grad
 from .pipeline_cuda import MAX_A, _folded, _roll_next
@@ -92,6 +93,7 @@ def _check_bwd(atbl, vtbl, flats, c0, dy, resolution, T):
     return A, N
 
 
+@spanned("nvdr.pipeline_bwd")
 def pipeline_bwd(atbl, vtbl, idf, c0, dy, residuals, resolution, T):
     """Per-pixel antialias + interpolate + rasterize backward.
 
@@ -248,6 +250,7 @@ def _own_live(gs, da4):
     return live if da4 is None else live | (da4 != 0.0).any(0)
 
 
+@spanned("nvdr.grad_scatter")
 def grad_scatter(rid0, gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, resolution,
                  da4=None):
     """Per-pixel gradient rows -> per-triangle rows.

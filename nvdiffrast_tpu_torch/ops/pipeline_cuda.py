@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from .antialias import _pixel_grid, pair_alpha, pair_ids
 
 MAX_A = 8  # channels served by the kernel
@@ -143,6 +144,7 @@ def finish_shade(cols, W):
     return out, c0, (al0, ax0, al1, ax1)
 
 
+@spanned("nvdr.shade")
 def shade_fwd(atbl, ftable, b0, b1, zw, idf, resolution, T):
     """Fused interpolate + antialias forward.
 

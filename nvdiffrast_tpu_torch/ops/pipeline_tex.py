@@ -39,6 +39,7 @@ package's fallback does (``_composed``).
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, spanned
 from . import texture as tx
 from .antialias import TopologyHashWrapper, _build_tables, aa_bwd_flat
 from .antialias_cuda import MAX_C, aa_forward
@@ -82,10 +83,11 @@ def _shade_textured(pos, uv_attr, tex, tri, uv_tri, op_table, raster,
     D, th, tw, C = tex.shape
     use_mip = "mipmap" in filter_mode
 
-    levels = [tex] + (tx.build_mip_stack(tex, max_mip_level) if use_mip else [])
-    meta, _ = tx._static_meta(levels)
-    L = len(levels)
-    flat = tx._pack_pyramid(levels)
+    with span("nvdr.tex.pyramid"):
+        levels = [tex] + (tx.build_mip_stack(tex, max_mip_level) if use_mip else [])
+        meta, _ = tx._static_meta(levels)
+        L = len(levels)
+        flat = tx._pack_pyramid(levels)
 
     # uv and, for the mip level, its screen derivatives.
     u, v, zw, idf = raster[:4]
@@ -183,6 +185,7 @@ class _PipelineTexFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("nvdr.render_pipeline_textured.bwd")
     def backward(ctx, dy):
         uv_attr, tri, uv_tri, *saved = ctx.saved_tensors
         grads = _ptex_bwd_core(saved, uv_attr, tri, uv_tri, *ctx.modes,
@@ -191,6 +194,7 @@ class _PipelineTexFn(torch.autograd.Function):
         return grads + (None,) * 8
 
 
+@spanned("nvdr.render_pipeline_textured")
 def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
                              filter_mode="linear-mipmap-linear",
                              boundary_mode="wrap", max_mip_level=-1,
@@ -254,10 +258,15 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
         raise ValueError(
             f"render_pipeline_textured: uv_attr must be [V, {A}], [1, V, {A}] or "
             f"[minibatch, V, {A}]; got {tuple(uv_attr.shape)}")
-    if uv_tri.numel() and (int(uv_tri.min()) < 0
-                           or int(uv_tri.max()) >= uv_attr.shape[-2]):
-        raise ValueError("render_pipeline_textured: uv_tri indices out of "
-                         f"range [0, {uv_attr.shape[-2]})")
+    if uv_tri.numel():
+        with span("nvdr.sync.uv_range_min"):
+            out = int(uv_tri.min()) < 0
+        if not out:
+            with span("nvdr.sync.uv_range_max"):
+                out = int(uv_tri.max()) >= uv_attr.shape[-2]
+        if out:
+            raise ValueError("render_pipeline_textured: uv_tri indices out of "
+                             f"range [0, {uv_attr.shape[-2]})")
     if tex.ndim != (5 if cube else 4) or tex.shape[0] not in (1, B) or (
             cube and tex.shape[1] != 6):
         raise ValueError(

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from . import coord
 from .antialias import _pixel_grid, decode_aux
 from .pipeline_cuda import _folded, _roll_next
@@ -38,6 +39,7 @@ def _roll_prev(x, stride):
     return torch.cat([x[..., stride:], x[..., -stride:]], dim=-1)
 
 
+@spanned("nvdr.aa.bwd")
 def aa_bwd_slim(dy, c0, idf, residuals, shape, T):
     """Antialias backward, slim emission.
 
@@ -97,6 +99,7 @@ def _check(atbl, vtbl, idf, gu, gv, gda4, db4, resolution, T):
     return N
 
 
+@spanned("nvdr.raster.grad")
 def interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, resolution, T):
     """Fused interpolate(uv, da) + rasterize(db) backward.
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, spanned
 from . import coord
 
 # Triangles are clipped against w >= _W_CLIP_EPS (near plane guard).
@@ -124,7 +125,11 @@ def _check_indices(tri, v):
     if (tri.device.type != "cpu" and seen is not None and seen[0]() is tri
             and seen[1:] == (tri._version, tri.data_ptr(), v)):
         return
-    tmin, tmax = (int(x) for x in torch.aminmax(tri))
+    tmin, tmax = torch.aminmax(tri)
+    with span("nvdr.sync.tri_range_min"):
+        tmin = int(tmin)
+    with span("nvdr.sync.tri_range_max"):
+        tmax = int(tmax)
     if tmin < 0 or tmax >= v:
         raise ValueError(
             f"rasterize: triangle indices out of range [0, {v}): "
@@ -156,7 +161,8 @@ def vertex_table(pos, tri):
     """[9, B*T+1] (instance mode) or [9, T+1] (range mode, pos [V, 4])
     clip-space (x, y, w) of each triangle's vertices, row 3*k + c for
     vertex k, a zero column last."""
-    tbl = pos[..., tri.long(), :][..., [0, 1, 3]].reshape(-1, 9).T
+    with span("nvdr.sync.vertex_table_xyw"):  # the list index is copied to the card
+        tbl = pos[..., tri.long(), :][..., [0, 1, 3]].reshape(-1, 9).T
     return torch.cat([tbl, tbl.new_zeros((9, 1))], dim=1).contiguous()
 
 
@@ -269,6 +275,7 @@ def pixel_centres(N, resolution, device, viewport=None):
     return fx, fy
 
 
+@spanned("nvdr.raster.grad")
 def raster_grad_rows(vtbl, idf, dyx, dyy, ddb, resolution, T, viewport=None):
     """Per-pixel vertex-position gradient rows (``_raster_grad_pixel_cols``).
 
@@ -312,6 +319,7 @@ def raster_pos_grad(vtbl, tri, pos_shape, idf, dyx, dyy, ddb, resolution, viewpo
                                 pos_shape)
 
 
+@spanned("nvdr.vertex_sums")
 def xyw_rows_to_vertices(gt, tri, pos_shape):
     """Per-triangle rows [B*T, 9] (x, y, w of each vertex) -> g_pos
     pos_shape, [B, V, 4] or, in range mode, [V, 4] (z gets none), by the
@@ -321,7 +329,8 @@ def xyw_rows_to_vertices(gt, tri, pos_shape):
     B, V = (1, pos_shape[0]) if len(pos_shape) == 2 else pos_shape[:2]
     gv = _vertex_sum(gt.reshape(B, 3 * tri.shape[0], 3), _corner_table(tri, V))
     g_pos = gt.new_zeros((B, V, 4))
-    g_pos[..., [0, 1, 3]] = gv
+    with span("nvdr.sync.raster_grad_xyw"):  # the list index is copied to the card
+        g_pos[..., [0, 1, 3]] = gv
     return g_pos.reshape(pos_shape)
 
 
@@ -347,6 +356,7 @@ class _RasterizeFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("nvdr.rasterize.bwd")
     def backward(ctx, d_rast, d_db, _d_zbuf):
         pos, tri, idf = ctx.saved_tensors
         resolution, grad_db, viewport = ctx.meta
@@ -379,6 +389,7 @@ def _prepare(pos, tri, resolution, ranges, what):
     return pos, tri, resolution, ranges
 
 
+@spanned("nvdr.rasterize")
 def rasterize(glctx, pos, tri, resolution, ranges=None, grad_db=True, viewport=None):
     """Rasterize triangles.
 
@@ -469,6 +480,7 @@ class DepthPeeler:
         self._peel_depth = None
         return None
 
+    @spanned("nvdr.rasterize")
     def rasterize_next_layer(self):
         """Rasterize the next depth layer: (rast, rast_db) as ``rasterize``."""
         assert self.raster_ctx.active_depth_peeler is self

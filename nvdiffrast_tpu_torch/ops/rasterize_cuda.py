@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import span, spanned
 from . import coord, segments
 from .rasterize import _W_CLIP_EPS, _check_rasterize_args, _dop
 
@@ -346,6 +347,7 @@ def chunk_boxes_plain(aabb):
     return torch.cat([box[..., :2].amin(2), box[..., 2:].amax(2)], dim=-1).contiguous()
 
 
+@spanned("nvdr.raster.setup")
 def setup_records(pos, tri, resolution, viewport=None):
     """Record setup: (rec [S, T, 16], aabb [S, T, 4] float32, counts
     [S * T] int32, boxes [S, ceil(T / CHUNK), 4] float32), arguments as
@@ -422,6 +424,7 @@ def _segments(keys, n_seg):
     return tile_start, (keys & ((1 << _KEY_BITS) - 1)).to(torch.int32)
 
 
+@spanned("nvdr.raster.bin")
 def bin_records(aabb, resolution, counts):
     """Per-tile record lists of AABBs [S, T, 4]: (tile_start [S*tiles + 1],
     tile_list [E]) int32. Segment set*tiles + ty*ntx + tx of 16x16 tiles
@@ -453,7 +456,8 @@ def bin_records(aabb, resolution, counts):
     aabb = aabb.contiguous()
     dev = aabb.device
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(ends[-1]) if n else 0  # the one host sync
+    with span("nvdr.sync.bin_total"):
+        total = int(ends[-1]) if n else 0  # the one host sync
     _check_entries(total)
     n_seg = S * ntx * nty
     seg_type = torch.int16 if n_seg <= 2 ** 15 else torch.int32
@@ -545,12 +549,13 @@ def rasterize_records(setup, resolution, emit_db=False, *, ranges=None, peel=Non
     bins = None
     if binned_by_default(B, rec.shape[1], resolution):
         bins = bin_records(aabb, resolution, counts)
-    if rec.device.type == "cpu":
-        return rasterize_records_plain(rec, aabb, resolution, emit_db, ranges=ranges,
-                                       peel=peel, viewport=viewport, emit_zbuf=emit_zbuf,
-                                       bins=bins)
-    return launch_records(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel,
-                          viewport=viewport, emit_zbuf=emit_zbuf, bins=bins, boxes=boxes)
+    with span("nvdr.raster.sweep"):
+        if rec.device.type == "cpu":
+            return rasterize_records_plain(rec, aabb, resolution, emit_db, ranges=ranges,
+                                           peel=peel, viewport=viewport, emit_zbuf=emit_zbuf,
+                                           bins=bins)
+        return launch_records(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel,
+                              viewport=viewport, emit_zbuf=emit_zbuf, bins=bins, boxes=boxes)
 
 
 def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=None,

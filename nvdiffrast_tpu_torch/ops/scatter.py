@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from . import segments
 
 KERNEL = _build.Kernel(
@@ -52,6 +53,7 @@ def _check(ids, vals_t, num_rows):
         raise ValueError(f"scatter_add_by_id: num_rows {num_rows} < 0")
 
 
+@spanned("nvdr.scatter")
 def scatter_add_by_id(ids, vals_t, num_rows):
     """out[r, k] = sum over i with ids[i] == r of vals_t[k, i].
 

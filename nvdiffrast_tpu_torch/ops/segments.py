@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import span
 
 # nvdr_segment_starts (csrc/raster_bin.cu): also the rasterizer's binning.
 SEGMENT_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -52,7 +53,8 @@ def tile_partials(launch, n_tiles, width, cap, device, what):
     if n_tiles:
         launch(None, counts, key_s, part_s, None, None)
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(ends[-1]) if n_tiles else 0  # the one host sync
+    with span(f"nvdr.sync.partials.{what}"):
+        total = int(ends[-1]) if n_tiles else 0  # the one host sync
     if total >= 2 ** 31:
         raise ValueError(f"{what}: {total} partial sums; at most 2**31 - 1")
     key = torch.empty((total,), **i32)

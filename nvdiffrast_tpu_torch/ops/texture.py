@@ -24,6 +24,8 @@ code on both routes, so a kernel and its plain twin read the same bits.
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, spanned
+
 # Maximum number of mip levels (the reference's texture.h).
 MAX_MIP_LEVEL = 16
 
@@ -179,6 +181,7 @@ def _mip_level_from_footprint_cols(da0, da1, da2, da3, tex_w, tex_h):
     return torch.where(torch.isnan(flevel), 0.0, flevel)
 
 
+@spanned("nvdr.tex.level")
 def mip_level(da, tex_h, tex_w, L):
     """flevel [N] from da [4, N], clipped to [0, L-1] (pipeline_tex.py)."""
     fl = _mip_level_from_footprint_cols(da[0], da[1], da[2], da[3],
@@ -196,6 +199,7 @@ def _tie(x, out, other):
     return torch.where(x == out, 1.0, 0.0) / torch.where(other == out, 2.0, 1.0)
 
 
+@spanned("nvdr.tex.level_vjp")
 def level_vjp(da, gfl, tex_h, tex_w, L, bias=None):
     """Vjp of the mip level clip(footprint(da) + bias, 0, L-1): (g_da
     [4, N] or None when da is None, g_bias [N]) from gfl [N]; either of
@@ -259,6 +263,7 @@ def level_vjp(da, gfl, tex_h, tex_w, L, bias=None):
     return torch.stack([g_dsdx * tw, g_dsdy * tw, g_dtdx * th, g_dtdy * th]), g_bias
 
 
+@spanned("nvdr.tex.pyramid_vjp")
 def pyramid_vjp(g_flat, meta, D, C):
     """Gradient of the base texture [D, h0, w0, C] from the gradient of
     the packed pyramid g_flat [n_texels, C] (the adjoint of
@@ -327,12 +332,13 @@ def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
     N = B * H * W
     D, C = tex.shape[0], tex.shape[-1]
     uvf = uv.reshape(N, uv.shape[-1])
-    if use_mip and not mips:
-        mips = build_mip_stack(tex, max_mip_level, cube)
-    levels = [tex] + list(mips if use_mip else ())
-    meta, _ = _static_meta(levels)
-    L = len(levels)
-    flat = _pack_pyramid(levels)
+    with span("nvdr.tex.pyramid"):
+        if use_mip and not mips:
+            mips = build_mip_stack(tex, max_mip_level, cube)
+        levels = [tex] + list(mips if use_mip else ())
+        meta, _ = _static_meta(levels)
+        L = len(levels)
+        flat = _pack_pyramid(levels)
     tz = (torch.arange(N, device=uv.device) // (H * W) if D > 1
           else torch.zeros(N, dtype=torch.int64, device=uv.device))
 
@@ -477,6 +483,7 @@ class _TextureFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("nvdr.texture.bwd")
     def backward(ctx, dy):
         it = iter(ctx.saved_tensors)
         saved = [next(it) if p else None for p in ctx.present]
@@ -495,6 +502,7 @@ def _on_device(x, dev, what):
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
+@spanned("nvdr.texture")
 def texture(tex, uv, uv_da=None, mip_level_bias=None, mip=None, filter_mode="auto",
             boundary_mode="wrap", max_mip_level=None):
     """Perform texture sampling (the JAX package's ``texture``).

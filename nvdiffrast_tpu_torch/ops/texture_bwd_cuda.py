@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 from . import segments
 from .pipeline_bwd_cuda import _device_of
 from .texture_cuda import (BOUNDARY, FILTER, _check, level_corners,
@@ -89,6 +90,7 @@ def _meta_arg(meta):
 # uv / level backward.
 # ---------------------------------------------------------------------------
 
+@spanned("nvdr.tex.bwd")
 def texture_bwd(flat, u, v, flevel, gc, meta, shape, per_image, boundary_mode,
                 filter_mode):
     """Gradients of the sampled colour to u, v and flevel.
@@ -245,6 +247,7 @@ def grad_tile_entries(u, v, flevel, gc, meta, n_texels, shape, per_image, bounda
                                   gc.device, "texture_grad")
 
 
+@spanned("nvdr.tex.grad")
 def texture_grad(u, v, flevel, gc, meta, n_texels, shape, per_image, boundary_mode,
                  filter_mode):
     """Gradient of the packed pyramid [n_texels, C] float32 from the

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import spanned
 
 MAX_C = 8          # channels served by the kernel (texture_pallas._MAX_CHANNELS)
 MAX_LEVELS = 17    # texture.MAX_MIP_LEVEL + the base level
@@ -53,6 +54,7 @@ def _check(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
     return C, N, L
 
 
+@spanned("nvdr.tex.sample")
 def sample(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
            filter_mode):
     """Filtered texture samples [C, N].

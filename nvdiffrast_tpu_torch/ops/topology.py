@@ -11,9 +11,12 @@ silhouette candidate.
 
 import torch
 
+from ..utils.trace import spanned
+
 _INT32_MAX = 2147483647
 
 
+@spanned("nvdr.topology")
 def build_opposite_table(tri, num_vertices=None):
     """Compute op[T, 3] opposing-vertex indices (-1 = none).
 

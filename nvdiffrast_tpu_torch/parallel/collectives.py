@@ -29,6 +29,8 @@ import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span, spanned
+
 
 class Axis:
     """One named axis of a ``DeviceMesh`` as this rank sees it: its
@@ -60,6 +62,17 @@ def _staged(group, device):
                      "(nccl or gloo)")
 
 
+def _to_host(x):
+    with span("nvdr.sync.gloo_to_host"):
+        return x.cpu()
+
+
+def _to_device(x, device):
+    with span("nvdr.sync.gloo_to_device"):  # from pageable host memory
+        return x.to(device)
+
+
+@spanned("nvdr.collective.shift")
 def shift(x, axis, step, tag):
     """The tensor of the rank `step` places further along `axis`
     (cyclically): this rank sends `x` to ranks[(index - step) % size] and
@@ -67,13 +80,13 @@ def shift(x, axis, step, tag):
     k, n = axis.index, axis.size
     x = x.contiguous()
     staged = _staged(axis.group, x.device)
-    send = x.cpu() if staged else x
+    send = _to_host(x) if staged else x
     recv = torch.empty_like(send)
     ops = [dist.P2POp(dist.isend, send, axis.ranks[(k - step) % n], axis.group, tag),
            dist.P2POp(dist.irecv, recv, axis.ranks[(k + step) % n], axis.group, tag)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return recv.to(x.device) if staged else recv
+    return _to_device(recv, x.device) if staged else recv
 
 
 BACKWARD_TAG = 64  # added to an exchange's tag for its transpose
@@ -95,15 +108,16 @@ class Shift(torch.autograd.Function):
         return shift(g, axis, -step, tag + BACKWARD_TAG), None, None, None
 
 
+@spanned("nvdr.collective.all_reduce")
 def all_reduce_sum(tensors, group):
     """The sums over `group` of float tensors of one dtype and device, in
     one collective; returns new tensors shaped as the inputs."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     staged = _staged(group, flat.device)
-    buf = flat.cpu() if staged else flat
+    buf = _to_host(flat) if staged else flat
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     if staged:
-        buf = buf.to(flat.device)
+        buf = _to_device(buf, flat.device)
     out, at = [], 0
     for t in tensors:
         out.append(buf[at:at + t.numel()].view(t.shape))

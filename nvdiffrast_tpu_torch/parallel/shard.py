@@ -13,6 +13,7 @@ Eager PyTorch has no sharding constraints; this step and the row bands
 of ``spatial`` cover what they did.
 """
 
+from ..utils.trace import span
 from .collectives import Axis, all_reduce_sum
 
 
@@ -38,11 +39,12 @@ def shard_map_train_step(loss_fn, optimizer, mesh, dp_axis="dp"):
         optimizer.zero_grad()
         loss = loss_fn(batch)
         loss.backward()
-        grads = [p.grad if p.grad is not None else p.detach().new_zeros(p.shape)
-                 for p in params]
-        sums = all_reduce_sum([loss.detach().reshape(1)] + grads, axis.group)
-        for p, g in zip(params, sums[1:]):
-            p.grad = g / axis.size
+        with span("nvdr.dp.average"):
+            grads = [p.grad if p.grad is not None else p.detach().new_zeros(p.shape)
+                     for p in params]
+            sums = all_reduce_sum([loss.detach().reshape(1)] + grads, axis.group)
+            for p, g in zip(params, sums[1:]):
+                p.grad = g / axis.size
         optimizer.step()
         return sums[0][0] / axis.size
 

@@ -16,10 +16,7 @@ forward, mean(img**2) and the backward to pos and the colours. With
 the bench sphere's reflection vectors with their screen derivatives, a
 seamless trilinear lookup in procedural_cubemap(512) (10 levels) plus a
 Phong highlight, mean squared error against the reference map's image,
-and the backward to the map and the Phong parameters; its stages include
-the cube texture gradient's (the tiles pass's two runs around the scan
-and the sync, the partials' sort, segment starts, sums) and, beside
-them, the earlier design's (the taps' glue and B10).
+and the backward to the map and the Phong parameters.
 With --reductions it times no step but the gradient reductions B4
 (``grad_scatter``) and B10 (``scatter_add_by_id``) in all, glue included,
 on calls no step above makes: B4 on the bench scene with seeded da4
@@ -52,11 +49,14 @@ Prints:
      then the gradient with a first-pass scratch of 0 (count, then
      write), 64, 256 (the wrappers' CUBE_CAP), 512 and 1,024 partials a
      tile: device time, CUDA-event time, peak memory, tiles run twice;
-  1. ms/step from a host-clock window (16 vs 48 steps, synchronised);
-  2. each stage of the step run alone and synchronised, mean of 20;
-  3. torch.profiler over --steps steps: device kernels and device time
-     per step, the device's busy share of the profiled window, and the
-     kernels with the most device time;
+  1. ms/step: the wall time of a window of --steps steps under
+     torch.profiler, synchronised at its end, over the steps;
+  2. the port's spans (``nvdr.*``, ``utils/trace.py``) in that window:
+     each span's count a step, its host ms a step, and its host ms
+     outside the spans nested in it (its own glue and launches);
+  3. the same window's device kernels and device time per step, the
+     device's busy share of the window, and the kernels with the most
+     device time;
   4. peak device memory of one step.
 Every line carries the card's nvidia-smi name and power limit.
 """
@@ -68,24 +68,17 @@ import time
 import numpy as np
 import torch
 
-from . import _build
 from .models import primitives
 from .ops import antialias as aa
-from .ops import antialias_cuda as ac
-from .ops import gather
-from .ops import interpolate_cuda as ic
 from .ops import pipeline as pl
 from .ops import pipeline_bwd_cuda as pb
-from .ops import pipeline_cuda as pc
 from .ops import pipeline_tex as ptx
 from .ops import pipeline_tex_bwd_cuda as ptb
 from .ops import rasterize as ra
-from .ops import rasterize_cuda as rc
 from .ops import scatter
 from .ops import texture as tx
 from .ops import texture_bwd_cuda as tb
 from .ops import texture_cuda as tc
-from .ops.antialias import _build_tables
 from .ops.interpolate import interpolate
 from .ops.topology import build_opposite_table
 from .utils import camera
@@ -195,28 +188,8 @@ def with_da4(sargs, seed):
     return (sargs[0], gs * live) + sargs[2:], da4 * live
 
 
-def _window_ms(step):
-    """chip_smoke.window_ms: (48 - 16 steps) window difference, per step."""
-    for _ in range(4):
-        step()
-    torch.cuda.synchronize()
-
-    def window(n):
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    t1 = window(16)
-    return (window(48) - t1) / 32 * 1e3
-
-
 def _training(pos, tri, cidx, col, res):
-    """(step, stages) of a render_pipeline training step."""
-    from .ops import segments
-
-    dev = pos.device
+    """A render_pipeline training step."""
 
     def step():
         p = pos.detach().requires_grad_()
@@ -224,47 +197,11 @@ def _training(pos, tri, cidx, col, res):
         img = pl.render_pipeline(p, tri, c, res, attr_idx=cidx)
         return torch.autograd.grad((img ** 2).mean(), (p, c))
 
-    H, W = res
-    T = tri.shape[0]
-    N = H * W
-    op = build_opposite_table(tri)
-    setup = rc.setup_records(pos, tri, res)
-    u, v, zw, idf = (x.reshape(N) for x in rc.rasterize_records(setup, res))
-    atbl = pl._attr_table(col, cidx, 1, T)
-    ftable, vtbl, _, _ = _build_tables(pos, tri, op, H, W)
-    cols = pc.shade_cols(atbl, ftable, u, v, zw, idf, res, T)
-    _, c0, resid = pc.finish_shade(cols, W)
-    dy = torch.full((3, N), 1e-7, device=dev)
-    gs, dd2, rid2 = pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, resid, res, T)
-    rid0 = pl.own_rows(idf, T, res)
-    sargs = (rid0, gs, dd2, rid2, u, v, resid[1], resid[3], vtbl, res)
-    srow, spart, _ = pb.scatter_partials(*sargs)
-    gt, gaa = pb.grad_scatter(*sargs)
-    rows = torch.cat([gt[:, 9:].reshape(1, 3 * T, 3), gaa.reshape(1, 3 * T, 3)], 2)
-    return step, [
-        ("fwd: topology table", lambda: build_opposite_table(tri)),
-        ("fwd: raster setup kernel", lambda: rc.setup_records(pos, tri, res)),
-        ("fwd: rasterize kernel", lambda: rc.rasterize_records(setup, res)),
-        ("fwd: attr + AA tables", lambda: (pl._attr_table(col, cidx, 1, T),
-                                           _build_tables(pos, tri, op, H, W))),
-        ("fwd: shade_fwd kernel", lambda: pc.shade_cols(atbl, ftable, u, v, zw, idf, res, T)),
-        ("fwd: neighbour adds", lambda: pc.finish_shade(cols, W)),
-        ("bwd: pipeline_bwd kernel",
-         lambda: pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, resid, res, T)),
-        ("bwd: own rows", lambda: pl.own_rows(idf, T, res)),
-        ("bwd: grad_scatter per-tile partials (2 passes, 1 sync)",
-         lambda: pb.scatter_partials(*sargs)),
-        ("bwd: grad_scatter row sums (sort, segments, sums)",
-         lambda: segments.row_sums(srow, spart, T, pb.SCATTER_SEGMENT_KERNEL,
-                                   pb.SCATTER_SUM_KERNEL)),
-        ("bwd: grad_scatter in all", lambda: pb.grad_scatter(*sargs)),
-        ("bwd: vertex sums", lambda: pl._vertex_sum(rows, pl._corner_table(tri, pos.shape[1]))),
-    ]
+    return step
 
 
 def _ops(pos, tri, cidx, col, res):
-    """(step, stages) of a training step of the composed standalone ops."""
-    dev = pos.device
+    """A training step of the composed standalone ops."""
 
     def step():
         p = pos.detach().requires_grad_()
@@ -274,67 +211,12 @@ def _ops(pos, tri, cidx, col, res):
         img = aa.antialias(color, rast, p, tri)
         return torch.autograd.grad((img ** 2).mean(), (p, c))
 
-    H, W = res
-    T = tri.shape[0]
-    N = H * W
-    op = build_opposite_table(tri)
-    setup = rc.setup_records(pos, tri, res)
-    outs = rc.rasterize_records(setup, res, emit_db=True)
-    u, v, zw, idf = (x.reshape(N) for x in outs[:4])
-    atbl = pl._attr_table(col, cidx, 1, T)
-    ct, _ = ic.interp_forward(atbl, u, v, idf, None, ())
-    ftable, vtbl, _, _ = _build_tables(pos, tri, op, H, W)
-    cols = ac.aa_cols(ct, idf, zw, ftable, (1, H, W), T)
-    _, _, res4 = pc.finish_shade(cols, W)
-    dy = torch.full((3, N), 1e-7, device=dev)
-    gcol, rid2, gval2 = ac.aa_backward(dy, ct, idf, vtbl, res4, (1, H, W), T)
-    rid2 = rid2.reshape(-1)
-    grast, gval, _ = ic.interp_backward(atbl, u, v, idf, None, gcol, None, (), T, 0)
-    rid_a = ra.pixel_rows(idf, T, 0, T)
-    g9, rid9 = ra.raster_grad_rows(vtbl, idf, grast[0], grast[1], None, res, T)
-    gt9 = scatter.scatter_add_by_id(rid9, g9, T)
-    gt_aa = scatter.scatter_add_by_id(rid2, gval2, T)
-    gt_a = scatter.scatter_add_by_id(rid_a, gval, T)
-
-    return step, [
-        ("fwd: topology table", lambda: build_opposite_table(tri)),
-        ("fwd: raster setup kernel", lambda: rc.setup_records(pos, tri, res)),
-        ("fwd: rasterize kernel (db)", lambda: rc.rasterize_records(setup, res, emit_db=True)),
-        ("fwd: rast, rast_db images", lambda: (torch.stack(outs[:4], -1),
-                                               torch.stack(outs[4:], -1))),
-        ("fwd: attr table", lambda: pl._attr_table(col, cidx, 1, T)),
-        ("fwd: interp_fwd kernel", lambda: ic.interp_forward(atbl, u, v, idf, None, ())),
-        ("fwd: AA table", lambda: _build_tables(pos, tri, op, H, W)),
-        ("fwd: aa_fwd kernel", lambda: ac.aa_cols(ct, idf, zw, ftable, (1, H, W), T)),
-        ("fwd: neighbour adds", lambda: pc.finish_shade(cols, W)),
-        ("bwd: aa_bwd kernel", lambda: ac.aa_backward(dy, ct, idf, vtbl, res4, (1, H, W), T)),
-        ("bwd: AA pairs' scatter_rows (2 chunk passes, 1 sync, row sums)",
-         lambda: scatter.scatter_add_by_id(rid2, gval2, T)),
-        ("bwd: interp_bwd kernel",
-         lambda: ic.interp_backward(atbl, u, v, idf, None, gcol, None, (), T, 0)),
-        ("bwd: attribute scatter_rows", lambda: scatter.scatter_add_by_id(rid_a, gval, T)),
-        ("bwd: table_take kernel", lambda: gather.table_take(vtbl, rid9)),
-        ("bwd: raster rows (glue, table_take included)",
-         lambda: ra.raster_grad_rows(vtbl, idf, grast[0], grast[1], None, res, T)),
-        ("bwd: raster scatter_rows per-chunk partials (2 passes, 1 sync)",
-         lambda: scatter.chunk_partials(rid9, g9, T)),
-        ("bwd: raster scatter_rows in all", lambda: scatter.scatter_add_by_id(rid9, g9, T)),
-        ("bwd: vertex sums", lambda: (ra.xyw_rows_to_vertices(gt9, tri, tuple(pos.shape)),
-                                      ra.xyw_rows_to_vertices(gt_aa, tri, tuple(pos.shape)),
-                                      pl.vertex_attr_grad(gt_a, cidx, tuple(col.shape), 1))),
-    ]
+    return step
 
 
 def _textured(pos, tri, cidx, vtxp, res):
-    """(step, stages) of a render_pipeline_textured training step."""
-    dev = pos.device
-    uv = torch.as_tensor(np.stack(
-        [np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
-         np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1),
-        dtype=torch.float32, device=dev)
-    tex = torch.as_tensor(np.random.RandomState(0).rand(1, 512, 512, 3),
-                          dtype=torch.float32, device=dev)
-    mode = ("linear-mipmap-linear", "wrap")
+    """A render_pipeline_textured training step."""
+    uv, tex, mode = _textured_inputs(pos, vtxp)
 
     def step():
         xs = [x.detach().requires_grad_() for x in (pos, uv, tex)]
@@ -342,74 +224,20 @@ def _textured(pos, tri, cidx, vtxp, res):
                                            filter_mode=mode[0], boundary_mode=mode[1])
         return torch.autograd.grad((img ** 2).mean(), xs)
 
-    H, W = res
-    T = tri.shape[0]
-    N = H * W
-    op = build_opposite_table(tri)
-    setup = rc.setup_records(pos, tri, res)
-    u, v, zw, idf, *db = (x.reshape(N) for x in
-                          rc.rasterize_records(setup, res, emit_db=True))
-    levels = [tex] + tx.build_mip_stack(tex)
-    meta, _ = tx._static_meta(levels)
-    flat = tx._pack_pyramid(levels)
-    utbl = pl._attr_table(uv, cidx, 1, T)
-    uvc, da = ic.interp_forward(utbl, u, v, idf, tuple(db), (0, 1))
-    fl = tx.mip_level(da, 512, 512, len(levels))
-    color = tc.sample(flat, uvc[0], uvc[1], fl, meta, (1, H, W), False, *mode[::-1])
-    ftable, _, _, _ = _build_tables(pos, tri, op, H, W)
-    cols = ac.aa_cols(color, idf, zw, ftable, (1, H, W), T)
+    return step
 
-    def pyramid():
-        lv = [tex] + tx.build_mip_stack(tex)
-        return tx._static_meta(lv), tx._pack_pyramid(lv)
 
-    # The backward's inputs, from the saved forward state.
-    _, saved, _ = ptx._ptex_fwd_core(pos, uv, tex, tri, cidx, op, res, *mode, -1)
-    res4, vtbl = saved[12:16], saved[16]
-    shape = (1, H, W)
-    dy = torch.full((3, N), 1e-7, device=dev)
-    gc, dd2, rid2 = ptb.aa_bwd_slim(dy, color, idf, res4, shape, T)
-    bwd_args = (flat, uvc[0], uvc[1], fl, gc, meta, shape, False, *mode[::-1])
-    gu, gv, gfl = tb.texture_bwd(*bwd_args)
-    grad_args = (uvc[0], uvc[1], fl, gc, meta, flat.shape[0], shape, False, *mode[::-1])
-    g_flat = tb.texture_grad(*grad_args)
-    gda4 = tx.level_vjp(da, gfl, 512, 512, len(levels))[0]
-    atbl = pl._attr_table(uv, cidx, 1, T)
-    db4 = torch.stack(db)
-    out15 = ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)
-    rid0 = pl.own_rows(idf, T, res)
-    sargs = (rid0, out15[:11], dd2, rid2, u, v, res4[1], res4[3], vtbl, res)
-    gt, gaa = pb.grad_scatter(*sargs, da4=out15[11:])
-
-    return step, [
-        ("topology table", lambda: build_opposite_table(tri)),
-        ("raster setup kernel", lambda: rc.setup_records(pos, tri, res)),
-        ("rasterize kernel (db)", lambda: rc.rasterize_records(setup, res, emit_db=True)),
-        ("mip pyramid + packing", pyramid),
-        ("uv table", lambda: pl._attr_table(uv, cidx, 1, T)),
-        ("interp_fwd kernel", lambda: ic.interp_forward(utbl, u, v, idf, tuple(db), (0, 1))),
-        ("mip level", lambda: tx.mip_level(da, 512, 512, len(levels))),
-        ("texture_fwd kernel",
-         lambda: tc.sample(flat, uvc[0], uvc[1], fl, meta, (1, H, W), False, *mode[::-1])),
-        ("AA table", lambda: _build_tables(pos, tri, op, H, W)),
-        ("aa_fwd kernel", lambda: ac.aa_cols(color, idf, zw, ftable, (1, H, W), T)),
-        ("neighbour adds + NHWC", lambda: pc.finish_shade(cols, W)[0].T.reshape(1, H, W, 3)),
-        ("bwd: slim AA (glue)", lambda: ptb.aa_bwd_slim(dy, color, idf, res4, shape, T)),
-        ("bwd: texture_bwd kernel", lambda: tb.texture_bwd(*bwd_args)),
-        ("bwd: texture_grad per-tile entries (2 passes, 1 sync)",
-         lambda: tb.grad_tile_entries(*grad_args)),
-        ("bwd: texture_grad in all", lambda: tb.texture_grad(*grad_args)),
-        ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 1, 3)),
-        ("bwd: mip-level vjp", lambda: tx.level_vjp(da, gfl, 512, 512, len(levels))[0]),
-        ("bwd: interp_raster_bwd_tex kernel",
-         lambda: ptb.interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, res, T)),
-        ("bwd: grad_scatter per-tile partials (da4; 2 passes, 1 sync)",
-         lambda: pb.scatter_partials(*sargs, da4=out15[11:])),
-        ("bwd: grad_scatter in all (da4)", lambda: pb.grad_scatter(*sargs, da4=out15[11:])),
-        ("bwd: vertex sums", lambda: (
-            pl.vertex_pos_grad(gt[:, 6:], gaa, tri, tuple(pos.shape), 1.0),
-            pl.vertex_attr_grad(gt[:, :6], cidx, tuple(uv.shape), 1))),
-    ]
+def _textured_inputs(pos, vtxp):
+    """(uv, tex, (filter, boundary)) of bench.py's textured line: spherical
+    uvs of the bench sphere, a 512x512x3 texture from rand seed 0."""
+    dev = pos.device
+    uv = torch.as_tensor(np.stack(
+        [np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
+         np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1),
+        dtype=torch.float32, device=dev)
+    tex = torch.as_tensor(np.random.RandomState(0).rand(1, 512, 512, 3),
+                          dtype=torch.float32, device=dev)
+    return uv, tex, ("linear-mipmap-linear", "wrap")
 
 
 def _reflections(pos, tri, vtxp, res):
@@ -448,10 +276,9 @@ def _cube_taps(env, d, dd):
 
 
 def _cube(pos, tri, vtxp, res):
-    """(step, stages) of an envphong-shaped step with a 512^2 cube map."""
+    """An envphong-shaped step with a 512^2 cube map; prints section 0."""
     from .models.fit_envphong import shade
     from .ops import segments
-    from .ops import texture_cube as tcg
     from .ops import texture_cube_cuda as tcc
 
     dev = pos.device
@@ -473,27 +300,17 @@ def _cube(pos, tri, vtxp, res):
 
     d, dd, _ = directions()
     N = d.shape[1] * d.shape[2]
-    ids, vals, flat, cols, meta = _cube_taps(env, d, dd)
-    g_flat = scatter.scatter_add_by_id(ids, vals, flat.shape[0])
-    uvf = d.reshape(N, 3)
+    flat, cols, meta = _cube_taps(env, d, dd)[2:]
     n_tex, shape, mode = flat.shape[0], (1,) + tuple(res), "linear-mipmap-linear"
     dy = torch.full((3, N), 1e-7, device=dev)  # _cube_taps' cotangent
-    # The texture gradient's stages, as segments.tile_partials and
-    # segments.row_sums run them.
+    # The tiles pass's first run and its partials' total, as
+    # segments.tile_partials runs them.
     launch, n_tiles, C, cap = tcc.cube_tiles(None, cols, dy, meta, mode, shape)
     counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     key_s = torch.empty((n_tiles * cap,), dtype=torch.int32, device=dev)
     part_s = torch.empty((n_tiles * cap, C), dtype=torch.float64, device=dev)
     launch(None, counts, key_s, part_s, None, None)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    E = int(ends[-1])
-    key = torch.empty((E,), dtype=torch.int32, device=dev)
-    part = torch.empty((E, C), dtype=torch.float64, device=dev)
-    launch(ends - counts, counts, key_s, part_s, key, part)
-    skey, perm = torch.sort(key, stable=True)
-    starts = torch.empty((n_tex + 1,), dtype=torch.int32, device=dev)
-    pp = torch.empty((max(E, 1), C), dtype=torch.float64, device=dev)
-    out = torch.empty((n_tex, C), dtype=torch.float32, device=dev)
+    E = int(torch.cumsum(counts, 0, dtype=torch.int64)[-1])
 
     def earlier():  # the earlier cube_texture_grad: the taps' glue, then B10
         tid, w = tcc.cube_grad_entries(cols, meta, mode)
@@ -524,50 +341,14 @@ def _cube(pos, tri, vtxp, res):
         print(f"[0] cube texture gradient, scratch of {c} a tile: device time a call "
               f"{_device_ms(at_cap, 5)[0]:.4f} ms, CUDA events {_event_ms(at_cap, 10):.4f} ms, "
               f"peak {mib:.1f} MiB, {int((counts > c).sum())} tiles run twice", flush=True)
-    return step, [
-        ("fwd: rasterize + interpolate (directions)", directions),
-        ("fwd: mip pyramid", lambda: tx.build_mip_stack(env[None], -1, True)),
-        ("fwd: cube glue (face, s, t, footprint, level)",
-         lambda: (tcg.cube_project(tcg.cube_faceid(*uvf.unbind(1)), *uvf.unbind(1)),
-                  tcg.cube_st_da(*uvf.unbind(1), dd.reshape(N, 6).T))),
-        ("fwd: cube_fwd kernel", lambda: tcc.sample_cube(flat, cols, meta, mode, shape)),
-        ("bwd: cube_bwd, (gs, gt, gfl) alone", lambda: tcc.cube_bwd(flat, cols, dy, meta,
-                                                                    mode, shape)),
-        ("bwd: cube tiles pass 1 (texture gradient partials)",
-         lambda: launch(None, counts, key_s, part_s, None, None)),
-        ("bwd: scan + sync", lambda: int(torch.cumsum(counts, 0, dtype=torch.int64)[-1])),
-        ("bwd: tiles pass 2 (compact, tiles over the cap)",
-         lambda: launch(ends - counts, counts, key_s, part_s, key, part)),
-        ("bwd: stable sort of the partials", lambda: torch.sort(key, stable=True)),
-        ("bwd: segment starts", lambda: tcc.GRAD_SEGMENT_KERNEL.launch(
-            dev, _build.ptr(skey), E, 0, n_tex, 4, None, None, _build.ptr(starts), None)),
-        ("bwd: sums", lambda: tcc.GRAD_SUM_KERNEL.launch(
-            dev, _build.ptr(skey), _build.ptr(perm), E, _build.ptr(starts), _build.ptr(part),
-            _build.ptr(pp), _build.ptr(out), n_tex, C)),
-        ("bwd: cube texture gradient in all", lambda: tcc.cube_texture_grad(
-            cols, dy, meta, n_tex, mode, shape)),
-        ("bwd: (gs, gt, gfl) and the gradient in one pass (cube_grads)",
-         lambda: tcc.cube_grads(flat, cols, dy, meta, n_tex, mode, shape)),
-        ("bwd, earlier design: cube taps (glue)", lambda: tcc.cube_grad_entries(cols, meta,
-                                                                                mode)),
-        ("bwd, earlier design: scatter_rows in all", lambda: scatter.scatter_add_by_id(
-            ids, vals, n_tex)),
-        ("bwd: pyramid vjp", lambda: tx.pyramid_vjp(g_flat, meta, 6, 3)),
-    ]
+    return step
 
 
 def _texture_inputs(pos, tri, cidx, vtxp, res):
     """The 2-D sampler's calls on the bench textured scene: (texture_bwd
     args, linear + clamp args on the base level, grid_sample's (input,
     grid, colour cotangent))."""
-    dev = pos.device
-    uv = torch.as_tensor(np.stack(
-        [np.arctan2(vtxp[:, 0], vtxp[:, 2]) / (2 * np.pi) + 0.5,
-         np.arccos(np.clip(vtxp[:, 1], -1, 1)) / np.pi], axis=1),
-        dtype=torch.float32, device=dev)
-    tex = torch.as_tensor(np.random.RandomState(0).rand(1, 512, 512, 3),
-                          dtype=torch.float32, device=dev)
-    mode = ("linear-mipmap-linear", "wrap")
+    uv, tex, mode = _textured_inputs(pos, vtxp)
     H, W = res
     N, T, C = H * W, tri.shape[0], 3
     shape = (1, H, W)
@@ -703,34 +484,22 @@ def main(argv=None):
         return
     if args.textured:
         what = "textured fwd+bwd"
-        step, stages = _textured(pos, tri, cidx, vtxp, res)
+        step = _textured(pos, tri, cidx, vtxp, res)
     elif args.cube:
         what = "envphong-shaped cube-map fwd+bwd"
-        step, stages = _cube(pos, tri, vtxp, res)
+        step = _cube(pos, tri, vtxp, res)
     elif args.ops:
         what = "composed ops fwd+bwd"
-        step, stages = _ops(pos, tri, cidx, col, res)
+        step = _ops(pos, tri, cidx, col, res)
     else:
         what = "fwd+bwd"
-        step, stages = _training(pos, tri, cidx, col, res)
+        step = _training(pos, tri, cidx, col, res)
 
-    step_ms = _window_ms(step)
-    print(f"[1] {what} {args.res}^2: {step_ms:.3f} ms/step, "
-          f"{args.res ** 2 / 1e3 / step_ms:.2f} Mpix/s ({card})", flush=True)
-
-    # -- 2. stages, each alone and synchronised ------------------------------
-    total = 0.0
-    for name, fn in stages:
-        ms = _timed(fn, 20)
-        total += ms
-        print(f"[2] {name}: {ms:.3f} ms", flush=True)
-    print(f"[2] whole step: {_timed(step, 20):.3f} ms", flush=True)
-    print(f"[2] sum of the stages: {total:.3f} ms ({card})", flush=True)
-
-    # -- 3. torch.profiler ---------------------------------------------------
+    # -- the profiled window: sections 1, 2 and 3 -----------------------------
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    step()
+    for _ in range(4):
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -738,12 +507,24 @@ def main(argv=None):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    step_ms = wall * 1e3 / args.steps
+    print(f"[1] {what} {args.res}^2: {step_ms:.3f} ms/step, "
+          f"{args.res ** 2 / 1e3 / step_ms:.2f} Mpix/s (profiled window; {card})", flush=True)
+
+    spans = span_table([e for e in events if e.device_type != DeviceType.CUDA])
+    print(f"[2] the port's spans a step: count, host ms (inclusive), host ms outside nested "
+          f"spans ({card})", flush=True)
+    for name, (n, incl, own) in sorted(spans.items(), key=lambda kv: -kv[1][2]):
+        print(f"[2]   {n / args.steps:5.1f}x  {incl / 1e3 / args.steps:8.3f}  "
+              f"{own / 1e3 / args.steps:8.3f}  {name}", flush=True)
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in spans]
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
     print(f"[3] profiled {args.steps} steps: {len(kernels) / args.steps:.1f} device "
-          f"ops and {dev_us / 1e3 / args.steps:.3f} ms device time per step; window "
-          f"{wall * 1e3 / args.steps:.3f} ms/step, busy "
-          f"{dev_us / 1e6 / wall * 100:.1f} % ({card})", flush=True)
+          f"ops and {dev_us / 1e3 / args.steps:.3f} ms device time per step; busy "
+          f"{dev_us / 1e6 / wall * 100:.1f} % of the window ({card})", flush=True)
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -760,6 +541,26 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated() - base
     print(f"[4] peak device memory of one step above its inputs: {peak / 2 ** 20:.1f} MiB "
           f"({card})", flush=True)
+
+
+def span_table(host_events):
+    """{span: (count, inclusive us, us outside nested spans)} of the
+    port's spans (``nvdr.*``) among torch.profiler's host events."""
+    spans = sorted(((e.time_range.start, -e.time_range.end, e.name, e.thread)
+                    for e in host_events if e.name.startswith("nvdr.")))
+    out, open_ = {}, {}
+    for start, neg_end, name, thread in spans:
+        stack = open_.setdefault(thread, [])
+        while stack and -stack[-1][0] <= start:
+            stack.pop()
+        n, incl, own = out.get(name, (0, 0.0, 0.0))
+        out[name] = (n + 1, incl - neg_end - start, own - neg_end - start)
+        if stack:  # the parent's own time loses this span's
+            parent = stack[-1][1]
+            pn, pincl, pown = out[parent]
+            out[parent] = (pn, pincl, pown + neg_end + start)
+        stack.append((neg_end, name))
+    return out
 
 
 if __name__ == "__main__":

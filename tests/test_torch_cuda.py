@@ -23,7 +23,7 @@ from nvdiffrast_tpu_torch.ops.antialias import _build_tables
 from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
 from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
-from _torch_parity import random_scene, sphere_scene
+from _torch_parity import random_scene, sphere_scene, textured_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -1278,3 +1278,45 @@ def test_depth_peeler_and_range_mode_gpu_match_cpu(dev):
     assert torch.equal(gpu[0], cpu[0])
     scale = float(cpu[1].abs().max())
     assert scale > 0 and float((gpu[1] - cpu[1]).abs().max()) <= 1e-5 * scale
+
+
+def test_textured_step_spans_count_syncs_and_launches(dev):
+    """One textured fwd+bwd under torch.profiler: as many ``nvdr.sync.*``
+    spans as torch's sync debug mode counts host syncs, and as many
+    ``nvdr.kernel.*`` spans as the kernels' launch counts rise."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvdiffrast_tpu_torch import _build
+
+    pos, tri, uv, tex = (torch.as_tensor(x, device=dev) for x in textured_scene(seed=3, B=2))
+
+    def step():
+        xs = [x.clone().requires_grad_() for x in (pos, uv, tex)]
+        img = dr.render_pipeline_textured(xs[0], tri, xs[1], xs[2], (96, 128))
+        torch.autograd.grad((img ** 2).mean(), xs)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    before = sum(_build.launch_counts().values())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launched = sum(_build.launch_counts().values()) - before
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.name.startswith("nvdr.")]
+    assert syncs > 0 and launched > 0
+    assert sum(n.startswith("nvdr.sync.") for n in names) == syncs, names
+    assert sum(n.startswith("nvdr.kernel.") for n in names) == launched, names
+    assert {"nvdr.render_pipeline_textured", "nvdr.render_pipeline_textured.bwd"} <= set(names)
