@@ -46,8 +46,8 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      2048^2 on the bench textured scene (bench.py:90-119: a 512x512x3
      texture from rand seed 0, spherical uvs, linear-mipmap-linear,
      wrap): the setup kernel, the rasterizer's db variant, interpolate,
-     the texture sampler and antialias, each bit for bit, with their
-     times; the sampler in linear, clamp, base level (the function
+     the mip level, the texture sampler and antialias, each bit for bit,
+     with their times; the sampler in linear, clamp, base level (the function
      F.grid_sample computes) against F.grid_sample;
   8. the textured slice: render_pipeline_textured on 8 perturbed views
      and one B = 2 render, finite, plausibly covered, bitwise repeatable,
@@ -55,8 +55,8 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      counts), a 256^2 render held against the CPU path; its ms/frame and
      Mpix/s;
   9. the textured backward's kernels against their twins at 2048^2 on
-     the bench textured scene, with dy from mean(img**2): texture_bwd and
-     interp_raster_bwd_tex bit for bit (texture_bwd also in every filter
+     the bench textured scene, with dy from mean(img**2): texture_bwd,
+     the mip level's vjp and interp_raster_bwd_tex bit for bit (texture_bwd also in every filter
      x boundary instantiation at C = 1, 3, 4, one texture or one per
      image, at 256^2 and at an odd 131x67, B = 2, with NaN and far
      uvs; its times, and its yardstick's, also by device time after
@@ -1943,7 +1943,13 @@ def main():
     meta, n_texels = tx._static_meta(levels)
     L = len(levels)
     flat = tx._pack_pyramid(levels)
-    flevel = tx.mip_level(da, TEX_SIZE, TEX_SIZE, L)
+    largs7 = (da, TEX_SIZE, TEX_SIZE, L)
+    flevel = tx.mip_level(*largs7)
+    level_err = equal_or_raise((flevel,), (tx.mip_level_plain(*largs7),), "mip_level")
+    level_ms = cuda_ms(torch, lambda: tx.mip_level(*largs7), 50)
+    level_plain_ms = cuda_ms(torch, lambda: tx.mip_level_plain(*largs7), 5)
+    log(f"[7] mip_level {RES}^2: equal to its twin bit for bit; kernel {level_ms:.4f} ms, "
+        f"twin {level_plain_ms:.3f} ms ({card})")
     sargs = (flat, uv[0], uv[1], flevel, meta, (1, RES, RES), False, BOUNDARY, FILTER)
     color = tc.sample(*sargs)
     tex_err = equal_or_raise((color,), (tc.sample_plain(*sargs),), "texture_fwd")
@@ -1993,7 +1999,8 @@ def main():
         n_active += int(pair_ids(idf, q.reshape(N), zw, zw, T)[2].sum())
 
     # -- 8. the textured slice: render_pipeline_textured forward -------------
-    tkernels = (rc.SETUP_KERNEL, rc.DB_KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL)
+    tkernels = (rc.SETUP_KERNEL, rc.DB_KERNEL, ic.KERNEL, tc.LEVEL_KERNEL, tc.KERNEL,
+                ac.KERNEL)
 
     def render_tex(view, size=res, tex=ttex):
         with torch.no_grad():
@@ -2126,7 +2133,16 @@ def main():
         + f" ms; twin {texgrad_plain_ms:.3f} ms; linear+clamp: all {lin_grad_ms:.3f} ms, "
         f"grid_sample backward to the input {texgrad_lib_ms:.3f} ms ({card})")
 
-    gda9 = tx.level_vjp(da9, gfl9, TEX_SIZE, TEX_SIZE, len(tmeta))[0]
+    vargs9 = (da9, gfl9, TEX_SIZE, TEX_SIZE, len(tmeta))
+    gda9, gbias9 = tx.level_vjp(*vargs9)
+    if gbias9 is not None:
+        raise AssertionError("level_vjp without a bias returned a bias gradient")
+    vjp_err = equal_or_raise((gda9,), (tx.level_vjp_plain(*vargs9)[0],), "level_vjp")
+    vjp_ms = cuda_ms(torch, lambda: tx.level_vjp(*vargs9), 50)
+    vjp_plain_ms = cuda_ms(torch, lambda: tx.level_vjp_plain(*vargs9), 5)
+    log(f"[9] level_vjp {RES}^2: equal to its twin bit for bit; max|g_da| "
+        f"{float(gda9.abs().max()):.3g}; kernel {vjp_ms:.4f} ms, twin {vjp_plain_ms:.3f} ms "
+        f"({card})")
     iargs9 = (pl._attr_table(tuv, tu, 1, T), vtbl9, idf9, gu9, gv9, gda9, torch.stack(db9),
               res, T)
     out15 = ptb.interp_raster_bwd_tex(*iargs9)
@@ -2178,7 +2194,8 @@ def main():
 
     # -- 10. the textured training slice: fwd + bwd at 2048^2 -----------------
     tbwd_kernels = (txb.BWD_KERNEL, txb.GRAD_KERNEL, txb.GRAD_COMPACT_KERNEL,
-                    txb.GRAD_SEGMENT_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL) + b4_kernels
+                    txb.GRAD_SEGMENT_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL,
+                    tc.LEVEL_VJP_KERNEL) + b4_kernels
 
     def tgrads(view, size=res, uvs_=tuv, tex=ttex, boost=1.0):
         xs = [x.detach().clone().requires_grad_() for x in (view, uvs_, tex)]
@@ -2902,6 +2919,11 @@ def main():
                       220 * n_valid9)
     da4_bound, da4_all_bound = scatter_bounds(N, 11, n_own9, n_aa9, n_part9, R9, 24,
                                               gcounts9.numel(), 4)[:2]
+    # The mip level reads da's 4 rows and writes flevel (20 bytes a pixel),
+    # ~30 operations; its vjp reads da and gfl and writes 4 rows of g_da
+    # (36 bytes), ~90 operations with the footprint recomputed.
+    level_bound = bound(5 * N * f32, 30 * N)
+    vjp_bound = bound(9 * N * f32, 90 * N)
 
     # Standalone ops' backward: aa_bwd reads dy, colour (own and
     # neighbours'), id and 4 residuals, writes g_color, 2 rows and the dense
@@ -2965,6 +2987,11 @@ def main():
     texbwd_dev_ms, lin_bwd_dev_ms, texbwd_lib_dev_ms = (device_ms(fn, 50)[0] for fn in (
         lambda: txb.texture_bwd(*bargs9), lambda: txb.texture_bwd(*lbargs),
         lambda: library_bwd([False, True])))
+    level_dev_ms, vjp_dev_ms = (device_ms(fn, 50)[0] for fn in (
+        lambda: tx.mip_level(*largs7), lambda: tx.level_vjp(*vargs9)))
+    log(f"[7] mip_level {RES}^2, device time a call: kernel {level_dev_ms:.4f} ms; "
+        f"[9] level_vjp {vjp_dev_ms:.4f} ms (CUDA events: {level_ms:.4f}, {vjp_ms:.4f} ms) "
+        f"({card})")
     log(f"[9] texture_bwd {RES}^2, device time a call: kernel {texbwd_dev_ms:.4f} ms, "
         f"linear+clamp {lin_bwd_dev_ms:.4f} ms, grid_sample backward to the grid "
         f"{texbwd_lib_dev_ms:.4f} ms (CUDA events in phase 9: {texbwd_ms:.4f}, "
@@ -3003,6 +3030,9 @@ def main():
         entry("interp_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/interpolate_fwd.cu",
               "nvdiffrast_tpu/ops/interpolate_pallas.py:84", tex_launches[ic.KERNEL.name],
               interp_err, interp_ms, interp_plain_ms, interp_bound, None),
+        entry("mip_level", "cuda", "nvdiffrast_tpu_torch/csrc/mip_level.cu",
+              "nvdiffrast_tpu/ops/texture.py:511", tex_launches[tc.LEVEL_KERNEL.name],
+              level_err, level_ms, level_plain_ms, level_bound, None, device_ms=level_dev_ms),
         entry("texture_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_fwd.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:894", tex_launches[tc.KERNEL.name],
               tex_err, tex_ms, tex_plain_ms, tex_bound, None),
@@ -3039,6 +3069,10 @@ def main():
         entry("texture_grad_linear_clamp", "cuda", "nvdiffrast_tpu_torch/csrc/texture_grad.cu",
               "nvdiffrast_tpu/ops/lattice_scatter.py:179", lin_launches[txb.GRAD_KERNEL.name],
               lin_grad_err, lin_grad_ms, lin_grad_plain_ms, lin_grad_bound, texgrad_lib_ms),
+        entry("level_vjp", "cuda", "nvdiffrast_tpu_torch/csrc/mip_level.cu",
+              "nvdiffrast_tpu/ops/pipeline_tex.py:167",
+              ttrain_launches[tc.LEVEL_VJP_KERNEL.name], vjp_err, vjp_ms, vjp_plain_ms,
+              vjp_bound, None, device_ms=vjp_dev_ms),
         entry("interp_raster_bwd_tex", "cuda",
               "nvdiffrast_tpu_torch/csrc/interp_raster_bwd_tex.cu",
               "nvdiffrast_tpu/ops/pipeline_tex_pallas.py:113", ttrain_launches[ptb.KERNEL.name],

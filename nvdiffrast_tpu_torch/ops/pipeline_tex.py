@@ -10,23 +10,25 @@ Counterpart of ``nvdiffrast_tpu/ops/pipeline_tex.py``:
 
 on flat channel-major buffers, as the JAX package's fused branch
 (``_ptex_fwd_core``) and its flat chain for ``filter_mode='linear'``
-do. Four kernels carry it: the rasterizer with bary derivatives
+do. Kernels carry it: the rasterizer with bary derivatives
 (``rasterize_cuda``), the interpolate forward (``interpolate_cuda``), the
-texture sampler (``texture_cuda``) and the antialias forward
-(``antialias_cuda``); the mip pyramid, the mip level and the neighbour
-adds are plain tensor glue. A call runs on the device of ``pos``: CPU
-tensors take the plain PyTorch twins, CUDA tensors the kernels.
+mip level (``texture.mip_level``) and the texture sampler
+(``texture_cuda``), and the antialias forward (``antialias_cuda``); the
+mip pyramid and the neighbour adds are plain tensor glue. A call runs on
+the device of ``pos``: CPU tensors take the plain PyTorch twins, CUDA
+tensors the kernels.
 
 The pipeline is a ``torch.autograd.Function`` with gradients to ``pos``,
 ``uv_attr`` and ``tex``. In the mip filter modes its backward follows
-the JAX package's pipeline-level vjp (``_ptex_bwd_core``) with four more
+the JAX package's pipeline-level vjp (``_ptex_bwd_core``) with more
 kernels: the texture's uv / level backward and its gradient
-(``texture_bwd_cuda``), the fused interpolate + rasterize backward
-(``pipeline_tex_bwd_cuda``) and the gradient scatter with the uv_da
-terms (``pipeline_bwd_cuda.grad_scatter``); the slim antialias backward,
-the mip level's and the pyramid's vjps and the vertex sums are tensor
-glue. With ``filter_mode='linear'`` it composes the standalone ops'
-backwards, as the JAX package's flat chain does
+(``texture_bwd_cuda``), the mip level's vjp (``texture.level_vjp``),
+the fused interpolate + rasterize backward (``pipeline_tex_bwd_cuda``)
+and the gradient scatter with the uv_da terms
+(``pipeline_bwd_cuda.grad_scatter``); the slim antialias backward, the
+pyramid's vjp and the vertex sums are tensor glue. With
+``filter_mode='linear'`` it composes the standalone ops' backwards, as
+the JAX package's flat chain does
 (``pipeline_tex.py:362-427``): antialias (kernels B8, B10), the texture
 (``texture_bwd_cuda``), interpolate (kernels B6, B10) and rasterize
 (kernels B9, B10).

@@ -14,17 +14,22 @@ the 2-D sampler B11 (``texture_cuda.sample``), its uv / level backward
 (``texture_bwd_cuda.texture_grad``); the cube sampler B12 and its
 backward (``texture_cube_cuda``), whose tiles pass also pre-reduces the
 cube texture gradient per screen tile (``texture_cube_cuda.cube_grads``:
-(gs, gt, gfl) and the gradient from one pass). ``filter_mode='nearest'``
-is tensor glue, as the JAX package's XLA-only ``_sample_nearest``. Textures of
-more than 8 channels run in groups of 8 through the same kernels. The
-pyramid, the level and the cube glue (``texture_cube``) are plain tensor
-code on both routes, so a kernel and its plain twin read the same bits.
+(gs, gt, gfl) and the gradient from one pass); the mip level and its
+vjp, one kernel each way (``mip_level``, ``level_vjp``;
+``csrc/mip_level.cu``), whose plain twins ``mip_level_plain`` and
+``level_vjp_plain`` give the same bits on the card.
+``filter_mode='nearest'`` is tensor glue, as the JAX package's XLA-only
+``_sample_nearest``. Textures of more than 8 channels run in groups of 8
+through the same kernels. The pyramid and the cube glue
+(``texture_cube``) are plain tensor code on both routes, so a kernel and
+its plain twin read the same bits.
 """
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.trace import span, spanned
+from .texture_cuda import check_level_args, launch_level_vjp, launch_mip_level
 
 # Maximum number of mip levels (the reference's texture.h).
 MAX_MIP_LEVEL = 16
@@ -182,10 +187,29 @@ def _mip_level_from_footprint_cols(da0, da1, da2, da3, tex_w, tex_h):
 
 
 @spanned("nvdr.tex.level")
-def mip_level(da, tex_h, tex_w, L):
-    """flevel [N] from da [4, N], clipped to [0, L-1] (pipeline_tex.py)."""
-    fl = _mip_level_from_footprint_cols(da[0], da[1], da[2], da[3],
-                                        float(tex_w), float(tex_h))
+def mip_level(da, tex_h, tex_w, L, bias=None):
+    """flevel [N] = clamp(footprint(da) [+ bias], 0, L-1) from da [4, N]
+    (any strides) and/or bias [N]; either may be None, not both (no
+    footprint: the level is the bias alone). CPU tensors run
+    ``mip_level_plain``, CUDA tensors the kernel
+    (``texture_cuda.launch_mip_level``), bit for bit the twin's on the
+    card; ValueError for other tensors."""
+    col = da if da is not None else bias
+    if col is not None and col.device.type == "cpu":
+        return mip_level_plain(da, tex_h, tex_w, L, bias)
+    return launch_mip_level(da, bias, tex_h, tex_w, L)
+
+
+def mip_level_plain(da, tex_h, tex_w, L, bias=None):
+    """Plain PyTorch twin of the mip level kernel (``mip_level``)."""
+    check_level_args(da, bias)
+    if da is not None:
+        fl = _mip_level_from_footprint_cols(da[0], da[1], da[2], da[3],
+                                            float(tex_w), float(tex_h))
+    else:
+        fl = torch.zeros(bias.shape, dtype=torch.float32, device=bias.device)
+    if bias is not None:
+        fl = fl + bias
     return torch.clamp(fl, 0.0, float(L - 1))
 
 
@@ -202,8 +226,19 @@ def _tie(x, out, other):
 @spanned("nvdr.tex.level_vjp")
 def level_vjp(da, gfl, tex_h, tex_w, L, bias=None):
     """Vjp of the mip level clip(footprint(da) + bias, 0, L-1): (g_da
-    [4, N] or None when da is None, g_bias [N]) from gfl [N]; either of
-    da and bias may be None (no footprint: the level is the bias alone).
+    [4, N] or None when da is None, g_bias [N] or None when bias is None
+    and da is not) from gfl [N]; either of da and bias may be None, not
+    both (no footprint: the level is the bias alone). CPU tensors run
+    ``level_vjp_plain``, CUDA tensors the kernel
+    (``texture_cuda.launch_level_vjp``), bit for bit the twin's on the
+    card; ValueError for other tensors."""
+    if gfl.device.type == "cpu":
+        return level_vjp_plain(da, gfl, tex_h, tex_w, L, bias)
+    return launch_level_vjp(da, gfl, bias, tex_h, tex_w, L)
+
+
+def level_vjp_plain(da, gfl, tex_h, tex_w, L, bias=None):
+    """Plain PyTorch twin of the level vjp kernel (``level_vjp``).
 
     Written by hand in the order of JAX's reverse pass over
     ``clip(_mip_level_from_footprint_cols(...), 0, L-1)``
@@ -214,6 +249,7 @@ def level_vjp(da, gfl, tex_h, tex_w, L, bias=None):
     flevel = 0, at L-1 and at the 1e-38 floor), where torch.clamp would
     pass all of it.
     """
+    check_level_args(da, bias, gfl)
     if da is not None:
         tw, th = float(tex_w), float(tex_h)
         dsdx, dsdy = da[0] * tw, da[1] * tw
@@ -244,7 +280,7 @@ def level_vjp(da, gfl, tex_h, tex_w, L, bias=None):
     g = g * _tie(fl, y, zero)
     if da is None:
         return None, g
-    g_bias = g
+    g_bias = g if bias is not None else None
     g = torch.where(nan, 0.0, g)
     g = ((0.5 * g) / _LN2) / lms       # 0.5 * log(x) / log(2)
     g_s = g * _tie(s, lms, floor)
@@ -346,16 +382,13 @@ def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
     # plus the bias, clipped to the levels there are.
     d = uv_da.reshape(N, uv_da.shape[-1]).T if uv_da is not None else None
     da = None
-    flevel = torch.zeros(N, dtype=torch.float32, device=uv.device)
     if use_mip:
         if d is not None:
             da = torch.stack(cube_st_da(*uvf.unbind(1), d)) if cube else d
-            flevel = _mip_level_from_footprint_cols(da[0], da[1], da[2], da[3],
-                                                    float(tex.shape[-2]),
-                                                    float(tex.shape[-3]))
-        if bias is not None:
-            flevel = flevel + bias.reshape(N)
-        flevel = torch.clamp(flevel, 0.0, float(L - 1))
+        flevel = mip_level(da, tex.shape[-3], tex.shape[-2], L,
+                           None if bias is None else bias.reshape(N))
+    else:
+        flevel = torch.zeros(N, dtype=torch.float32, device=uv.device)
 
     cols = ()
     if filter_mode == "nearest":

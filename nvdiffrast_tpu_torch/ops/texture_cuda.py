@@ -1,4 +1,4 @@
-"""Texture sampler forward: one CUDA kernel (torch).
+"""Texture sampler forward and the mip level: CUDA kernels (torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/texture_pallas.py`` (``_call_sampler``
 in mode ``"fwd"``, as ``sample_fused`` calls it) for 2-D textures. The
@@ -7,6 +7,13 @@ pyramid of ``ops/texture.py`` at per-pixel (u, v, flevel) with the
 linear, linear-mipmap-nearest and linear-mipmap-linear filters and the
 wrap, clamp and zero boundaries; ``sample_plain`` is its plain PyTorch
 twin with the same arithmetic (``corner_setup`` and ``level_weights``).
+
+``csrc/mip_level.cu`` computes the level those filters read and its
+vjp, one pass a pixel each way (``launch_mip_level``,
+``launch_level_vjp``); ``texture.mip_level`` and ``texture.level_vjp``
+launch them for CUDA tensors, and their plain twins
+(``texture.mip_level_plain``, ``texture.level_vjp_plain``) run the
+same arithmetic as tensor ops.
 """
 
 import ctypes
@@ -24,6 +31,14 @@ FILTER = {"linear": 0, "linear-mipmap-nearest": 1, "linear-mipmap-linear": 2}
 KERNEL = _build.Kernel(
     "nvdr_texture_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8)
+LEVEL_KERNEL = _build.Kernel(
+    "nvdr_mip_level",
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 4)
+LEVEL_VJP_KERNEL = _build.Kernel(
+    "nvdr_level_vjp",
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 4)
 
 
 def _check(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
@@ -198,3 +213,65 @@ def sample_plain(flat, u, v, flevel, meta, shape, per_image, boundary_mode,
     if filter_mode == "linear-mipmap-linear":
         out = out + torch.where(l1 != l0, term(l1), 0.0)
     return out
+
+
+def check_level_args(da, bias, gfl=None):
+    """N, the pixels of the mip level's columns: da [4, N] (any strides)
+    and bias [N], either None but not both, and gfl [N] when given;
+    ValueError unless they are float32 on one device."""
+    if da is None and bias is None:
+        raise ValueError("mip level: needs da or bias")
+    if da is not None and (da.ndim != 2 or da.shape[0] != 4):
+        raise ValueError(f"mip level: da must be [4, N]; got {tuple(da.shape)}")
+    N = da.shape[1] if da is not None else bias.shape[0]
+    cols = [t for t in (da, bias, gfl) if t is not None]
+    if any(t.shape != (N,) for t in (bias, gfl) if t is not None):
+        raise ValueError(f"mip level: bias and gfl must be flat [{N}]")
+    if any(t.dtype != torch.float32 or t.device != cols[0].device for t in cols):
+        raise ValueError("mip level: expects float32 tensors on one device")
+    if cols[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mip level: unsupported device {cols[0].device}")
+    return N
+
+
+def _ptr(t):
+    return None if t is None else _build.ptr(t)
+
+
+def _da_args(da):
+    """da's pointer and its element and row strides (None, 0, 0 without
+    da)."""
+    return (None, 0, 0) if da is None else (_build.ptr(da), da.stride(1), da.stride(0))
+
+
+def launch_mip_level(da, bias, tex_h, tex_w, L):
+    """flevel [N] = clamp(footprint(da) [+ bias], 0, L-1) from CUDA
+    tensors (``csrc/mip_level.cu``; ``texture.mip_level``'s arguments)."""
+    N = check_level_args(da, bias)
+    dev = (da if da is not None else bias).device
+    if dev.type != "cuda":
+        raise ValueError(f"mip level: the kernel needs CUDA tensors, not {dev}")
+    bias = None if bias is None else bias.contiguous()
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    if N:
+        LEVEL_KERNEL.launch(dev, *_da_args(da), _ptr(bias), _build.ptr(out), N, int(tex_w),
+                            int(tex_h), int(L))
+    return out
+
+
+def launch_level_vjp(da, gfl, bias, tex_h, tex_w, L):
+    """(g_da [4, N] or None without da, g_bias [N] or None without a
+    bias) from CUDA tensors (``csrc/mip_level.cu``;
+    ``texture.level_vjp``'s arguments)."""
+    N = check_level_args(da, bias, gfl)
+    dev = gfl.device
+    if dev.type != "cuda":
+        raise ValueError(f"level vjp: the kernel needs CUDA tensors, not {dev}")
+    gfl = gfl.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    g_da = None if da is None else torch.empty((4, N), dtype=torch.float32, device=dev)
+    g_lvl = None if bias is None else torch.empty(N, dtype=torch.float32, device=dev)
+    if N:
+        LEVEL_VJP_KERNEL.launch(dev, *_da_args(da), _build.ptr(gfl), _ptr(bias), _ptr(g_da),
+                                _ptr(g_lvl), N, int(tex_w), int(tex_h), int(L))
+    return g_da, g_lvl

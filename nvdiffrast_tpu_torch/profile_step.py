@@ -129,7 +129,9 @@ def _device_ms(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("nvdr.")]
     return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters,
             len(kernels) / iters)
 

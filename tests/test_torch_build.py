@@ -39,7 +39,8 @@ KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL
            pipeline_bwd_cuda.SCATTER_COMPACT_KERNEL, pipeline_bwd_cuda.SCATTER_SEGMENT_KERNEL,
            pipeline_bwd_cuda.SCATTER_SUM_KERNEL, scatter.COMPACT_KERNEL,
            scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL, texture_cube_cuda.GRAD_COMPACT_KERNEL,
-           texture_cube_cuda.GRAD_SEGMENT_KERNEL, texture_cube_cuda.GRAD_SUM_KERNEL]
+           texture_cube_cuda.GRAD_SEGMENT_KERNEL, texture_cube_cuda.GRAD_SUM_KERNEL,
+           texture_cuda.LEVEL_KERNEL, texture_cuda.LEVEL_VJP_KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -89,7 +90,8 @@ def test_cuda_sources_exist():
             "interpolate_fwd.cu", "texture_fwd.cu", "aa_fwd.cu", "common.cu",
             "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu",
             "interpolate_bwd.cu", "aa_bwd.cu", "table_take.cu", "scatter_rows.cu",
-            "texture_cube.cu", "raster_bin.cu", "raster_setup.cu", "segment_sum.cu"} <= names
+            "texture_cube.cu", "raster_bin.cu", "raster_setup.cu", "segment_sum.cu",
+            "mip_level.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
         assert f'extern "C" int {kernel.symbol}(' in text

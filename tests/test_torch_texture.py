@@ -84,6 +84,106 @@ def test_mip_level_within_2_ulps():
     assert (np.abs(got - ref) <= 2 * ulp).all(), np.abs(got - ref).max()
 
 
+def _level_columns():
+    """test_mip_level_within_2_ulps' footprints da [4, n] (random, zero,
+    NaN) and a bias [n] on 0, on 6 = L-1, below and above them, as numpy."""
+    rng = np.random.default_rng(1)
+    n = 4000
+    da = (rng.standard_normal((4, n)) * 10.0 ** rng.uniform(-5, 0, (4, n))).astype(np.float32)
+    da[:, :100] = 0.0
+    da[0, 100:200] = np.nan
+    bias = np.random.default_rng(2).uniform(-2.0, 8.0, n).astype(np.float32)
+    bias[200:260] = np.repeat([0.0, 6.0, -0.0, -1.0, 9.0, 3.5], 10)
+    return da, bias
+
+
+@pytest.mark.parametrize("case", ["bias", "footprint_bias", "strided", "strided_bias"])
+def test_mip_level_bias_and_strided_within_2_ulps(case):
+    """The twin with mip_level_bias (alone or with the footprint) and with
+    texture()'s transposed [N, 4] view of uv_da, against JAX's level in
+    texture() (texture.py:744-757): the footprint plus the bias, clipped.
+    The footprint's bar is test_mip_level_within_2_ulps' (2 of its
+    ulps); a bias adds one rounding on each side, and where it cancels
+    the footprint the footprint's ulps are many of the sum's."""
+    da, bias = _level_columns()
+    use_bias = "bias" in case
+    use_da = case != "bias"
+    fp = (jtx._mip_level_from_footprint_cols(*(jnp.asarray(d) for d in da), jnp.float32(64.0),
+                                             jnp.float32(32.0))
+          if use_da else jnp.zeros(da.shape[1], jnp.float32))
+    ref = np.asarray(jnp.clip(fp + jnp.asarray(bias) if use_bias else fp, 0.0, 6.0))
+    d = torch.from_numpy(np.ascontiguousarray(da.T)).T if "strided" in case else (
+        torch.from_numpy(da))
+    assert "strided" not in case or d.stride() == (1, 4)
+    got = tx.mip_level(d if use_da else None, 32, 64, 7,
+                       torch.from_numpy(bias) if use_bias else None).numpy()
+    assert 0 < (got == 0).mean() < 1 and 0 < ((got > 0) & (got < 6)).mean() < 1
+    fp = np.asarray(fp)
+    bar = 2 * np.spacing(np.abs(np.where(np.isfinite(fp), fp, 0.0)))  # -inf: zero footprints
+    if use_bias:
+        bar = bar + np.spacing(np.abs(ref))
+    assert (np.abs(got - ref) <= bar).all(), np.abs(got - ref).max()
+    if "strided" in case:  # the layout changes no bit
+        dense = tx.mip_level(torch.from_numpy(da), 32, 64, 7,
+                             torch.from_numpy(bias) if use_bias else None).numpy()
+        assert np.array_equal(got.view(np.int32), dense.view(np.int32))
+
+
+def test_mip_level_cpu_tensors_take_the_twins(monkeypatch):
+    """CPU tensors never reach the kernels' launchers: mip_level and
+    level_vjp return their plain twins' results."""
+    def refuse(*args):
+        raise AssertionError("a CPU tensor reached a kernel launcher")
+
+    monkeypatch.setattr(tx, "launch_mip_level", refuse)
+    monkeypatch.setattr(tx, "launch_level_vjp", refuse)
+    da, bias = (torch.from_numpy(a) for a in _level_columns())
+    gfl = torch.linspace(-1.0, 1.0, da.shape[1])
+    before = (tc.LEVEL_KERNEL.launches, tc.LEVEL_VJP_KERNEL.launches)
+    for d, b in ((da, None), (da.T.contiguous().T, bias), (None, bias)):
+        assert torch.equal(tx.mip_level(d, 32, 64, 7, b), tx.mip_level_plain(d, 32, 64, 7, b))
+        got = tx.level_vjp(d, gfl, 32, 64, 7, b)
+        ref = tx.level_vjp_plain(d, gfl, 32, 64, 7, b)
+        for g, r in zip(got, ref):
+            assert (g is None and r is None) or torch.equal(g.nan_to_num(7.0), r.nan_to_num(7.0))
+    assert (tc.LEVEL_KERNEL.launches, tc.LEVEL_VJP_KERNEL.launches) == before
+
+
+_N = 16
+_BAD_LEVEL_ARGS = {
+    "float64 da": ("fwd", torch.zeros(4, _N, dtype=torch.float64), None, None, "float32"),
+    "da of 3 rows": ("fwd", torch.zeros(3, _N), None, None, r"\[4, N\]"),
+    "flat da": ("fwd", torch.zeros(4 * _N), None, None, r"\[4, N\]"),
+    "bias of another length": ("fwd", torch.zeros(4, _N), torch.zeros(_N + 1), None, "flat"),
+    "float64 bias": ("fwd", None, torch.zeros(_N, dtype=torch.float64), None, "float32"),
+    "neither da nor bias": ("fwd", None, None, None, "needs da or bias"),
+    "gfl of another length": ("vjp", torch.zeros(4, _N), None, torch.zeros(_N - 1), "flat"),
+    "gfl [1, N]": ("vjp", torch.zeros(4, _N), None, torch.zeros(1, _N), "flat"),
+    "float64 gfl": ("vjp", torch.zeros(4, _N), None, torch.zeros(_N, dtype=torch.float64),
+                    "float32"),
+    "meta tensors": ("vjp", torch.zeros(4, _N, device="meta"), None,
+                     torch.zeros(_N, device="meta"), "unsupported device"),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_LEVEL_ARGS))
+def test_mip_level_wrappers_refuse_bad_columns(case):
+    kind, da, bias, gfl, match = _BAD_LEVEL_ARGS[case]
+    with pytest.raises(ValueError, match=match):
+        if kind == "fwd":
+            tx.mip_level(da, 32, 64, 7, bias)
+        else:
+            tx.level_vjp(da, gfl, 32, 64, 7, bias)
+
+
+def test_mip_level_launchers_need_cuda_tensors():
+    da, gfl = torch.zeros(4, _N), torch.zeros(_N)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tc.launch_mip_level(da, None, 32, 64, 7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tc.launch_level_vjp(da, gfl, None, 32, 64, 7)
+
+
 @functools.lru_cache(maxsize=None)
 def _inputs(D):
     """A 32x64x3 texture pyramid (D textures) and per-pixel uv in

@@ -285,6 +285,62 @@ def test_mip_level_vjp_matches_jax():
     assert (np.abs(got - ref) <= 1e-5 * scale).all()
 
 
+@pytest.mark.parametrize("case", ["bias", "footprint_bias", "strided", "strided_bias"])
+def test_mip_level_vjp_bias_and_strided_match_jax(case):
+    """level_vjp with mip_level_bias (alone or with the footprint) and on
+    texture()'s transposed [N, 4] view of uv_da, against jax.vjp of JAX
+    texture()'s level (the footprint plus the bias, clipped;
+    texture.py:744-757), at test_mip_level_vjp_matches_jax's bars. The
+    strided view changes no bit of the contiguous call's gradients."""
+    da, gfl = _footprints()
+    n = da.shape[1]
+    bias = np.random.default_rng(3).uniform(-2.0, L + 1.0, n).astype(np.float32)
+    bias[140:200] = np.repeat([0.0, L - 1.0, -0.0, -1.0, L + 2.0, 2.5], 10)
+    use_da, use_bias = case != "bias", "bias" in case
+    tw, th = jnp.float32(64.0), jnp.float32(32.0)
+
+    def flv(d4, b):
+        fl = (jtx._mip_level_from_footprint_cols(d4[0], d4[1], d4[2], d4[3], tw, th)
+              if use_da else jnp.zeros(n, jnp.float32))
+        return jnp.clip(fl + b if use_bias else fl, 0.0, float(L - 1))
+
+    cols = tuple(jnp.asarray(d) for d in da)
+    fl_ref, vjp = jax.vjp(flv, cols, jnp.asarray(bias))
+    ref_da, ref_b = vjp(jnp.asarray(gfl))
+    d = torch.from_numpy(np.ascontiguousarray(da.T)).T if "strided" in case else (
+        torch.from_numpy(da))
+    b = torch.from_numpy(bias) if use_bias else None
+    g_da, g_b = tx.level_vjp(d if use_da else None, torch.from_numpy(gfl), 32, 64, L, b)
+    assert (g_da is None) != use_da and (g_b is None) != use_bias
+    fl_ref = np.asarray(fl_ref)
+    assert (fl_ref == 0).any() and (fl_ref == L - 1).any()
+    if use_bias:
+        # The bias's gradient is gfl through the clip's ties: exact, but
+        # where the footprint's level (within 4 ulps of JAX's) decides a tie.
+        got_b, want_b = g_b.numpy(), np.asarray(ref_b)
+        same = got_b == want_b
+        assert same.all() if not use_da else same.mean() >= 0.995
+    if not use_da:
+        return
+    got = g_da.numpy()
+    ref = np.stack([np.asarray(x) for x in ref_da])
+    # Zero footprints: exact zeros in the port, NaN in JAX's vjp on the CPU
+    # (test_mip_level_vjp_matches_jax).
+    assert np.isfinite(got).all()
+    assert not got[:, :110].any() and not got[:, 130:140].any()
+    ref[:, :110] = ref[:, 130:140] = 0.0
+    assert np.isfinite(ref).all()
+    ulps = _ulps(got, ref)
+    assert (ulps <= 4).mean() >= 0.995, np.bincount(ulps.ravel())
+    scale = np.abs(ref).max(0, keepdims=True)
+    assert (np.abs(got - ref) <= 1e-5 * scale).all()
+    if "strided" in case:
+        dense = tx.level_vjp(torch.from_numpy(da), torch.from_numpy(gfl), 32, 64, L, b)
+        for x, y in zip((g_da, g_b), dense):
+            assert (x is None and y is None) or torch.equal(x.view(torch.int32),
+                                                            y.view(torch.int32))
+
+
 @pytest.mark.parametrize("size,D,max_level", [
     ((32, 64), 1, -1), ((16, 8), 2, -1), ((1, 8), 1, -1), ((32, 64), 2, 2)])
 def test_pyramid_vjp_matches_jax(size, D, max_level):
