@@ -16,6 +16,7 @@ from ..ops.interpolate import interpolate
 from ..ops.rasterize import rasterize
 from ..ops.texture import texture
 from ..utils import camera
+from ..utils.trace import spanned
 from . import primitives
 
 
@@ -30,28 +31,40 @@ def _vertex_normals(tri, vtx):
     return out.astype(np.float32)
 
 
+@spanned("nvdr.envphong.refl")
 def render_refl(mvp, campos, pos, pos_idx, normals, res):
     """Rasterize and return the interpolated, normalised reflection
-    vectors [1, res, res, 3], their screen derivatives [1, res, res, 6] and
-    the background mask [1, res, res, 1]."""
-    viewvec = pos[:, :3] - campos[None, :]
+    vectors [B, H, W, 3], their screen derivatives [B, H, W, 6] and the
+    background mask [B, H, W, 1].
+
+    One view (mvp [4, 4], campos [3]; B = 1) or a batch of B views (mvp
+    [B, 4, 4], campos [B, 3]): per-view vertex reflection vectors, one
+    ``rasterize`` of the B views and one ``interpolate`` of the per-view
+    vectors. res is the square image's side or (H, W)."""
+    H, W = (res, res) if isinstance(res, int) else (int(res[0]), int(res[1]))
+    viewvec = pos[None, :, :3] - campos.reshape(-1, 1, 3)
     reflvec = viewvec - 2.0 * normals * torch.sum(normals * viewvec, -1, keepdim=True)
     reflvec = reflvec / torch.sum(reflvec ** 2, -1, keepdim=True) ** 0.5
     posw = torch.cat([pos[:, :3], torch.ones_like(pos[:, :1])], dim=1)
-    pos_clip = (posw @ mvp.T)[None]
-    rast_out, rast_out_db = rasterize(None, pos_clip, pos_idx, (res, res))
-    refl, refld = interpolate(reflvec[None], rast_out, pos_idx, rast_db=rast_out_db,
+    if mvp.ndim == 2:  # the one-view product, so one-view callers keep their bits
+        pos_clip = (posw @ mvp.T)[None]
+    else:
+        pos_clip = torch.matmul(posw, mvp.transpose(1, 2))
+    rast_out, rast_out_db = rasterize(None, pos_clip, pos_idx, (H, W))
+    refl, refld = interpolate(reflvec, rast_out, pos_idx, rast_db=rast_out_db,
                               diff_attrs="all")
     refl = refl / (torch.sum(refl ** 2, -1, keepdim=True) + 1e-8) ** 0.5
     mask = rast_out[..., -1:] == 0
     return refl, refld, mask
 
 
+@spanned("nvdr.envphong.shade")
 def shade(env, phong_rgb, phong_exp, refl, refld, ldir, mask):
-    """Environment lookup plus a Phong highlight; 1 on the background."""
+    """Environment lookup plus a Phong highlight; 1 on the background.
+    ldir is one light direction [3] or one a view [B, 3]."""
     color = texture(env[None], refl, uv_da=refld, filter_mode="linear-mipmap-linear",
                     boundary_mode="cube")
-    ldotr = torch.sum(-ldir * refl, -1, keepdim=True)
+    ldotr = torch.sum(-ldir.reshape(-1, 1, 1, 3) * refl, -1, keepdim=True)
     color = color + phong_rgb * torch.maximum(torch.zeros_like(ldotr), ldotr) ** phong_exp
     return torch.where(mask, 1.0, color)
 

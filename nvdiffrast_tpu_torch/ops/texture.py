@@ -22,7 +22,9 @@ vjp, one kernel each way (``mip_level``, ``level_vjp``;
 ``_sample_nearest``. Textures of more than 8 channels run in groups of 8
 through the same kernels. The pyramid and the cube glue
 (``texture_cube``) are plain tensor code on both routes, so a kernel and
-its plain twin read the same bits.
+its plain twin read the same bits. The cube stages run inside the spans
+``nvdr.tex.cube.project``, ``.da``, ``.sample``, ``.grads``,
+``.project_vjp`` and ``.da_vjp`` (``utils.trace``).
 """
 
 import torch
@@ -336,8 +338,9 @@ def _nearest_taps(meta, uv, tz, boundary_mode, cube):
     off, h, w = meta[0]
     if cube:
         x, y, z = uv.unbind(1)
-        finfo = cube_faceid(x, y, z)
-        s, t, valid = cube_project(finfo, x, y, z)
+        with span("nvdr.tex.cube.project"):
+            finfo = cube_faceid(x, y, z)
+            s, t, valid = cube_project(finfo, x, y, z)
         iu = torch.clamp(torch.floor(s * float(w)).to(torch.int32).long(), 0, w - 1)
         iv = torch.clamp(torch.floor(t * float(h)).to(torch.int32).long(), 0, h - 1)
         return off + ((tz * 6 + finfo[0]) * h + iv) * w + iu, valid
@@ -383,8 +386,10 @@ def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
     d = uv_da.reshape(N, uv_da.shape[-1]).T if uv_da is not None else None
     da = None
     if use_mip:
-        if d is not None:
-            da = torch.stack(cube_st_da(*uvf.unbind(1), d)) if cube else d
+        da = d
+        if d is not None and cube:
+            with span("nvdr.tex.cube.da"):
+                da = torch.stack(cube_st_da(*uvf.unbind(1), d))
         flevel = mip_level(da, tex.shape[-3], tex.shape[-2], L,
                            None if bias is None else bias.reshape(N))
     else:
@@ -396,11 +401,13 @@ def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
         out = torch.where(valid, flat[idx].T, 0.0)
     elif cube:
         x, y, z = uvf.unbind(1)
-        finfo = cube_faceid(x, y, z)
-        s, t, finite = cube_project(finfo, x, y, z)
-        cols = (s, t, flevel) + tuple(a.to(torch.int32) for a in (finite, finfo[0], tz))
-        out = torch.cat([sample_cube(flat[:, a:b].contiguous(), cols, meta, filter_mode,
-                                     (B, H, W)) for a, b in channel_groups(C, MAX_C)])
+        with span("nvdr.tex.cube.project"):
+            finfo = cube_faceid(x, y, z)
+            s, t, finite = cube_project(finfo, x, y, z)
+            cols = (s, t, flevel) + tuple(a.to(torch.int32) for a in (finite, finfo[0], tz))
+        with span("nvdr.tex.cube.sample"):
+            out = torch.cat([sample_cube(flat[:, a:b].contiguous(), cols, meta, filter_mode,
+                                         (B, H, W)) for a, b in channel_groups(C, MAX_C)])
     else:
         out = torch.cat([sample(flat[:, a:b].contiguous(), uvf[:, 0], uvf[:, 1], flevel,
                                 meta, (B, H, W), D > 1, boundary_mode, filter_mode)
@@ -433,9 +440,11 @@ def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
     g_mips = [None] * len(mip_shapes)
     want_tex = needs[0] or any(needs[4:])
     if cube and filter_mode != "nearest":  # both gradients from one pass per group
-        cube_parts = [cube_grads(flat[:, a:b], tuple(cols), gc[a:b], meta, n_tex, filter_mode,
-                                 (B, H, W), uv=any(needs[1:4]), tex=want_tex)
-                      for a, b in groups]
+        with span("nvdr.tex.cube.grads"):
+            cube_parts = [cube_grads(flat[:, a:b], tuple(cols), gc[a:b], meta, n_tex,
+                                     filter_mode, (B, H, W), uv=any(needs[1:4]),
+                                     tex=want_tex)
+                          for a, b in groups]
 
     # Texture gradient: to the base texture through the pyramid, or to the
     # level tensors the caller passed.
@@ -479,7 +488,11 @@ def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
         g3 = part if g3 is None else tuple(x + y for x, y in zip(g3, part))
     gs, gt, gfl = g3
     xyz = uvf.unbind(1)
-    g_cols = list(cube_project_vjp(*xyz, gs, gt)) if cube else [gs, gt]
+    if cube:
+        with span("nvdr.tex.cube.project_vjp"):
+            g_cols = list(cube_project_vjp(*xyz, gs, gt))
+    else:
+        g_cols = [gs, gt]
     g_d = None
     if use_mip:
         g_da4, g_b = level_vjp(da, gfl, tex_shape[-3], tex_shape[-2], len(meta),
@@ -488,8 +501,9 @@ def _texture_bwd(spec, meta, saved, shapes, bias, needs, dy):
             g_bias = g_b.reshape(bias.shape)
         if d is not None:
             if cube:
-                g_xyz, g_d = cube_st_da_vjp(*xyz, d, g_da4)
-                g_cols = [g + h for g, h in zip(g_cols, g_xyz)]
+                with span("nvdr.tex.cube.da_vjp"):
+                    g_xyz, g_d = cube_st_da_vjp(*xyz, d, g_da4)
+                    g_cols = [g + h for g, h in zip(g_cols, g_xyz)]
             else:
                 g_d = g_da4
     elif bias is not None:
