@@ -98,7 +98,11 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
  14. B12, the cube sampler and the cube texture gradient, against their
      twins at 2048^2 on the bench sphere's 8 views, reflection vectors
      (interpolate with diff_attrs='all') as directions into
-     procedural_cubemap(512), 10 levels, linear-mipmap-linear: cube_fwd
+     procedural_cubemap(512), 10 levels, linear-mipmap-linear: the cube
+     setup kernel (face, (s, t), validity, the level of the footprint)
+     on the 8 views as one batch, as texture() calls it and with a bias,
+     per-image texture indices and the footprint Jacobian kept, bit for
+     bit with cube_setup_plain, timed beside its twin; cube_fwd
      and cube_bwd's (gs, gt, gfl) (16x16 tiles) bit for bit, the tiles
      pass's (texel, tile) partials bit for bit with
      cube_tile_partials_plain, the gradient within 1 ulp of the float64
@@ -2575,6 +2579,33 @@ def main():
 
     dirs = [refl_dirs(view) for view in reqs]
     _, csaved, cmeta = tx._texture_fwd(cube_spec, env, *dirs[0], None, ())
+    # The setup kernel on the 8 views as one batch (the envphong cell's
+    # 2048^2 x 8): as texture() calls it there (no bias, one map, no
+    # gradient to the directions), and with a bias, per-image texture
+    # indices and the footprint Jacobian kept.
+    N8 = len(dirs) * RES * RES
+    suv = torch.cat([d for d, _ in dirs]).reshape(N8, 3)
+    suvd = torch.cat([dd for _, dd in dirs]).reshape(N8, 6)
+    sbias = torch.rand(N8, generator=torch.Generator(device=dev).manual_seed(14),
+                       device=dev) * 12.0 - 2.0
+    setup_args = (suv, suvd, None, CUBE_SIZE, len(cmeta), 0, False)
+    n_setup0 = tcc.SETUP_KERNEL.launches
+    for args in (setup_args, (suv, suvd, sbias, CUBE_SIZE, len(cmeta), RES * RES, True)):
+        got, ref = tcc.cube_setup(*args), tcc.cube_setup_plain(*args)
+        for i, (x, y) in enumerate(zip(got[0] + got[1:], ref[0] + ref[1:])):
+            if (x is None) != (y is None) or (x is not None and not bits_equal(x, y)):
+                raise AssertionError(f"cube_setup: output {i} differs from its twin")
+        del got, ref
+    torch.cuda.synchronize()
+    if tcc.SETUP_KERNEL.launches != n_setup0 + 2:
+        raise AssertionError("cube_setup did not launch its kernel once a call")
+    setup_err = 0.0
+    setup_ms = cuda_ms(torch, lambda: tcc.cube_setup(*setup_args), 20)
+    setup_plain_ms = cuda_ms(torch, lambda: tcc.cube_setup_plain(*setup_args), 3)
+    log(f"[14] cube_setup {RES}^2 x {len(dirs)} ({N8} pixels, {len(cmeta)} levels): equal to "
+        f"its twin bit for bit (as texture() calls it; with a bias, per-image texture "
+        f"indices and the Jacobian kept); kernel {setup_ms:.4f} ms, twin "
+        f"{setup_plain_ms:.3f} ms ({card})")
     cflat, ccols = csaved[0], tuple(csaved[6:])
     n_ctex = cflat.shape[0]
     cshape = (1, RES, RES)
@@ -2666,8 +2697,8 @@ def main():
 
     # The cube texture op, fwd + bwd (gradients to the map, uv and uv_da)
     # on the 8 views: the main path of B12. B10 leaves it.
-    cube_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, tcc.GRAD_COMPACT_KERNEL,
-                    tcc.GRAD_SEGMENT_KERNEL, tcc.GRAD_SUM_KERNEL)
+    cube_kernels = (tcc.SETUP_KERNEL, tcc.FWD_KERNEL, tcc.BWD_KERNEL,
+                    tcc.GRAD_COMPACT_KERNEL, tcc.GRAD_SEGMENT_KERNEL, tcc.GRAD_SUM_KERNEL)
 
     def cube_step(uv, uv_da, tex=env):
         xs = [x.detach().clone().requires_grad_() for x in (tex, uv, uv_da)]
@@ -2946,6 +2977,11 @@ def main():
     sseg_bound = bound((n_part11 + R11 + 1) * f32, 0)
     ssum_bound = bound(n_part11 * 8 + spart + (R11 + 1 + R11 * 9) * f32, 9 * n_part11)
 
+    # Cube setup as the cell calls it: reads each pixel's direction and its
+    # six derivatives, writes s, t, flevel, finite, face and tz; ~150
+    # operations a pixel (face, projection, Jacobian, footprint, level).
+    setup_bound = bound(N8 * (3 + 6 + 6) * f32, N8 * 150)
+
     # Cube sampler: reads finite of every pixel, and s, t, face, tz (flevel
     # under a mip filter; C cotangents in the backward) of the valid
     # directions only, the pyramid once; writes C channels (3 gradients)
@@ -2989,6 +3025,9 @@ def main():
         lambda: library_bwd([False, True])))
     level_dev_ms, vjp_dev_ms = (device_ms(fn, 50)[0] for fn in (
         lambda: tx.mip_level(*largs7), lambda: tx.level_vjp(*vargs9)))
+    setup_dev_ms = device_ms(lambda: tcc.cube_setup(*setup_args), 20)[0]
+    log(f"[14] cube_setup {RES}^2 x {len(dirs)}, device time a call: kernel "
+        f"{setup_dev_ms:.4f} ms (CUDA events: {setup_ms:.4f} ms) ({card})")
     log(f"[7] mip_level {RES}^2, device time a call: kernel {level_dev_ms:.4f} ms; "
         f"[9] level_vjp {vjp_dev_ms:.4f} ms (CUDA events: {level_ms:.4f}, {vjp_ms:.4f} ms) "
         f"({card})")
@@ -3104,6 +3143,10 @@ def main():
         entry("scatter_rows_sum", "cuda", "nvdiffrast_tpu_torch/csrc/segment_sum.cu",
               "nvdiffrast_tpu/ops/scatter.py:84", ops_launches[scatter.SUM_KERNEL.name],
               scatter_rows_err, st11["sums"], srows_plain_ms, ssum_bound, None),
+        entry("cube_setup", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube_setup.cu",
+              "none (XLA fuses nvdiffrast_tpu/ops/texture.py:162-197, 557-583)",
+              cube_launches[tcc.SETUP_KERNEL.name], setup_err, setup_ms, setup_plain_ms,
+              setup_bound, None, device_ms=setup_dev_ms),
         entry("texture_cube_fwd", "cuda", "nvdiffrast_tpu_torch/csrc/texture_cube.cu",
               "nvdiffrast_tpu/ops/texture_pallas.py:1392", cube_launches[tcc.FWD_KERNEL.name],
               cube_fwd_err, cube_fwd_ms, cube_fwd_plain_ms, cube_fwd_bound, None),

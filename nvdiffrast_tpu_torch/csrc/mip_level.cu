@@ -37,68 +37,21 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "mip_level.cuh"
+
 namespace {
+
+using namespace nvdr_mip;
 
 constexpr int BLOCK = 256;
 constexpr int MAX_BLOCKS = 132 * 16;
 
-// The Python scalars as PyTorch hands them to its kernels (double ->
-// float).
-constexpr float FLOOR = static_cast<float>(1e-38);
-constexpr float L2A_MIN = static_cast<float>(1e-30);
-// float32 log(2) (texture._LN2), and its reciprocal as div_true_kernel_cuda
-// computes it on the host.
-constexpr float LN2 = static_cast<float>(0.6931471805599453);
-constexpr float INV_LN2 = 1.0f / LN2;
-
-// torch.clamp(v, min=lo): NaN passes.
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-    return isnan(v) ? v : fmaxf(v, lo);
-}
-
-// torch.clamp(v, lo, hi): NaN passes.
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-    return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-
-// torch.maximum / torch.minimum: a NaN operand is the result.
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return isnan(a) ? a : isnan(b) ? b : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-    return isnan(a) ? a : isnan(b) ? b : fminf(a, b);
-}
-
-// JAX's derivative of max/min(x, other) = out with respect to x
-// (texture._tie): 1 where x is the result, half of it on a tie.
-__device__ __forceinline__ float tie(float x, float out, float other) {
-    return (x == out ? 1.0f : 0.0f) / (other == out ? 2.0f : 1.0f);
-}
-
-// The footprint's terms, in the twins' order.
-struct Footprint {
-    float dsdx, dsdy, dtdx, dtdy, A, B, C, t7, l2n, l2a, s, lms, fl0;
-};
-
-__device__ __forceinline__ Footprint footprint(const float* __restrict__ da, int64_t i,
-                                               int64_t es, int64_t rs, float tw, float th) {
-    Footprint f;
-    f.dsdx = da[i * es] * tw;
-    f.dsdy = da[rs + i * es] * tw;
-    f.dtdx = da[2 * rs + i * es] * th;
-    f.dtdy = da[3 * rs + i * es] * th;
-    f.A = f.dsdx * f.dsdx + f.dtdx * f.dtdx;
-    f.B = f.dsdy * f.dsdy + f.dtdy * f.dtdy;
-    f.C = f.dsdx * f.dsdy + f.dtdx * f.dtdy;
-    const float l2b = 0.5f * (f.A + f.B);
-    f.t7 = 0.25f * (f.A - f.B);
-    f.l2n = f.t7 * (f.A - f.B) + f.C * f.C;
-    f.l2a = sqrtf(f.l2n);
-    f.s = l2b + f.l2a;
-    f.lms = clamp_min(f.s, FLOOR);
-    f.fl0 = 0.5f * log2f(f.lms);
-    return f;
+// The footprint of pixel i of da [4, N] at element stride es and row
+// stride rs.
+__device__ __forceinline__ Footprint footprint_at(const float* __restrict__ da, int64_t i,
+                                                  int64_t es, int64_t rs, float tw, float th) {
+    return footprint(da[i * es], da[rs + i * es], da[2 * rs + i * es], da[3 * rs + i * es], tw,
+                     th);
 }
 
 template <bool DA, bool BIAS>
@@ -109,10 +62,7 @@ mip_level_kernel(const float* __restrict__ da, int64_t es, int64_t rs,
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x; i < N;
          i += static_cast<int64_t>(gridDim.x) * BLOCK) {
         float fl = 0.0f;
-        if (DA) {
-            const float fl0 = footprint(da, i, es, rs, tw, th).fl0;
-            fl = isnan(fl0) ? 0.0f : fl0;
-        }
+        if (DA) fl = footprint_level(footprint_at(da, i, es, rs, tw, th));
         if (BIAS) fl = fl + bias[i];
         out[i] = clamp(fl, 0.0f, top);
     }
@@ -130,7 +80,7 @@ level_vjp_kernel(const float* __restrict__ da, int64_t es, int64_t rs,
         bool nan = false;
         float fl = 0.0f;
         if (DA) {
-            f = footprint(da, i, es, rs, tw, th);
+            f = footprint_at(da, i, es, rs, tw, th);
             nan = isnan(f.fl0);
             fl = nan ? 0.0f : f.fl0;
         }

@@ -20,11 +20,16 @@ vjp, one kernel each way (``mip_level``, ``level_vjp``;
 ``level_vjp_plain`` give the same bits on the card.
 ``filter_mode='nearest'`` is tensor glue, as the JAX package's XLA-only
 ``_sample_nearest``. Textures of more than 8 channels run in groups of 8
-through the same kernels. The pyramid and the cube glue
-(``texture_cube``) are plain tensor code on both routes, so a kernel and
-its plain twin read the same bits. The cube stages run inside the spans
-``nvdr.tex.cube.project``, ``.da``, ``.sample``, ``.grads``,
-``.project_vjp`` and ``.da_vjp`` (``utils.trace``).
+through the same kernels. A cube lookup's per-pixel setup (face, (s, t),
+validity, the footprint Jacobian and the level) is one kernel on the
+card (``texture_cube_cuda.cube_setup``; ``csrc/texture_cube_setup.cu``),
+whose plain twin ``cube_setup_plain`` composes ``texture_cube``'s glue
+and ``mip_level_plain``. The pyramid, the cube vjps and ``nearest``'s
+projection are plain tensor code on both routes, so a kernel and its
+plain twin read the same bits. The cube stages run inside the spans
+``nvdr.tex.cube.project`` (on the card the setup's one launch), ``.da``
+(the twin's Jacobian), ``.sample``, ``.grads``, ``.project_vjp`` and
+``.da_vjp`` (``utils.trace``).
 """
 
 import torch
@@ -360,9 +365,8 @@ def _nearest_taps(meta, uv, tz, boundary_mode, cube):
 
 def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
     """Forward of ``texture``: (image [B, H, W, C], saved tensors)."""
-    from .texture_cube import cube_faceid, cube_project, cube_st_da
     from .antialias import channel_groups
-    from .texture_cube_cuda import sample_cube
+    from .texture_cube_cuda import cube_setup, sample_cube
     from .texture_cuda import MAX_C, sample
 
     filter_mode, boundary_mode, max_mip_level, use_mip = spec
@@ -378,37 +382,36 @@ def _texture_fwd(spec, tex, uv, uv_da, bias, mips):
         meta, _ = _static_meta(levels)
         L = len(levels)
         flat = _pack_pyramid(levels)
-    tz = (torch.arange(N, device=uv.device) // (H * W) if D > 1
-          else torch.zeros(N, dtype=torch.int64, device=uv.device))
+    d = uv_da.reshape(N, uv_da.shape[-1]).T if uv_da is not None else None
+    lvl_d = d if use_mip else None
+    lvl_bias = None if bias is None or not use_mip else bias.reshape(N)
 
     # Mip level: the footprint (of the face coordinates for cube maps)
-    # plus the bias, clipped to the levels there are.
-    d = uv_da.reshape(N, uv_da.shape[-1]).T if uv_da is not None else None
-    da = None
-    if use_mip:
-        da = d
-        if d is not None and cube:
-            with span("nvdr.tex.cube.da"):
-                da = torch.stack(cube_st_da(*uvf.unbind(1), d))
-        flevel = mip_level(da, tex.shape[-3], tex.shape[-2], L,
-                           None if bias is None else bias.reshape(N))
-    else:
-        flevel = torch.zeros(N, dtype=torch.float32, device=uv.device)
-
+    # plus the bias, clipped to the levels there are. The level's vjp
+    # reads the footprint Jacobian, da, only where a gradient reaches it.
+    da = flevel = tz = None
     cols = ()
     if filter_mode == "nearest":
+        tz = (torch.arange(N, device=uv.device) // (H * W) if D > 1
+              else torch.zeros(N, dtype=torch.int64, device=uv.device))
         idx, valid = _nearest_taps(meta, uvf, tz, boundary_mode, cube)
         out = torch.where(valid, flat[idx].T, 0.0)
     elif cube:
-        x, y, z = uvf.unbind(1)
+        keep_da = lvl_d is not None and any(
+            x is not None and x.requires_grad for x in (uv, uv_da, bias))
         with span("nvdr.tex.cube.project"):
-            finfo = cube_faceid(x, y, z)
-            s, t, finite = cube_project(finfo, x, y, z)
-            cols = (s, t, flevel) + tuple(a.to(torch.int32) for a in (finite, finfo[0], tz))
+            cols, da = cube_setup(uvf, None if lvl_d is None else lvl_d.T, lvl_bias,
+                                  tex.shape[-2], L, H * W if D > 1 else 0, keep_da)
+        flevel = cols[2]
         with span("nvdr.tex.cube.sample"):
             out = torch.cat([sample_cube(flat[:, a:b].contiguous(), cols, meta, filter_mode,
                                          (B, H, W)) for a, b in channel_groups(C, MAX_C)])
     else:
+        if use_mip:
+            da = lvl_d
+            flevel = mip_level(da, tex.shape[-3], tex.shape[-2], L, lvl_bias)
+        else:
+            flevel = torch.zeros(N, dtype=torch.float32, device=uv.device)
         out = torch.cat([sample(flat[:, a:b].contiguous(), uvf[:, 0], uvf[:, 1], flevel,
                                 meta, (B, H, W), D > 1, boundary_mode, filter_mode)
                          for a, b in channel_groups(C, MAX_C)])

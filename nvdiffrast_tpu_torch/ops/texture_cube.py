@@ -6,8 +6,11 @@ Copies of ``nvdiffrast_tpu/ops/texture.py``'s ``_cube_faceid``,
 ``_cube_st_da_cols`` / ``_cube_uv_da_to_st_da`` and of
 ``nvdiffrast_tpu/ops/texture_pallas.py``'s chained-where forms
 ``_face_dir_2d``, ``_faceid_project_2d``, ``_wrap_corner_2d`` and
-``cube_corner_setup``, which the cube kernels (``csrc/texture_cube.cu``)
-restate in C++ with the same float32 operation order.
+``cube_corner_setup``, which the cube kernels restate in C++ with the
+same float32 operation order: the sampler and its tiles pass
+(``csrc/texture_cube.cu``) the chained-where forms, and the per-pixel
+setup (``csrc/texture_cube_setup.cu``; ``texture_cube_cuda.cube_setup``)
+``cube_faceid``, ``cube_project`` and ``cube_st_da``.
 
 The JAX package gets the footprint Jacobian d(s, t)/d(X, Y) from
 ``jax.jvp`` of the face projection and its gradient from autodiff of

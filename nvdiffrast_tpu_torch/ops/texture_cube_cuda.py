@@ -2,9 +2,16 @@
 gradient: CUDA kernels (torch).
 
 Counterpart of ``nvdiffrast_tpu/ops/texture_pallas.py``'s ``_call_cube``
-(B12; kernel body ``_build_cube_kernel``) in its modes, and of the
-texture gradient of its vjp (``_sample_cube_bwd``):
+(B12; kernel body ``_build_cube_kernel``) in its modes, of the texture
+gradient of its vjp (``_sample_cube_bwd``), and of the per-pixel glue
+before it:
 
+* ``cube_setup`` (kernel ``csrc/texture_cube_setup.cu``): the
+  per-pixel columns the sampler reads, from the directions, their screen
+  derivatives and the level bias in one pass: face, (s, t) clipped,
+  validity, texture index, and the level of the face coordinates'
+  footprint (the footprint Jacobian too where the level's vjp needs it);
+  no Pallas kernel, XLA fuses the JAX package's glue;
 * ``sample_cube`` (kernel ``csrc/texture_cube.cu``, ``cube_fwd``):
   seamless cube-map samples [C, N] of the flat-packed 6-face pyramid at
   per-pixel face coordinates (s, t), mip level, validity, face and
@@ -24,9 +31,10 @@ texture gradient of its vjp (``_sample_cube_bwd``):
   partial count). ``cube_grads`` computes (gs, gt, gfl) and the texture
   gradient in one pass.
 
-``sample_cube_plain`` and ``cube_bwd_plain`` are the plain PyTorch twins
-of the samplers with the same arithmetic; ``cube_grad_entries`` expands
-every tap as ``_sample_cube_bwd`` does, and the CPU path sums them with
+``cube_setup_plain``, ``sample_cube_plain`` and ``cube_bwd_plain`` are
+the plain PyTorch twins of the setup and the samplers with the same
+arithmetic; ``cube_grad_entries`` expands every tap as
+``_sample_cube_bwd`` does, and the CPU path sums them with
 ``scatter.scatter_add_by_id_plain`` (float64 ``index_add_``);
 ``cube_tile_partials_plain`` replays the tiles pass's partials bit for
 bit (``segments.run_sums``).
@@ -42,12 +50,20 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.trace import span
 from . import segments
 from .pipeline_bwd_cuda import _device_of
 from .scatter import scatter_add_by_id_plain
 from .texture_bwd_cuda import _meta_arg
-from .texture_cube import cube_corner_setup
+from .texture import mip_level_plain
+from .texture_cube import cube_corner_setup, cube_faceid, cube_project, cube_st_da
 from .texture_cuda import FILTER, MAX_C, MAX_LEVELS, level_weights
+
+# The per-pixel setup of a cube lookup (csrc/texture_cube_setup.cu).
+SETUP_KERNEL = _build.Kernel(
+    "nvdr_cube_setup",
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] * 2 + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 4)
 
 FWD_KERNEL = _build.Kernel(
     "nvdr_texture_cube_fwd",
@@ -139,6 +155,70 @@ def sample_cube(flat, cols, meta, filter_mode, shape=None):
         FWD_KERNEL.launch(flat.device, _build.ptr(flat), *(_build.ptr(x) for x in cols),
                           _build.ptr(out), _meta_arg(meta), B, H, W, C, L, FILTER[filter_mode])
     return out
+
+
+def _check_setup(uv, uvd, bias, w, L, hw, keep_da):
+    """N, the pixels of the cube setup's columns: uv [N, 3], uvd [N, 6]
+    or None, bias [N] or None, float32 on one device, the CPU or a CUDA
+    device; ValueError otherwise."""
+    if uv.ndim != 2 or uv.shape[1] != 3:
+        raise ValueError(f"cube_setup: uv must be [N, 3]; got {tuple(uv.shape)}")
+    N = uv.shape[0]
+    if uvd is not None and tuple(uvd.shape) != (N, 6):
+        raise ValueError(f"cube_setup: uv_da must be [{N}, 6]; got {tuple(uvd.shape)}")
+    if bias is not None and tuple(bias.shape) != (N,):
+        raise ValueError(f"cube_setup: bias must be flat [{N}]; got {tuple(bias.shape)}")
+    ts = [x for x in (uv, uvd, bias) if x is not None]
+    if any(x.dtype != torch.float32 or x.device != uv.device for x in ts):
+        raise ValueError("cube_setup: expects float32 tensors on one device")
+    _device_of(uv, "cube_setup")
+    if w < 1 or not 1 <= L <= MAX_LEVELS or hw < 0 or (hw and N % hw):
+        raise ValueError(f"cube_setup: face width {w}, {L} levels, {hw} pixels an image "
+                         f"for {N} pixels")
+    if keep_da and uvd is None:
+        raise ValueError("cube_setup: keep_da needs uv_da")
+    if N >= 2 ** 31:
+        raise ValueError("cube_setup: 2**31 pixels or more")
+    return N
+
+
+def cube_setup(uv, uvd, bias, w, L, hw, keep_da=False):
+    """The per-pixel setup of a cube-map lookup: ((s, t, flevel, finite,
+    face, tz), da).
+
+    Args:
+      uv: [N, 3] float32 directions, any strides.
+      uvd: [N, 6] float32 screen derivatives of the directions (dx/dX,
+        dx/dY, dy/dX, dy/dY, dz/dX, dz/dY), any strides, or None; with
+        it the level has the footprint of the face coordinates.
+      bias: [N] level bias or None. Without uvd and bias the level is 0.
+      w: the base level's face width; L: the number of levels.
+      hw: the pixels of an image: pixel p samples texture p // hw; 0 for
+        one texture (tz = 0).
+      keep_da: also return the footprint Jacobian da [4, N] (ds/dX,
+        ds/dY, dt/dX, dt/dY), which the level's vjp reads; else None.
+
+    Returns the columns ``sample_cube`` and ``cube_grads`` read: s, t in
+    [0, 1] and flevel float32, finite, face and tz int32, each [N]. CPU
+    tensors run ``cube_setup_plain``; CUDA tensors one launch of
+    csrc/texture_cube_setup.cu, bit for bit the twin's on the card.
+    """
+    N = _check_setup(uv, uvd, bias, w, L, hw, keep_da)
+    if uv.device.type == "cpu":
+        return cube_setup_plain(uv, uvd, bias, w, L, hw, keep_da)
+    dev = uv.device
+    bias = None if bias is None else bias.contiguous()
+    fout = torch.empty((3, N), dtype=torch.float32, device=dev)
+    iout = torch.empty((3, N), dtype=torch.int32, device=dev)
+    da = torch.empty((4, N), dtype=torch.float32, device=dev) if keep_da else None
+    if N:
+        SETUP_KERNEL.launch(dev, _build.ptr(uv), uv.stride(0), uv.stride(1),
+                            *((None, 0, 0) if uvd is None else
+                              (_build.ptr(uvd), uvd.stride(0), uvd.stride(1))),
+                            None if bias is None else _build.ptr(bias), _build.ptr(fout),
+                            _build.ptr(iout), None if da is None else _build.ptr(da), N,
+                            int(hw), int(w), int(L))
+    return (fout[0], fout[1], fout[2], iout[0], iout[1], iout[2]), da
 
 
 def _tile_blocks(shape):
@@ -254,6 +334,28 @@ def _level_taps(flat, s, t, face, tz, lev, meta):
     ids = [base + r * wl + c for r, c in zip(rows4, cols4)]
     q = [flat[i].T for i in ids] if flat is not None else None
     return q, ok4, fu, fv, w4, ids, wl
+
+
+def cube_setup_plain(uv, uvd, bias, w, L, hw, keep_da=False):
+    """Plain PyTorch twin of the cube setup kernel (``cube_setup``): the
+    glue ``cube_faceid``, ``cube_project``, ``cube_st_da`` and
+    ``mip_level_plain`` of the face coordinates' footprint."""
+    N = _check_setup(uv, uvd, bias, w, L, hw, keep_da)
+    x, y, z = uv.unbind(1)
+    da = None
+    if uvd is not None:
+        with span("nvdr.tex.cube.da"):
+            da = torch.stack(cube_st_da(x, y, z, uvd.T))
+    if da is None and bias is None:
+        flevel = torch.zeros(N, dtype=torch.float32, device=uv.device)
+    else:
+        flevel = mip_level_plain(da, w, w, L, bias)
+    finfo = cube_faceid(x, y, z)
+    s, t, finite = cube_project(finfo, x, y, z)
+    tz = (torch.arange(N, device=uv.device) // hw if hw
+          else torch.zeros(N, dtype=torch.int64, device=uv.device))
+    cols = (s, t, flevel) + tuple(a.to(torch.int32) for a in (finite, finfo[0], tz))
+    return cols, (da if keep_da else None)
 
 
 def _fill_corners(q, ok4):

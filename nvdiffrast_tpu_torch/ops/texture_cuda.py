@@ -10,7 +10,8 @@ twin with the same arithmetic (``corner_setup`` and ``level_weights``).
 
 ``csrc/mip_level.cu`` computes the level those filters read and its
 vjp, one pass a pixel each way (``launch_mip_level``,
-``launch_level_vjp``); ``texture.mip_level`` and ``texture.level_vjp``
+``launch_level_vjp``; the arithmetic in ``csrc/mip_level.cuh``, which
+the cube setup kernel shares); ``texture.mip_level`` and ``texture.level_vjp``
 launch them for CUDA tensors, and their plain twins
 (``texture.mip_level_plain``, ``texture.level_vjp_plain``) run the
 same arithmetic as tensor ops.

@@ -40,7 +40,8 @@ KERNELS = [rasterize_cuda.KERNEL, rasterize_cuda.DB_KERNEL, pipeline_cuda.KERNEL
            pipeline_bwd_cuda.SCATTER_SUM_KERNEL, scatter.COMPACT_KERNEL,
            scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL, texture_cube_cuda.GRAD_COMPACT_KERNEL,
            texture_cube_cuda.GRAD_SEGMENT_KERNEL, texture_cube_cuda.GRAD_SUM_KERNEL,
-           texture_cuda.LEVEL_KERNEL, texture_cuda.LEVEL_VJP_KERNEL]
+           texture_cuda.LEVEL_KERNEL, texture_cuda.LEVEL_VJP_KERNEL,
+           texture_cube_cuda.SETUP_KERNEL]
 
 
 def _fake_nvcc(bin_dir, log, exit_code=0):
@@ -91,7 +92,7 @@ def test_cuda_sources_exist():
             "texture_bwd.cu", "texture_grad.cu", "interp_raster_bwd_tex.cu",
             "interpolate_bwd.cu", "aa_bwd.cu", "table_take.cu", "scatter_rows.cu",
             "texture_cube.cu", "raster_bin.cu", "raster_setup.cu", "segment_sum.cu",
-            "mip_level.cu"} <= names
+            "mip_level.cu", "texture_cube_setup.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for kernel in KERNELS:
         assert f'extern "C" int {kernel.symbol}(' in text
@@ -109,6 +110,10 @@ def test_cuda_sources_exist():
     # The samplers' corner setup and level weights: one header.
     for name in ("texture_fwd.cu", "texture_bwd.cu", "texture_grad.cu", "texture_cube.cu"):
         assert '#include "texture_corner.cuh"' in (_build.SRC_DIR / name).read_text()
+    # The mip level's arithmetic: one header, so the cube setup's level has
+    # the level kernel's bits.
+    for name in ("mip_level.cu", "texture_cube_setup.cu"):
+        assert '#include "mip_level.cuh"' in (_build.SRC_DIR / name).read_text()
     assert 'extern "C" const char* nvdr_error_string(' in text
     assert all(p.parent == _build.SRC_DIR for p in _build.sources())
 

@@ -1009,6 +1009,147 @@ def test_cube_tile_partials_match_twin(dev, filter_mode, D, cap, mixed_tz):
         assert torch.equal(a.view(torch.int32), c.view(torch.int32)) and torch.equal(a, b)
 
 
+def _setup_inputs(n, seed, L):
+    """(uv [n, 3], uvd [n, 6], bias [n]) as numpy for the cube setup:
+    random directions, derivatives over four decades and biases, then the
+    edge cases first: exact ties |x| = |y|, |x| = |z|, |y| = |z| (= |x|),
+    face edges and cube corners, s or t exactly 0 or 1, zero and signed
+    zero directions, subnormal and huge components, +-inf and NaN
+    components; zero, infinite, NaN, huge and subnormal derivatives;
+    biases on 0 and L-1, negative, past L-1 and NaN."""
+    rng = np.random.RandomState(seed)
+    uv = rng.randn(n, 3).astype(np.float32)
+    uvd = (rng.randn(n, 6) * 10.0 ** rng.uniform(-4, 0, (n, 6))).astype(np.float32)
+    bias = rng.uniform(-2.0, L + 1.0, n).astype(np.float32)
+    inf, nan = np.inf, np.nan
+    special = np.array([
+        [1, 1, 0.5], [1, -1, 0.2], [-1, 0.3, 1], [0.5, 2, -2], [3, 3, 3], [-1, -1, -1],
+        [2, -2, 2], [0.25, 0.25, 0.1], [1, 0, 1], [2, 0, -2], [1, 1, 0], [-1, 0, 1],
+        [0, 1, 1], [0, -1, -1], [-1, 1, -1], [1, 0.5, 0], [1, 0, 0], [0, 0, -1], [0, 1, 0],
+        [1, -1, 0], [0, 0, 0], [-0.0, 0, -0.0], [1e-40, 0, 0], [1e-40, 5e-41, 1e-41],
+        [-1e-45, 0, 0], [3e38, 1, -1], [3e38, 3e38, 1], [inf, 1, 1], [1, -inf, 0],
+        [inf, inf, 1], [inf, -inf, inf], [0, 0, -inf], [nan, 1, 1], [1, nan, 0],
+        [0, 0, nan], [nan, nan, nan], [inf, nan, 1]], np.float32)
+    k = min(n, len(special))
+    uv[:k] = special[:k]
+    for j, val in enumerate([0.0, inf, -inf, nan, 3e38, 1e-40]):
+        if 46 + j < n:
+            uvd[40 + j] = val          # every derivative
+            uvd[46 + j, j] = val       # one of them
+    sb = np.array([0.0, L - 1.0, -0.0, -1.5, L + 3.0, nan, 0.5, 2.0], np.float32)
+    bias[50:50 + len(sb)] = sb[:max(0, min(n, 50 + len(sb)) - 50)]
+    return uv, uvd, bias
+
+
+def _same_bits(got, ref):
+    """NaN at the same entries, the same bits everywhere else."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.dtype != torch.float32:
+        assert torch.equal(got, ref)
+        return
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+
+
+SETUP_CASES = {  # (derivatives, bias, per-image texture index, Jacobian kept)
+    "footprint": (True, False, False, False),
+    "footprint_kept": (True, False, False, True),
+    "footprint_bias_per_image": (True, True, True, True),
+    "bias_per_image": (False, True, True, False),
+    "no_level": (False, False, False, False),
+    "strided": (True, True, False, True),
+}
+
+
+@pytest.mark.parametrize("n", [0, 1, 300, 70_000])
+@pytest.mark.parametrize("case", sorted(SETUP_CASES))
+def test_cube_setup_kernel_matches_twin(dev, case, n):
+    """The cube setup kernel's columns (s, t, flevel, finite, face, tz)
+    and footprint Jacobian bit for bit with cube_setup_plain's on the same
+    CUDA tensors, one launch a call and no level kernel; `strided` reads
+    uv from every other column of a wider buffer and uv_da through a
+    transposed [6, N] layout."""
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    L, w, hw = 10, 512, 100
+    with_d, with_b, per_image, keep = SETUP_CASES[case]
+    uv, uvd, bias = (torch.from_numpy(a).to(dev) for a in _setup_inputs(n, n, L))
+    if case == "strided":
+        uv = torch.stack([uv, torch.zeros_like(uv)], 2).reshape(n, 6)[:, 0::2]
+        uvd = uvd.T.contiguous().T
+        assert n < 2 or (uv.stride() == (6, 2) and uvd.stride() == (1, n))
+    args = (uv, uvd if with_d else None, bias if with_b else None, w, L,
+            hw if per_image and n % hw == 0 else 0, keep)
+    before = (tcc.SETUP_KERNEL.launches, tc.LEVEL_KERNEL.launches)
+    got_cols, got_da = tcc.cube_setup(*args)
+    ref_cols, ref_da = tcc.cube_setup_plain(*args)
+    torch.cuda.synchronize()
+    assert (tcc.SETUP_KERNEL.launches, tc.LEVEL_KERNEL.launches) == (
+        before[0] + (n > 0), before[1])
+    assert [c.dtype for c in got_cols] == [torch.float32] * 3 + [torch.int32] * 3
+    for g, r in zip(got_cols, ref_cols):
+        _same_bits(g, r)
+    assert (got_da is None) == (ref_da is None) == (not keep)
+    if keep:
+        _same_bits(got_da, ref_da)
+    if n > 1000:  # the edge cases land on both sides of every choice
+        s, t, fl, fin, face = got_cols[:5]
+        assert set(face.unique().tolist()) == set(range(6))
+        assert bool((fin == 0).any()) and bool((s == 0).any()) and bool((t == 1).any())
+        if with_d:
+            assert bool((fl == 0).any()) and bool(((fl > 0) & (fl < L - 1)).any())
+
+
+@pytest.mark.parametrize("filter_mode,D,bias,grad", [
+    ("linear", 1, False, False), ("linear-mipmap-linear", 1, False, False),
+    ("linear-mipmap-linear", 2, True, False), ("linear-mipmap-nearest", 2, False, True),
+    ("linear-mipmap-linear", 1, True, True)])
+def test_texture_cube_forward_launches_the_setup_once(dev, filter_mode, D, bias, grad):
+    """One cube texture() forward launches the setup kernel exactly once
+    (``_build.launch_counts()``) and no level kernel, and its image is the
+    sampler's from the twin's columns, bit for bit; with gradients to the
+    directions, the backward (which reads the kept Jacobian) matches the
+    CPU path."""
+    from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
+
+    rng = np.random.RandomState(11 + D)
+    B, H, W, fw = 2, 24, 40, 16
+    arrays = (rng.rand(D, 6, fw, fw, 3), rng.randn(B, H, W, 3),
+              rng.randn(B, H, W, 6) * 0.05, rng.uniform(-1, 5, (B, H, W)))
+
+    def run(device):
+        tex, uv, uv_da, b = (torch.tensor(a, dtype=torch.float32, device=device)
+                             for a in arrays)
+        if grad:
+            uv.requires_grad_()
+        img = dr.texture(tex, uv, uv_da, b if bias else None, filter_mode=filter_mode,
+                         boundary_mode="cube")
+        g = torch.autograd.grad((img ** 2).sum(), uv) if grad else ()
+        return (tex, uv.detach(), uv_da, b, img.detach()) + tuple(g)
+
+    before = _build.launch_counts()
+    tex, uv, uv_da, b, img, *g = run(dev)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    rise = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    assert rise.get(tcc.SETUP_KERNEL.name) == 1 and tc.LEVEL_KERNEL.name not in rise, rise
+    N = B * H * W
+    mip = "mipmap" in filter_mode
+    levels = [tex] + (tx.build_mip_stack(tex, -1, True) if mip else [])
+    meta, _ = tx._static_meta(levels)
+    cols, _ = tcc.cube_setup_plain(uv.reshape(N, 3), uv_da.reshape(N, 6) if mip else None,
+                                   b.reshape(N) if bias and mip else None, fw, len(levels),
+                                   H * W if D > 1 else 0)
+    ref = tcc.sample_cube(tx._pack_pyramid(levels), cols, meta, filter_mode, (B, H, W))
+    assert torch.equal(img, ref.T.reshape(B, H, W, 3))
+    if grad:
+        cpu = run("cpu")[5]
+        assert bool(torch.isfinite(g[0]).all()) and bool((g[0] != 0).any())
+        assert float((g[0].cpu() - cpu).abs().max()) <= 1e-5 * float(cpu.abs().max())
+
+
 @pytest.mark.parametrize("case", ["cube", "cube9", "2d_mip", "2d_bias", "2d_nearest"])
 def test_texture_op_gpu_matches_cpu(dev, case):
     rng = np.random.RandomState(5)

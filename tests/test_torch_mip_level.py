@@ -15,6 +15,7 @@ import torch
 
 import nvdiffrast_tpu_torch as dr
 from nvdiffrast_tpu_torch.ops import texture as tx
+from nvdiffrast_tpu_torch.ops import texture_cube_cuda as tcc
 from nvdiffrast_tpu_torch.ops import texture_cuda as tc
 
 from _torch_parity import textured_scene
@@ -143,11 +144,13 @@ def _pipeline_step(dev, res=(96, 128)):
 
 
 def _twins_in(monkeypatch):
-    """Route texture.py's level calls to the plain twins (on the card)."""
+    """Route texture.py's level calls and the cube setup (which computes
+    the cube lookup's level) to the plain twins (on the card)."""
     monkeypatch.setattr(tx, "launch_mip_level",
                         lambda da, bias, h, w, L: tx.mip_level_plain(da, h, w, L, bias))
     monkeypatch.setattr(tx, "launch_level_vjp",
                         lambda da, gfl, bias, h, w, L: tx.level_vjp_plain(da, gfl, h, w, L, bias))
+    monkeypatch.setattr(tcc, "cube_setup", tcc.cube_setup_plain)
 
 
 def test_textured_pipeline_launches_each_level_kernel_once(dev):
@@ -178,7 +181,9 @@ def test_textured_pipeline_kernels_equal_twins(dev, monkeypatch):
 @pytest.mark.parametrize("inputs", ["uv_da", "uv_da_bias", "bias"])
 def test_texture_op_kernels_equal_twins(dev, monkeypatch, cube, inputs):
     """texture() forward and backward, with uv_da (2-D: the [N, 4] view
-    of uv_da; cube: the face derivatives) and / or mip_level_bias."""
+    of uv_da; cube: the face derivatives) and / or mip_level_bias. A cube
+    lookup's level comes from the cube setup kernel, not the level
+    kernel."""
     rng = np.random.RandomState(6)
     B, H, W = 2, 24, 40
     tex = rng.rand(1, 6, 16, 16, 3) if cube else rng.rand(2, 32, 64, 3)
@@ -196,9 +201,10 @@ def test_texture_op_kernels_equal_twins(dev, monkeypatch, cube, inputs):
         used = xs[:2] + [x for x, u in zip(xs[2:], use) if u]
         return (img.detach(),) + torch.autograd.grad((img ** 2).sum(), used)
 
-    fwd, bwd = tc.LEVEL_KERNEL.launches, tc.LEVEL_VJP_KERNEL.launches
+    kernels = (tc.LEVEL_KERNEL, tc.LEVEL_VJP_KERNEL, tcc.SETUP_KERNEL)
+    before = [k.launches for k in kernels]
     got = run()
-    assert (tc.LEVEL_KERNEL.launches, tc.LEVEL_VJP_KERNEL.launches) == (fwd + 1, bwd + 1)
+    assert [k.launches - n for k, n in zip(kernels, before)] == [int(not cube), 1, int(cube)]
     _twins_in(monkeypatch)
     ref = run()
     torch.cuda.synchronize()

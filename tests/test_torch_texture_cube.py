@@ -107,6 +107,57 @@ def test_cube_footprint_jacobian_matches_jax():
                                atol=1e-6 * np.abs(ref).max())
 
 
+def test_cube_setup_cpu_runs_the_twin_and_matches_jax():
+    """On CPU tensors ``cube_setup`` is its plain twin, and its columns
+    match JAX's texture() glue: face and validity exactly, s and t within
+    2 ulps, the per-image texture index, and the level of the face
+    coordinates' footprint plus a bias, clipped, within 1e-5."""
+    v, da = _dirs()
+    N, L, w = len(v), 5, 16
+    bias = np.random.RandomState(4).uniform(-1, L, N).astype(np.float32)
+    args = (_t(v), _t(da), _t(bias), w, L, N // 2, True)
+    (s, t, fl, fin, face, tz), d4 = tcc.cube_setup(*args)
+    ref_cols, ref_d4 = tcc.cube_setup_plain(*args)
+    for a, b in zip((s, t, fl, fin, face, tz, d4), ref_cols + (ref_d4,)):
+        assert torch.equal(a, b)
+    jv = jnp.asarray(v)
+    jf = jtx._cube_faceid(jv[:, 0], jv[:, 1], jv[:, 2])
+    js, jt, jfin = jtx._cube_project(jf, jv[:, 0], jv[:, 1], jv[:, 2])
+    np.testing.assert_array_equal(np.asarray(jf[0]), face.numpy())
+    np.testing.assert_array_equal(np.asarray(jfin), fin.numpy() != 0)
+    assert _ulps(js, s.numpy()).max() <= 2 and _ulps(jt, t.numpy()).max() <= 2
+    np.testing.assert_array_equal(tz.numpy(), np.arange(N) // (N // 2))
+    st_da = jtx._cube_uv_da_to_st_da(jv, jnp.asarray(da))
+    jfl = jnp.clip(jtx._mip_level_from_footprint(st_da, float(w), float(w)) + bias, 0.0, L - 1.0)
+    np.testing.assert_allclose(fl.numpy(), np.asarray(jfl), rtol=0, atol=1e-5)
+
+
+SETUP_BAD = {
+    "uv_shape": lambda kw: dict(uv=torch.randn(12, 2)),
+    "uv_da_shape": lambda kw: dict(uvd=torch.randn(12, 4)),
+    "bias_shape": lambda kw: dict(bias=torch.randn(13)),
+    "dtype": lambda kw: dict(uv=kw["uv"].double()),
+    "device": lambda kw: {k: kw[k].to("meta") for k in ("uv", "uvd", "bias")},
+    "devices": lambda kw: dict(bias=kw["bias"].to("meta")),
+    "keep_da_without_uv_da": lambda kw: dict(uvd=None),
+    "levels": lambda kw: dict(L=0),
+    "image_size": lambda kw: dict(hw=5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SETUP_BAD))
+def test_cube_setup_checks_its_arguments(case):
+    """``cube_setup`` (the launcher) and its twin raise ValueError on a
+    shape, dtype, device (one other than the CPU and CUDA, or two of them),
+    level count or image size the kernel does not take."""
+    kw = dict(uv=torch.randn(12, 3), uvd=torch.randn(12, 6), bias=torch.randn(12), w=4, L=3,
+              hw=6, keep_da=True)
+    tcc.cube_setup(**kw)
+    for fn in (tcc.cube_setup, tcc.cube_setup_plain):
+        with pytest.raises(ValueError):
+            fn(**{**kw, **SETUP_BAD[case](kw)})
+
+
 @pytest.mark.parametrize("w", [1, 2, 5, 8])
 def test_cube_wrap_matches_jax(w):
     """Every texel one step around each face, both forms of the wrap."""
