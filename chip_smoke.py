@@ -362,6 +362,91 @@ def bits_equal(x, y):
                                               y.contiguous().view(torch.int32))
 
 
+def device_ms(fn, iters):
+    """(device ms, device ops) of one fn(): torch.profiler's device
+    events over `iters` calls, so host time around a sync is left out."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("nvdr.")]
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters,
+            len(kernels) / iters)
+
+
+def host_syncs(fn):
+    """Host synchronisations during one fn() after a warm one (torch's
+    sync debug mode)."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def quad_scene():
+    """(pos [1, 4, 4], tri [2, 3], col [1, 4, 3]) numpy: two triangles past
+    the frame (colours from seed 1), so each triangle's row takes an entry
+    from every pixel of its half."""
+    import numpy as np
+
+    pos = np.array([[[-1.2, -1.2, 0.0, 1.0], [1.2, -1.2, 0.0, 1.0], [-1.2, 1.2, 0.0, 1.0],
+                     [1.2, 1.2, 0.0, 1.0]]], np.float32)
+    tri = np.array([[0, 1, 2], [1, 3, 2]], np.int32)
+    col = np.random.default_rng(1).random((1, 4, 3)).astype(np.float32)
+    return pos, tri, col
+
+
+def scatter_args(pos, tri, attr, attr_idx, res):
+    """grad_scatter's arguments from render_pipeline's saved forward state
+    on (pos, tri, attr, attr_idx) at res, with dy the gradient of
+    mean(img**2)."""
+    import torch
+    from nvdiffrast_tpu_torch.ops import pipeline as pl
+    from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as pb
+    from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
+
+    T, A = tri.shape[0], attr.shape[-1]
+    color, saved = pl._pipeline_fwd_core(pos, attr, tri, attr_idx, build_opposite_table(tri),
+                                         res)
+    b0, b1, idf, c0, al0, ax0, al1, ax1, atbl, vtbl = saved
+    color = color.requires_grad_()
+    dy = torch.autograd.grad((color ** 2).mean(), color)[0].reshape(-1, A).T.contiguous()
+    gs, dd2, rid2 = pb.pipeline_bwd(atbl, vtbl, idf, c0, dy, (al0, ax0, al1, ax1), res, T)
+    return (pl.own_rows(idf, T, res), gs, dd2, rid2, b0, b1, ax0, ax1, vtbl, res)
+
+
+def with_da4(sargs, seed):
+    """scatter_args as the textured chain makes the call (A = 2, da4
+    [4, N]): seeded gs and da4 columns on the pixels whose colour row is
+    live. Returns (sargs, da4)."""
+    import numpy as np
+    import torch
+
+    N = sargs[0].shape[0]
+    rng = np.random.default_rng(seed)
+    live = (sargs[1][0] != 0).float()
+    gs = torch.from_numpy(rng.standard_normal((11, N)).astype(np.float32)).to(live.device)
+    da4 = torch.from_numpy(rng.standard_normal((4, N)).astype(np.float32)).to(live.device)
+    return (sargs[0], gs * live) + sargs[2:], da4 * live
+
+
 def setup_equal_or_raise(rc, p, t, res, viewport, what):
     """The record setup kernel against build_records (and the tile counts
     and chunk boxes against their twins), bit for bit; returns the setup
@@ -652,7 +737,6 @@ def phase16(dev, card, entry):
     from nvdiffrast_tpu_torch.ops import pipeline_cuda as pc
     from nvdiffrast_tpu_torch.ops import rasterize as ra
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
-    from nvdiffrast_tpu_torch.profile_step import host_syncs, scatter_args
     from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
     res = (RES, RES)
@@ -1545,10 +1629,8 @@ def main():
     from nvdiffrast_tpu_torch.ops import pipeline_tex_bwd_cuda as ptb
     from nvdiffrast_tpu_torch.ops import texture_bwd_cuda as txb
     from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
-    from nvdiffrast_tpu_torch.ops.antialias import _build_tables, pair_ids
-    from nvdiffrast_tpu_torch.ops.topology import build_opposite_table
-    from nvdiffrast_tpu_torch.profile_step import _device_ms as device_ms
-    from nvdiffrast_tpu_torch.profile_step import host_syncs, quad_scene, scatter_args, with_da4
+    from nvdiffrast_tpu_torch.ops.antialias import pair_ids
+    from nvdiffrast_tpu_torch.ops.topology import _attr_table, _build_tables, build_opposite_table
     from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1632,7 +1714,7 @@ def main():
     N = RES * RES
     T = tri.shape[0]
     b0f, b1f, zwf, idff = (x.reshape(N) for x in got)
-    atbl = pl._attr_table(a, c, 1, T)
+    atbl = _attr_table(a, c, 1, T)
     ftable, _, _, _ = _build_tables(p, t, build_opposite_table(t), RES, RES)
     args = (atbl, ftable, b0f, b1f, zwf, idff, res, T)
     kc = pc.shade_cols(*args)
@@ -1718,7 +1800,7 @@ def main():
         u, v, zw, idf = rc.rasterize_records_plain(rec_, aabb_, tres)
         n = tres[0] * tres[1]
         ft, _, _, _ = _build_tables(view, t8, op8, *tres)
-        cols = pc.shade_cols_plain(pl._attr_table(a8, c8, 1, T), ft, u.reshape(n),
+        cols = pc.shade_cols_plain(_attr_table(a8, c8, 1, T), ft, u.reshape(n),
                                    v.reshape(n), zw.reshape(n), idf.reshape(n), tres, T)
         return pc.finish_shade(cols, tres[1])
 
@@ -1934,7 +2016,7 @@ def main():
         f"twin {db_plain_ms:.3f} ms ({card})")
 
     u, v, zw, idf, *db = (x.reshape(N) for x in got)
-    utbl = pl._attr_table(tuv, tu, 1, T)
+    utbl = _attr_table(tuv, tu, 1, T)
     iargs = (utbl, u, v, idf, tuple(db), (0, 1))
     uv, da = ic.interp_forward(*iargs)
     interp_err = equal_or_raise((uv, da), ic.interp_forward_plain(*iargs), "interp_fwd")
@@ -2147,7 +2229,7 @@ def main():
     log(f"[9] level_vjp {RES}^2: equal to its twin bit for bit; max|g_da| "
         f"{float(gda9.abs().max()):.3g}; kernel {vjp_ms:.4f} ms, twin {vjp_plain_ms:.3f} ms "
         f"({card})")
-    iargs9 = (pl._attr_table(tuv, tu, 1, T), vtbl9, idf9, gu9, gv9, gda9, torch.stack(db9),
+    iargs9 = (_attr_table(tuv, tu, 1, T), vtbl9, idf9, gu9, gv9, gda9, torch.stack(db9),
               res, T)
     out15 = ptb.interp_raster_bwd_tex(*iargs9)
     b14_err = equal_or_raise((out15,), (ptb.interp_raster_bwd_tex_plain(*iargs9),),
@@ -2297,7 +2379,7 @@ def main():
     shape1 = (1, RES, RES)
     routs = rc.rasterize_fused(p, t, res, emit_db=True)
     u11, v11, zw11, idf11 = (x.reshape(N) for x in routs[:4])
-    atbl11 = pl._attr_table(a, c, 1, T)
+    atbl11 = _attr_table(a, c, 1, T)
     ct11, _ = ic.interp_forward(atbl11, u11, v11, idf11, None, ())
     ftable11, vtbl11, _, _ = _build_tables(p, t, build_opposite_table(t), RES, RES)
     aimg, res11 = ac.aa_forward(ct11, idf11, zw11, ftable11, shape1, T)

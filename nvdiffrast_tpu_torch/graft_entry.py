@@ -118,11 +118,10 @@ def _dryrun_rank(rank, n, tmp, device_type, backend):
 
 def _dryrun_steps(rank, n, device_type):
     from .models import primitives
-    from .ops.antialias import TopologyHashWrapper, antialias
+    from .ops.antialias import antialias, antialias_construct_topology_hash
     from .ops.interpolate import interpolate
     from .ops.rasterize import rasterize
     from .ops.texture import texture
-    from .ops.topology import build_opposite_table
     from .parallel import antialias_sp, make_mesh, replicated, shard_map_train_step
     from .parallel.collectives import Axis, all_reduce_sum
     from .utils import camera
@@ -139,7 +138,7 @@ def _dryrun_steps(rank, n, device_type):
     mvp = camera.projection(x=0.4) @ mv
     posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
     pos_one = torch.as_tensor((posw @ mvp.T)[None].astype(np.float32), device=dev)
-    topo = TopologyHashWrapper(build_opposite_table(tri))
+    topo = antialias_construct_topology_hash(tri)
 
     def shade(tex, pos_clip, size, viewport=None, aa=None):
         rast, rast_db = rasterize(None, pos_clip, tri, size, viewport=viewport)

@@ -2,10 +2,10 @@
 
 Counterpart of ``nvdiffrast_tpu/ops/antialias.py``: the shared per-pair
 math (``pair_ids``, ``pair_alpha`` and their sign and rational helpers;
-the backward's ``pair_pos_grad`` and ``decode_aux``), the per-triangle
-tables, the flat pixel grid, the topology wrapper, and ``antialias``, a
-``torch.autograd.Function`` in instance and range mode and under a
-viewport. Its forward is kernel B7
+the backward's ``pair_pos_grad`` and ``decode_aux``), the flat pixel
+grid, and ``antialias``, a ``torch.autograd.Function`` in instance and
+range mode and under a viewport; its per-triangle tables and the
+topology wrapper it exports are ``topology``'s. Its forward is kernel B7
 (``antialias_cuda.aa_forward``); its backward kernel B8
 (``antialias_cuda.aa_backward``), the reduction of the pairs' position
 gradients to triangle rows (kernel B10, ``scatter.scatter_add_by_id``)
@@ -14,42 +14,20 @@ gets no gradient. The math is the same expressions in the same order;
 the plain twins and the CUDA kernels (``csrc/aa_pair.cuh``) follow it.
 """
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils.trace import span, spanned
-from .topology import build_opposite_table
+from ..utils.trace import spanned
+from .rasterize import as_device_tensor
+from .topology import (TopologyHashWrapper, _build_tables, _same_sign,  # noqa: F401
+                       antialias_construct_topology_hash, opposite_table, vertex_pos_grad)
 
 _F32_MAX = 3.402823466e38
-
-
-class TopologyHashWrapper:
-    """Opaque topology table: op[T, 3] int32 opposite vertices.
-
-    Accepts a tensor, or the JAX package's ``op_table`` as a numpy array
-    (the same table; see ``build_opposite_table``).
-    """
-
-    def __init__(self, op_table):
-        if isinstance(op_table, np.ndarray):
-            op_table = torch.from_numpy(np.array(op_table, dtype=np.int32))
-        self.op_table = torch.as_tensor(op_table, dtype=torch.int32)
-
-
-def antialias_construct_topology_hash(tri):
-    """Topology table for a triangle tensor [T, 3] int32."""
-    return TopologyHashWrapper(build_opposite_table(tri))
 
 
 # ---------------------------------------------------------------------------
 # Shared pointwise pair math (antialias.py:92-215).
 # ---------------------------------------------------------------------------
-
-def _same_sign(a, b):
-    # Sign-BIT comparison on the int32 bitcast: +0.0 and -0.0 differ.
-    return (a.view(torch.int32) ^ b.view(torch.int32)) >= 0
-
 
 def _rational_gt(n0, n1, d0, d1):
     return (n0 * d1 > n1 * d0) == _same_sign(d0, d1)
@@ -246,59 +224,8 @@ def decode_aux(aux):
 
 
 # ---------------------------------------------------------------------------
-# Tables (antialias.py:312-401).
+# The flat pixel grid.
 # ---------------------------------------------------------------------------
-
-@spanned("nvdr.aa.tables")
-def _build_tables(pos, tri, op_table, H, W):
-    """Per-triangle screen tables (channel-major) + a dummy zero column.
-
-    pos [B, V, 4] (instance mode) or [V, 4] (range mode: one table),
-    tri/op_table [T, 3]; H: the full image height under a viewport.
-    Returns (ftable [7, B*T+1], btable [9, B*T+1], R = B*T, T), B = 1 in
-    range mode. ftable
-    holds each triangle's screen vertices (SX*3, SY*3) and its wing-sign
-    bitmask: the silhouette test is pixel-independent, so it is
-    evaluated once per triangle. btable holds the raw clip (x, y, w).
-    """
-    T = tri.shape[0]
-    xh = 0.5 * W
-    yh = 0.5 * H
-    tri_l = tri.long()
-    ov = torch.where(op_table >= 0, op_table, tri).long()
-
-    tv = pos[..., tri_l, :]  # [B, T, 3, 4] or [T, 3, 4]
-    o = pos[..., ov, :]
-
-    def screen(q):
-        iw = 1.0 / q[..., 3]
-        return q[..., 0] * iw * xh, q[..., 1] * iw * yh
-
-    sx, sy = screen(tv)  # [B, T, 3]
-    ox, oy = screen(o)
-
-    bb = ((sx[..., 1] - sx[..., 0]) * (sy[..., 2] - sy[..., 0])
-          - (sx[..., 2] - sx[..., 0]) * (sy[..., 1] - sy[..., 0]))
-    a0 = ((sx[..., 1] - ox[..., 0]) * (sy[..., 2] - oy[..., 0])
-          - (sx[..., 2] - ox[..., 0]) * (sy[..., 1] - oy[..., 0]))
-    a1 = ((sx[..., 2] - ox[..., 1]) * (sy[..., 0] - oy[..., 1])
-          - (sx[..., 0] - ox[..., 1]) * (sy[..., 2] - oy[..., 1]))
-    a2 = ((sx[..., 0] - ox[..., 2]) * (sy[..., 1] - oy[..., 2])
-          - (sx[..., 1] - ox[..., 2]) * (sy[..., 0] - oy[..., 2]))
-    sbits = (_same_sign(a0, bb).to(torch.float32)
-             + 2.0 * _same_sign(a1, bb).to(torch.float32)
-             + 4.0 * _same_sign(a2, bb).to(torch.float32))
-
-    ftable = torch.cat([sx, sy, sbits[..., None]], dim=-1).reshape(-1, 7).T
-    with span("nvdr.sync.aa_table_xyw"):  # the list index is copied to the card
-        btable = tv[..., [0, 1, 3]].reshape(-1, 9).T
-    R = ftable.shape[1]
-    zcol7 = torch.zeros((7, 1), dtype=torch.float32, device=pos.device)
-    zcol9 = torch.zeros((9, 1), dtype=torch.float32, device=pos.device)
-    ftable = torch.cat([ftable, zcol7], dim=1).contiguous()
-    btable = torch.cat([btable, zcol9], dim=1).contiguous()
-    return ftable, btable, R, T
-
 
 def _pixel_grid(B, H, W, T, device, viewport=None, ranged=False):
     """(fx, fy, rofs, border_x, border_y) flat [N] tensors.
@@ -359,7 +286,6 @@ def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
     ulps of the columns of one pass, not bit for bit.
     """
     from .antialias_cuda import MAX_C, aa_backward
-    from .rasterize import xyw_rows_to_vertices
     from .scatter import scatter_add_by_id
 
     T = tri.shape[0]
@@ -374,7 +300,7 @@ def aa_bwd_flat(dy, ct, idf, vtbl, residuals, shape, tri, pos_shape, boost,
     if not need_pos:
         return g_color, None
     gt = scatter_add_by_id(rid2.reshape(-1), gval2, vtbl.shape[1] - 1)
-    g_pos = xyw_rows_to_vertices(gt, tri, pos_shape)
+    g_pos = vertex_pos_grad(gt, tri, pos_shape)
     return g_color, (g_pos * boost if boost != 1.0 else g_pos)
 
 
@@ -436,8 +362,6 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
         The antialiased image, shaped like `color`; differentiable with
         respect to `color` and `pos` (rast gets no gradient).
     """
-    from .rasterize import as_device_tensor
-
     color = as_device_tensor(color, "antialias")
     dev = color.device
     rast = torch.as_tensor(rast, dtype=torch.float32, device=dev)
@@ -461,12 +385,7 @@ def antialias(color, rast, pos, tri, topology_hash=None, pos_gradient_boost=1.0,
                          f"{tuple(tri.shape)}")
     if color.shape[-1] < 1:
         raise ValueError("antialias: color has no channels")
-    if topology_hash is not None:
-        if not isinstance(topology_hash, TopologyHashWrapper):
-            raise TypeError("antialias: topology_hash must be a TopologyHashWrapper")
-        op_table = topology_hash.op_table.to(dev)
-    else:
-        op_table = build_opposite_table(tri)
+    op_table = opposite_table(topology_hash, tri, "antialias")
     if viewport is not None:
         viewport = (int(viewport[0]), int(viewport[1]))
     return _AntialiasFn.apply(color, rast, pos, tri, op_table, float(pos_gradient_boost),

@@ -75,7 +75,7 @@ def aa_cols(ct, idf, zw, ftable, shape, T, ranged=False, viewport=None):
     Args:
       ct: [C, N] colour, channel-major; idf, zw: flat [N] rasterizer id
         and depth; ftable: [7, B*T+1], or [7, T+1] when `ranged`
-        (antialias._build_tables);
+        (topology._build_tables);
       shape: (B, H, W); T: triangles per image (per table);
       viewport: (y0, full_height) of the band, or None.
 
@@ -164,7 +164,7 @@ def aa_backward(dy, ct, idf, vtbl, residuals, shape, T, ranged=False, viewport=N
     Args:
       dy: [C, N] loss cotangent of the antialiased image; ct: [C, N] the
         colour it was made from; idf: flat [N] rasterizer id channel;
-      vtbl: [9, B*T+1] clip-space vertex table (antialias._build_tables'
+      vtbl: [9, B*T+1] clip-space vertex table (topology._build_tables'
         btable);
       residuals: (al0, ax0, al1, ax1) flat [N] row-major, from
         ``aa_forward``; shape: (B, H, W); T: triangles per image.

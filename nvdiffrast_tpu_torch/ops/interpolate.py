@@ -5,8 +5,8 @@ a ``torch.autograd.Function``. Its forward runs kernel B5
 (``interpolate_cuda.interp_forward``), its backward kernel B6
 (``interpolate_cuda.interp_backward``) and then the reduction of the
 per-pixel attribute gradients to triangle rows (``scatter``, kernel B10)
-and the deterministic triangle -> vertex sums of the render pipeline
-(``pipeline.vertex_attr_grad``).
+and the deterministic triangle -> vertex sums
+(``topology.vertex_attr_grad``).
 Attributes past the kernels' 16 run as further chunks of 16 through the
 same kernels. The bary gradients land in rast channels 0-1 (2-3 stay
 zero) and, with ``diff_attrs``, the db gradients in ``rast_db``.
@@ -17,9 +17,9 @@ from torch.autograd.function import once_differentiable
 
 from ..utils.trace import spanned
 from .interpolate_cuda import MAX_A, interp_backward, interp_forward
-from .pipeline import _attr_table, vertex_attr_grad
 from .rasterize import as_device_tensor, pixel_rows
 from .scatter import scatter_add_by_id
+from .topology import _attr_table, vertex_attr_grad
 
 
 def _chunks(A, diff_list):

@@ -73,7 +73,7 @@ def interp_forward(tbl, u, v, idf, db, diff_list, T=None, hw=0):
 
     Args:
       tbl: [3A, R+1] attribute table, row k*A + a = channel a of each
-        triangle's vertex k, a zero column last (``pipeline._attr_table``):
+        triangle's vertex k, a zero column last (``topology._attr_table``):
         one for all images (R = T, hw = 0) or one per image (R = B*T,
         hw = H*W, pixel p takes row (p // hw)*T + t).
       u, v, idf: flat [N] rasterizer buffers.

@@ -16,35 +16,16 @@ kernels.
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils.trace import span, spanned
+from ..utils.trace import spanned
 from . import coord
-from .antialias import TopologyHashWrapper, _build_tables
+from .antialias import antialias
+from .interpolate import interpolate
 from .pipeline_bwd_cuda import grad_scatter, pipeline_bwd
 from .pipeline_cuda import MAX_A, shade_fwd
-from .rasterize import as_device_tensor
+from .rasterize import as_device_tensor, rasterize
 from .rasterize_cuda import rasterize_fused
-from .topology import build_opposite_table
-
-
-@spanned("nvdr.attr_table")
-def _attr_table(attr, atri, B, T):
-    """[3A, B*T + 1] attribute table (dummy zero column last).
-
-    Row k*A + a holds channel a of the triangle's vertex k. Broadcast
-    attributes ([V, A] or [1, V, A]) are tiled over the B images so all
-    gathers share the row offset b*T.
-    """
-    A = attr.shape[-1]
-    atri = atri.long()
-    if attr.ndim == 3 and attr.shape[0] != 1:
-        tbl = attr[:, atri].reshape(-1, 3 * A).T  # [3A, B*T]
-    else:
-        a2d = attr[0] if attr.ndim == 3 else attr
-        tbl = a2d[atri].reshape(-1, 3 * A).T  # [3A, T]
-        if B > 1:
-            tbl = tbl.repeat(1, B)
-    zcol = torch.zeros((3 * A, 1), dtype=torch.float32, device=attr.device)
-    return torch.cat([tbl, zcol], dim=1).contiguous()
+from .topology import (TopologyHashWrapper, _attr_table, _build_tables, opposite_table,
+                       vertex_attr_grad, vertex_pos_grad)
 
 
 def _pipeline_fwd_core(pos, attr, tri, atri, op_table, resolution):
@@ -83,33 +64,6 @@ def own_rows(idf, T, resolution):
     return torch.where(valid, tid0, 0) + rofs
 
 
-def _corner_table(idx, V):
-    """[V, D] corner ids 3*t + k of each vertex, ascending, padded with
-    3T (a zero row of `_vertex_sum`); D is the largest vertex degree."""
-    flat = idx.reshape(-1).long()
-    n = flat.shape[0]
-    order = torch.argsort(flat, stable=True)
-    # On the card bincount reads the ids' min and max back: two syncs.
-    with span("nvdr.sync.corner_count_min"), span("nvdr.sync.corner_count_max"):
-        counts = torch.bincount(flat, minlength=V)
-    with span("nvdr.sync.corner_degree"):
-        D = int(counts.max()) if n else 0
-    slot = torch.arange(D, device=idx.device)
-    pos = (torch.cumsum(counts, 0) - counts)[:, None] + slot
-    has = slot < counts[:, None]
-    return torch.where(has, order[pos.clamp(max=max(n - 1, 0))], n)
-
-
-def _vertex_sum(rows, corners):
-    """Triangle-corner rows [B, 3T, F] -> vertex rows [B, V, F].
-
-    A gather and a dense sum over each vertex's corners: no scatter and
-    no atomics, so the result is the same on every run and device.
-    """
-    zero = rows.new_zeros((rows.shape[0], 1, rows.shape[2]))
-    return torch.cat([rows, zero], dim=1)[:, corners].sum(2)
-
-
 def _pipeline_bwd_core(tri, atri, saved, resolution, boost, pos_shape,
                        attr_shape, dy):
     """(g_pos [B, V, 4], g_attr shaped like attr) from the image gradient
@@ -127,37 +81,8 @@ def _pipeline_bwd_core(tri, atri, saved, resolution, boost, pos_shape,
                                  (al0, ax0, al1, ax1), resolution, T)
     gt, gaa = grad_scatter(own_rows(idff, T, resolution), gs, dd2, rid2, b0f,
                            b1f, ax0, ax1, vtbl, resolution)
-    return (vertex_pos_grad(gt[:, K:], gaa, tri, pos_shape, boost),
+    return (vertex_pos_grad(gt[:, K:], tri, pos_shape, gaa, boost),
             vertex_attr_grad(gt[:, :K], atri, attr_shape, B))
-
-
-@spanned("nvdr.vertex_sums")
-def vertex_attr_grad(ga, atri, attr_shape, B):
-    """Triangle-corner attribute rows [B*T, 3A] -> the gradient shaped
-    like attr; broadcast attributes sum the batch first."""
-    T = atri.shape[0]
-    A = attr_shape[-1]
-    ga = ga.reshape(B, 3 * T, A)
-    acorners = _corner_table(atri, attr_shape[-2])
-    if len(attr_shape) == 2 or attr_shape[0] == 1:  # broadcast attributes
-        return _vertex_sum(ga.sum(0, keepdim=True), acorners).reshape(attr_shape)
-    return _vertex_sum(ga, acorners)
-
-
-@spanned("nvdr.vertex_sums")
-def vertex_pos_grad(g9, gaa, tri, pos_shape, boost):
-    """Triangle-corner clip-space rows (raster [B*T, 9], antialias
-    [B*T, 9]) -> g_pos [B, V, 4], the antialias part times boost."""
-    B, V = pos_shape[0], pos_shape[1]
-    T = tri.shape[0]
-    gxyw = torch.cat([g9.reshape(B, 3 * T, 3), gaa.reshape(B, 3 * T, 3)], dim=2)
-    gv = _vertex_sum(gxyw, _corner_table(tri, V))
-    g_aa = gv[..., 3:] * boost if boost != 1.0 else gv[..., 3:]
-    g_xyw = gv[..., :3] + g_aa
-    g_pos = torch.zeros((B, V, 4), dtype=torch.float32, device=g9.device)
-    with span("nvdr.sync.pos_grad_xyw"):  # the list index is copied to the card
-        g_pos[..., [0, 1, 3]] = g_xyw
-    return g_pos
 
 
 class _PipelineFn(torch.autograd.Function):
@@ -247,21 +172,11 @@ def render_pipeline(pos, tri, attr, resolution, attr_idx=None,
     if A < 1:
         raise ValueError("render_pipeline: attr has no channels")
 
-    if topology_hash is not None:
-        if not isinstance(topology_hash, TopologyHashWrapper):
-            raise TypeError("render_pipeline: topology_hash must be a "
-                            "TopologyHashWrapper")
-        op_table = topology_hash.op_table.to(dev)
-    else:
-        op_table = build_opposite_table(tri)
+    op_table = opposite_table(topology_hash, tri, "render_pipeline")
 
     if A > MAX_A:
         # Past the fused kernel's width: the standalone ops, as the JAX
         # package's fallback composes them (ops/pipeline.py:249-262).
-        from .antialias import antialias
-        from .interpolate import interpolate
-        from .rasterize import rasterize
-
         rast, _ = rasterize(None, pos, tri, resolution, grad_db=False)
         color, _ = interpolate(attr, rast, atri)
         return antialias(color, rast, pos, tri, topology_hash=TopologyHashWrapper(op_table),

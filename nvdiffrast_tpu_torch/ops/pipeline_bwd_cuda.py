@@ -99,7 +99,7 @@ def pipeline_bwd(atbl, vtbl, idf, c0, dy, residuals, resolution, T):
 
     Args:
       atbl: [3A, B*T+1] attribute table; vtbl: [9, B*T+1] clip-space
-        vertex table (antialias._build_tables' btable).
+        vertex table (topology._build_tables' btable).
       idf: flat [N] rasterizer id buffer, N = B*H*W (the backward
         recomputes the barycentrics from the clip-space vertices).
       c0: [A, N] pre-AA colour; dy: [A, N] loss gradient of the image.

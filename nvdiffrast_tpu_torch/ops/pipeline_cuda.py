@@ -52,7 +52,7 @@ def shade_cols(atbl, ftable, b0, b1, zw, idf, resolution, T):
 
     Args:
       atbl: [3A, B*T+1] attribute table (dummy zero column last).
-      ftable: [7, B*T+1] AA forward table (antialias._build_tables).
+      ftable: [7, B*T+1] AA forward table (topology._build_tables).
       b0, b1, zw, idf: flat [N] rasterizer buffers, N = B*H*W.
       resolution: (H, W); T: triangles per image.
 

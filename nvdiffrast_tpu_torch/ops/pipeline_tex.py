@@ -43,18 +43,21 @@ from torch.autograd.function import once_differentiable
 
 from ..utils.trace import span, spanned
 from . import texture as tx
-from .antialias import TopologyHashWrapper, _build_tables, aa_bwd_flat
+from .antialias import aa_bwd_flat, antialias
 from .antialias_cuda import MAX_C, aa_forward
+from .interpolate import interpolate
 from .interpolate_cuda import interp_backward, interp_forward
-from .pipeline import _attr_table, own_rows, vertex_attr_grad, vertex_pos_grad
+from .pipeline import own_rows
 from .pipeline_bwd_cuda import grad_scatter
 from .pipeline_tex_bwd_cuda import aa_bwd_slim, interp_raster_bwd_tex
-from .rasterize import _check_rasterize_args, as_device_tensor, pixel_rows, raster_pos_grad
+from .rasterize import (_check_rasterize_args, as_device_tensor, pixel_rows, raster_pos_grad,
+                        rasterize)
 from .rasterize_cuda import rasterize_fused
 from .scatter import scatter_add_by_id
 from .texture_bwd_cuda import texture_bwd, texture_grad
 from .texture_cuda import sample
-from .topology import build_opposite_table
+from .topology import (TopologyHashWrapper, _attr_table, _build_tables, check_indices,
+                       opposite_table, vertex_attr_grad, vertex_pos_grad)
 
 
 def _ptex_fwd_core(pos, uv_attr, tex, tri, uv_tri, op_table, resolution,
@@ -165,7 +168,7 @@ def _ptex_bwd_core(saved, uv_attr, tri, uv_tri, resolution, filter_mode,
     gt, gaa = grad_scatter(own_rows(idf, T, resolution), out15[:11], dd2, rid2,
                            u, v, ax0, ax1, vtbl, resolution, da4=out15[11:])
     if needs[0]:
-        g_pos = vertex_pos_grad(gt[:, 6:], gaa, tri, pos_shape, boost)
+        g_pos = vertex_pos_grad(gt[:, 6:], tri, pos_shape, gaa, boost)
     if needs[1]:
         g_uv = vertex_attr_grad(gt[:, :6], uv_tri, tuple(uv_attr.shape), B)
     return g_pos, g_uv, g_tex
@@ -260,28 +263,15 @@ def render_pipeline_textured(pos, tri, uv_attr, tex, resolution, uv_tri=None,
         raise ValueError(
             f"render_pipeline_textured: uv_attr must be [V, {A}], [1, V, {A}] or "
             f"[minibatch, V, {A}]; got {tuple(uv_attr.shape)}")
-    if uv_tri.numel():
-        with span("nvdr.sync.uv_range_min"):
-            out = int(uv_tri.min()) < 0
-        if not out:
-            with span("nvdr.sync.uv_range_max"):
-                out = int(uv_tri.max()) >= uv_attr.shape[-2]
-        if out:
-            raise ValueError("render_pipeline_textured: uv_tri indices out of "
-                             f"range [0, {uv_attr.shape[-2]})")
+    check_indices(uv_tri, uv_attr.shape[-2], "render_pipeline_textured: uv_tri indices",
+                  "uv_range")
     if tex.ndim != (5 if cube else 4) or tex.shape[0] not in (1, B) or (
             cube and tex.shape[1] != 6):
         raise ValueError(
             "render_pipeline_textured: tex must be [1 or minibatch, h, w, C] (cube: "
             f"[1 or minibatch, 6, w, w, C]); got {tuple(tex.shape)}")
 
-    if topology_hash is not None:
-        if not isinstance(topology_hash, TopologyHashWrapper):
-            raise TypeError("render_pipeline_textured: topology_hash must be "
-                            "a TopologyHashWrapper")
-        op_table = topology_hash.op_table.to(dev)
-    else:
-        op_table = build_opposite_table(tri)
+    op_table = opposite_table(topology_hash, tri, "render_pipeline_textured")
     per_image_uv = uv_attr.ndim == 3 and uv_attr.shape[0] > 1
     if (cube or filter_mode == "nearest" or tex.shape[-1] > MAX_C or per_image_uv):
         return _composed(pos, tri, uv_attr, tex, uv_tri, op_table, resolution, filter_mode,
@@ -297,10 +287,6 @@ def _composed(pos, tri, uv_attr, tex, uv_tri, op_table, resolution, filter_mode,
               boundary_mode, max_mip_level, boost):
     """The textured chain through the standalone ops (their kernels and
     backwards)."""
-    from .antialias import antialias
-    from .interpolate import interpolate
-    from .rasterize import rasterize
-
     use_mip = "mipmap" in filter_mode
     rast, rast_db = rasterize(None, pos, tri, resolution, grad_db=use_mip)
     uv, uv_da = interpolate(uv_attr, rast, uv_tri, rast_db,

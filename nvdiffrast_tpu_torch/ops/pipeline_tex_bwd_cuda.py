@@ -105,8 +105,8 @@ def interp_raster_bwd_tex(atbl, vtbl, idf, gu, gv, gda4, db4, resolution, T):
 
     Args:
       atbl: [6, B*T+1] uv table (v0u, v0v, v1u, v1v, v2u, v2v; zero
-        column last; ``pipeline._attr_table``); vtbl: [9, B*T+1]
-        clip-space vertex table (``antialias._build_tables``' btable).
+        column last; ``topology._attr_table``); vtbl: [9, B*T+1]
+        clip-space vertex table (``topology._build_tables``' btable).
       idf: [N] rasterizer id channel, N = B*H*W.
       gu, gv: [N] uv cotangents (``texture_bwd``); gda4: [4, N] uv_da
         cotangents (``texture.level_vjp``), (du/dX, du/dY, dv/dX,

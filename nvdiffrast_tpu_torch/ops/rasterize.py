@@ -15,14 +15,13 @@ too), reduces the rows to triangles (kernel B10,
 mode into the one shared ``[V, 4]``, over all images).
 """
 
-import weakref
-
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..utils.trace import span, spanned
+from ..utils.trace import spanned
 from . import coord
+from .topology import check_indices, vertex_pos_grad, vertex_table
 
 # Triangles are clipped against w >= _W_CLIP_EPS (near plane guard).
 _W_CLIP_EPS = 1e-9
@@ -99,45 +98,7 @@ def _check_rasterize_args(pos, tri, resolution, ranges=None):
         raise ValueError(
             "rasterize: range mode requires ranges [minibatch, 2]; "
             f"got {None if ranges is None else tuple(ranges.shape)}")
-    _check_indices(tri, pos.shape[-2])
-
-
-# Device tri tensors whose indices were found in range: id -> (weak
-# reference, version counter, storage address, V). The check reads tri's
-# range back to the host (a sync); a tensor that is still the same object
-# on the same storage, unmodified since (torch's in-place writes bump
-# _version), against the same V, needs no new one.
-_CHECKED_TRI = {}
-
-
-def _check_indices(tri, v):
-    """Raise ValueError unless every index of tri lies in [0, v).
-
-    A device tensor is checked once and then trusted while it keeps its
-    version and storage: indices written into it by other means than
-    torch ops (a foreign kernel, DLPack, ctypes) are not seen, and must
-    not be written while it is in use. The setup kernel still makes a
-    triangle with an index outside [0, V) invalid, but the torch gathers
-    of the tables and the backward index pos with tri unchecked."""
-    if not tri.numel():
-        return
-    seen = _CHECKED_TRI.get(id(tri))
-    if (tri.device.type != "cpu" and seen is not None and seen[0]() is tri
-            and seen[1:] == (tri._version, tri.data_ptr(), v)):
-        return
-    tmin, tmax = torch.aminmax(tri)
-    with span("nvdr.sync.tri_range_min"):
-        tmin = int(tmin)
-    with span("nvdr.sync.tri_range_max"):
-        tmax = int(tmax)
-    if tmin < 0 or tmax >= v:
-        raise ValueError(
-            f"rasterize: triangle indices out of range [0, {v}): "
-            f"min {tmin}, max {tmax}")
-    if tri.device.type != "cpu":
-        if len(_CHECKED_TRI) >= 64:
-            _CHECKED_TRI.clear()
-        _CHECKED_TRI[id(tri)] = (weakref.ref(tri), tri._version, tri.data_ptr(), v)
+    check_indices(tri, pos.shape[-2], "rasterize: triangle indices", "tri_range")
 
 
 def as_device_tensor(x, what):
@@ -156,15 +117,6 @@ def as_device_tensor(x, what):
 # ---------------------------------------------------------------------------
 # Backward (rasterize.py:612-800 of the JAX package).
 # ---------------------------------------------------------------------------
-
-def vertex_table(pos, tri):
-    """[9, B*T+1] (instance mode) or [9, T+1] (range mode, pos [V, 4])
-    clip-space (x, y, w) of each triangle's vertices, row 3*k + c for
-    vertex k, a zero column last."""
-    with span("nvdr.sync.vertex_table_xyw"):  # the list index is copied to the card
-        tbl = pos[..., tri.long(), :][..., [0, 1, 3]].reshape(-1, 9).T
-    return torch.cat([tbl, tbl.new_zeros((9, 1))], dim=1).contiguous()
-
 
 def raster_grad_math(t9, fx, fy, gb0, gb1, ddb, W, H):
     """The 9 clip-space vertex gradient columns of pixels with bary
@@ -315,23 +267,7 @@ def raster_pos_grad(vtbl, tri, pos_shape, idf, dyx, dyy, ddb, resolution, viewpo
     from .scatter import scatter_add_by_id
 
     g, rid = raster_grad_rows(vtbl, idf, dyx, dyy, ddb, resolution, tri.shape[0], viewport)
-    return xyw_rows_to_vertices(scatter_add_by_id(rid, g, vtbl.shape[1] - 1), tri,
-                                pos_shape)
-
-
-@spanned("nvdr.vertex_sums")
-def xyw_rows_to_vertices(gt, tri, pos_shape):
-    """Per-triangle rows [B*T, 9] (x, y, w of each vertex) -> g_pos
-    pos_shape, [B, V, 4] or, in range mode, [V, 4] (z gets none), by the
-    render pipeline's deterministic vertex sums."""
-    from .pipeline import _corner_table, _vertex_sum
-
-    B, V = (1, pos_shape[0]) if len(pos_shape) == 2 else pos_shape[:2]
-    gv = _vertex_sum(gt.reshape(B, 3 * tri.shape[0], 3), _corner_table(tri, V))
-    g_pos = gt.new_zeros((B, V, 4))
-    with span("nvdr.sync.raster_grad_xyw"):  # the list index is copied to the card
-        g_pos[..., [0, 1, 3]] = gv
-    return g_pos.reshape(pos_shape)
+    return vertex_pos_grad(scatter_add_by_id(rid, g, vtbl.shape[1] - 1), tri, pos_shape)
 
 
 class _RasterizeFn(torch.autograd.Function):

@@ -36,7 +36,7 @@ Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
 
 Host syncs of a forward (``rasterize_fused``): the binned path reads the
 list total back once; the triangle-index check reads tri's range once
-per tri tensor (``rasterize._check_indices``), so repeated calls with
+per tri tensor (``topology.check_indices``), so repeated calls with
 the same tri add none, and the unbinned path then has no sync.
 """
 
@@ -356,7 +356,7 @@ def setup_records(pos, tri, resolution, viewport=None):
 
     CPU tensors run the plain twins; CUDA tensors launch the setup kernel
     (csrc/raster_setup.cu) or raise. Triangle indices must lie in
-    [0, V) (``rasterize._check_indices``); the kernel makes any other
+    [0, V) (``topology.check_indices``); the kernel makes any other
     triangle invalid rather than read outside pos.
     """
     if pos.device.type == "cpu":

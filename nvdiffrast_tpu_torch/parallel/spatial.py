@@ -37,12 +37,14 @@ within 1e-5.
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..ops.antialias import (TopologyHashWrapper, _build_tables, antialias,
-                             decode_aux, pair_alpha, pair_ids, pair_pos_grad)
+from ..ops.antialias import antialias, decode_aux, pair_alpha, pair_ids, pair_pos_grad
 from ..ops.gather import table_take
-from ..ops.rasterize import xyw_rows_to_vertices
+from ..ops.interpolate import interpolate
+from ..ops.rasterize import rasterize
 from ..ops.scatter import scatter_add_by_id
-from ..ops.topology import build_opposite_table
+from ..ops.topology import (TopologyHashWrapper, _build_tables,
+                            antialias_construct_topology_hash, opposite_table,
+                            vertex_pos_grad)
 from .collectives import Axis, Shift, replicated
 
 HALO_TAG = 1   # the next band's first row, sent up
@@ -127,7 +129,7 @@ class _BoundaryFn(torch.autograd.Function):
             cols = pair_pos_grad([t9[k] for k in range(9)], dd, keep, di, is_t1, fx, fy,
                                  1, W, full_height)
             gtab = scatter_add_by_id(rid, torch.stack(cols), R)
-            g_pos = xyw_rows_to_vertices(gtab, tri, pos_shape)
+            g_pos = vertex_pos_grad(gtab, tri, pos_shape)
             if boost != 1.0:
                 g_pos = g_pos * boost
         return (g_ctop, g_cbot, g_pos) + (None,) * 8
@@ -173,16 +175,11 @@ def antialias_sp(color, rast, pos, tri, mesh, full_height, topology_hash=None,
     Hband = color.shape[1]
     y0 = axis.index * Hband
     tri = torch.as_tensor(tri, dtype=torch.int32, device=color.device)
-    if topology_hash is not None:
-        if not isinstance(topology_hash, TopologyHashWrapper):
-            raise TypeError("antialias_sp: topology_hash must be a TopologyHashWrapper")
-    else:
-        topology_hash = TopologyHashWrapper(build_opposite_table(tri))
-    out = antialias(color, rast, pos, tri, topology_hash=topology_hash,
+    op_table = opposite_table(topology_hash, tri, "antialias_sp")
+    out = antialias(color, rast, pos, tri, topology_hash=TopologyHashWrapper(op_table),
                     pos_gradient_boost=pos_gradient_boost, viewport=(y0, full_height))
     if axis.size == 1:
         return out
-    op_table = topology_hash.op_table.to(color.device)
     C = color.shape[-1]
 
     # Rank k receives row 0 of rank k + 1 (cyclic; the last band masks).
@@ -208,9 +205,6 @@ def make_sp_render(mesh, tri, col_idx, resolution, sp_axis="sp"):
     rank's are those of the whole image's loss when the loss is the sum
     of the bands' terms.
     """
-    from ..ops.interpolate import interpolate
-    from ..ops.rasterize import rasterize
-
     axis = Axis(mesh, sp_axis)
     H, W = (int(x) for x in resolution)
     if H % axis.size:
@@ -219,7 +213,7 @@ def make_sp_render(mesh, tri, col_idx, resolution, sp_axis="sp"):
     dev = torch.device(mesh.device_type)
     tri = torch.as_tensor(tri, dtype=torch.int32).to(dev)
     cidx = torch.as_tensor(col_idx, dtype=torch.int32).to(dev)
-    topo = TopologyHashWrapper(build_opposite_table(tri))
+    topo = antialias_construct_topology_hash(tri)
 
     def render(pos, col):
         pos, col = replicated(mesh, sp_axis, pos, col)

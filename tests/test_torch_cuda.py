@@ -1424,7 +1424,8 @@ def test_depth_peeler_and_range_mode_gpu_match_cpu(dev):
 def test_textured_step_spans_count_syncs_and_launches(dev):
     """One textured fwd+bwd under torch.profiler: as many ``nvdr.sync.*``
     spans as torch's sync debug mode counts host syncs, and as many
-    ``nvdr.kernel.*`` spans as the kernels' launch counts rise."""
+    ``nvdr.kernel.*`` spans as the kernels' launch counts rise; the index
+    tensors, checked on the first call, are read back on no later one."""
     import warnings
 
     from torch.autograd import DeviceType
@@ -1433,10 +1434,11 @@ def test_textured_step_spans_count_syncs_and_launches(dev):
     from nvdiffrast_tpu_torch import _build
 
     pos, tri, uv, tex = (torch.as_tensor(x, device=dev) for x in textured_scene(seed=3, B=2))
+    uv_tri = tri.flip(1).contiguous()
 
     def step():
         xs = [x.clone().requires_grad_() for x in (pos, uv, tex)]
-        img = dr.render_pipeline_textured(xs[0], tri, xs[1], xs[2], (96, 128))
+        img = dr.render_pipeline_textured(xs[0], tri, xs[1], xs[2], (96, 128), uv_tri=uv_tri)
         torch.autograd.grad((img ** 2).mean(), xs)
 
     step()
@@ -1461,3 +1463,25 @@ def test_textured_step_spans_count_syncs_and_launches(dev):
     assert sum(n.startswith("nvdr.sync.") for n in names) == syncs, names
     assert sum(n.startswith("nvdr.kernel.") for n in names) == launched, names
     assert {"nvdr.render_pipeline_textured", "nvdr.render_pipeline_textured.bwd"} <= set(names)
+    assert not [n for n in names if n.startswith(("nvdr.sync.uv_range", "nvdr.sync.tri_range"))]
+
+
+def test_index_check_keeps_a_tensor_checked_against_two_bounds(dev):
+    """One device tensor checked against two bounds (uv_tri is tri) is
+    read back once for each; a third, smaller bound still raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvdiffrast_tpu_torch.ops.topology import check_indices
+
+    t = torch.tensor([[0, 1, 2], [2, 3, 9]], dtype=torch.int32, device=dev)
+
+    def reads(bound):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            check_indices(t, bound, "test: indices", "test_range")
+        return sum(e.name == "nvdr.sync.test_range_min" for e in prof.events())
+
+    assert [reads(10), reads(12), reads(10), reads(12)] == [1, 1, 0, 0]
+    with pytest.raises(ValueError, match="test: indices out of range"):
+        check_indices(t, 9, "test: indices", "test_range")
+    t[0, 0] = 1  # an in-place write: checked anew
+    assert reads(10) == 1

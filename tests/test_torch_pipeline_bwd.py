@@ -38,6 +38,7 @@ from nvdiffrast_tpu_torch.ops import antialias as taa
 from nvdiffrast_tpu_torch.ops import pipeline as tpl
 from nvdiffrast_tpu_torch.ops import pipeline_bwd_cuda as tpb
 from nvdiffrast_tpu_torch.ops import rasterize_cuda as trc
+from nvdiffrast_tpu_torch.ops import topology as ttp
 from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
 
 from _torch_parity import sphere_scene
@@ -348,13 +349,13 @@ def test_vertex_sum_is_a_dense_fixed_order_sum():
     V, T, F = 40, 70, 5
     idx = torch.from_numpy(rng.integers(0, V - 3, (T, 3)).astype(np.int32))  # 3 unused
     rows = torch.from_numpy(rng.standard_normal((2, 3 * T, F)).astype(np.float32))
-    corners = tpl._corner_table(idx, V)
-    got = tpl._vertex_sum(rows, corners)
+    corners = ttp._corner_table(idx, V)
+    got = ttp._vertex_sum(rows, corners)
     ref = torch.zeros((2, V, F), dtype=torch.float64).index_add_(
         1, idx.reshape(-1).long(), rows.double())
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
     assert not got[:, V - 3:].any()
-    assert torch.equal(tpl._vertex_sum(rows, tpl._corner_table(idx, V)), got)
+    assert torch.equal(ttp._vertex_sum(rows, ttp._corner_table(idx, V)), got)
 
 
 def _grads(pos, tri, attr, cidx, boost):

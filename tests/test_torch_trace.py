@@ -54,13 +54,11 @@ PIPELINES = {
         {"nvdr.topology", "nvdr.raster.setup", "nvdr.raster.sweep", "nvdr.attr_table",
          "nvdr.aa.tables", "nvdr.shade"},
         {"nvdr.pipeline_bwd", "nvdr.grad_scatter", "nvdr.vertex_sums"},
-        # tri's range (CPU tensors are checked on every call); the AA
-        # table's list index; two vertex sums (pos, attr), each with
-        # bincount's two reads and the degree; the xyw scatter of g_pos.
+        # tri's range (CPU tensors are checked on every call); two vertex
+        # sums (pos, attr), each with bincount's two reads and the degree.
         {"nvdr.sync.tri_range_min": 1, "nvdr.sync.tri_range_max": 1,
-         "nvdr.sync.aa_table_xyw": 1, "nvdr.sync.corner_count_min": 2,
-         "nvdr.sync.corner_count_max": 2, "nvdr.sync.corner_degree": 2,
-         "nvdr.sync.pos_grad_xyw": 1}),
+         "nvdr.sync.corner_count_min": 2, "nvdr.sync.corner_count_max": 2,
+         "nvdr.sync.corner_degree": 2}),
     "render_pipeline_textured": (
         _textured_step,
         {"nvdr.topology", "nvdr.raster.setup", "nvdr.raster.sweep", "nvdr.tex.pyramid",
@@ -73,9 +71,8 @@ PIPELINES = {
         # second check is skipped for a tensor already checked).
         {"nvdr.sync.tri_range_min": 2, "nvdr.sync.tri_range_max": 2,
          "nvdr.sync.uv_range_min": 1, "nvdr.sync.uv_range_max": 1,
-         "nvdr.sync.aa_table_xyw": 1, "nvdr.sync.corner_count_min": 2,
-         "nvdr.sync.corner_count_max": 2, "nvdr.sync.corner_degree": 2,
-         "nvdr.sync.pos_grad_xyw": 1}),
+         "nvdr.sync.corner_count_min": 2, "nvdr.sync.corner_count_max": 2,
+         "nvdr.sync.corner_degree": 2}),
 }
 
 
