@@ -158,6 +158,15 @@ It builds the port's kernels from nvdiffrast_tpu_torch/csrc, then:
      "cuda"); ms a step, the boundary pass's ms, the halo bytes (two ranks
      on one card: not a scaling figure); B9 and B10 at the boundary's
      shapes against their twins, timed.
+ 18. the rasterize op's [B, H, W, 4] layout on envphong's mesh
+     (uv_sphere(121, 128)) at 2048^2 x 8: the sweep writing rast and
+     rast_db itself bit for bit the planar launch's columns stacked, and
+     the op's output (one launch under its own count); at 256^2 x 2,
+     peeled, bit for bit the twin's stacked columns; by CUDA events in
+     turns, the planar sweep, the planar sweep with its two torch.stack
+     copies, the API-layout sweep, and the whole call each way, with
+     their peak memory; the planar sweeps on the bench scene (B = 1).
+With ``--layout`` it runs phase 18 alone after the build.
 With ``--ranks N`` (a machine with N cards) it runs phase 17 alone, one
 rank a card over nccl: the multi-card check of the collectives.
 It prints one JSON line of per-kernel results (with each kernel's
@@ -236,6 +245,9 @@ DP_LR = 1.0         # phase 17's SGD step: large enough that the update shows
 DP_RTOL = 1e-6      # the dp step vs the single-process step, of each parameter's largest
 DP_UPDATE_RTOL = 1e-5  # ... and its update, of the largest update
 PARALLEL_STEPS = 10  # steps timed in each phase-17 rank
+ENV_SPHERE = (121, 128)  # phase 18: envphong's mesh (perfbench configs/envphong_cube.json)
+LAYOUT_B = 8             # ... its views a call, as envphong.train.2048x8 renders them
+LAYOUT_ITERS = 20        # CUDA-event calls a time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 rate and float32 peak
 F32_OPS_PER_S = 67e12
 
@@ -743,8 +755,8 @@ def phase16(dev, card, entry):
     f32 = 4
     t_phase = time.perf_counter()
     raster_kernels = (rc.KERNEL, rc.DB_KERNEL, rc.BINNED_KERNEL, rc.PEEL_KERNEL,
-                      rc.RANGE_KERNEL, rc.BAND_KERNEL, rc.SETUP_KERNEL, rc.BIN_EMIT_KERNEL,
-                      rc.BIN_SEGMENT_KERNEL)
+                      rc.RANGE_KERNEL, rc.BAND_KERNEL, rc.API_KERNEL, rc.SETUP_KERNEL,
+                      rc.BIN_EMIT_KERNEL, rc.BIN_SEGMENT_KERNEL)
     op_kernels = raster_kernels + (ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
                                    gather.KERNEL, scatter.KERNEL, scatter.COMPACT_KERNEL,
                                    scatter.SEGMENT_KERNEL, scatter.SUM_KERNEL)
@@ -784,8 +796,10 @@ def phase16(dev, card, entry):
     torch.cuda.synchronize()
     peel_launches = counts()
     log(f"[16] launches during the peeling slice (B=2, {PEEL_LAYERS} layers): {peel_launches}")
-    if rc.PEEL_KERNEL.launches != PEEL_LAYERS - 1:
-        raise AssertionError(f"peel kernel launched {rc.PEEL_KERNEL.launches} times")
+    # Every layer's sweep writes the op's [B, H, W, 4] layout (the peel
+    # variant from the second layer on).
+    if (rc.API_KERNEL.launches, rc.PEEL_KERNEL.launches) != (PEEL_LAYERS, 0):
+        raise AssertionError(f"peeling launched the sweep {peel_launches}")
     check_grads(zip(("pos", "col"), pg), "peeling")
     layers2, pg2 = peel_step(p, a)
     for x, y in zip(pg + tuple(r for l_ in layers for r in l_),
@@ -892,7 +906,7 @@ def phase16(dev, card, entry):
     torch.cuda.synchronize()
     range_launches = counts()
     log(f"[16] launches during the range-mode slice: {range_launches}")
-    for k in (rc.RANGE_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
+    for k in (rc.API_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
               gather.KERNEL, scatter.KERNEL):
         if k.launches <= 0:
             raise AssertionError(f"range mode: {k.name} never launched")
@@ -940,8 +954,8 @@ def phase16(dev, card, entry):
     torch.cuda.synchronize()
     band_launches = counts()
     log(f"[16] launches during the viewport slice ({VP_BANDS} bands): {band_launches}")
-    if rc.BAND_KERNEL.launches != VP_BANDS:
-        raise AssertionError(f"band kernel launched {rc.BAND_KERNEL.launches} times")
+    if rc.API_KERNEL.launches != VP_BANDS:
+        raise AssertionError(f"the bands launched the sweep {band_launches}")
     band_gerr = 0.0
     for k, (rast, db, aa, g) in enumerate(band_out):
         sl = slice(k * band_h, (k + 1) * band_h)
@@ -1186,14 +1200,14 @@ def phase16(dev, card, entry):
 
     return [
         entry("rasterize_peel", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
-              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", peel_launches[rc.PEEL_KERNEL.name],
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", peel_launches[rc.API_KERNEL.name],
               peel_err, peel_ms, peel_plain_ms, peel_bound, None),
         entry("rasterize_range", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
-              range_launches[rc.RANGE_KERNEL.name], range_err, range_ms, range_plain_ms,
+              range_launches[rc.API_KERNEL.name], range_err, range_ms, range_plain_ms,
               range_bound, None),
         entry("rasterize_band", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
-              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", band_launches[rc.BAND_KERNEL.name],
+              "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", band_launches[rc.API_KERNEL.name],
               band_err, band_ms, band_plain_ms, band_bound, None),
         entry("rasterize_binned", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
               "nvdiffrast_tpu/ops/rasterize_pallas.py:1039",
@@ -1534,7 +1548,7 @@ def phase17(dev, card, entry, n=SP_RANKS, backend="gloo"):
         ranks = phase17_ranks(n, tmp, "cuda", RES, backend)
         sp_single, dp_single, img_err, grad_err, dp_err, fired = phase17_check(
             ranks, tmp, dev, RES)
-    sp_paths = (rc.BAND_KERNEL, rc.SETUP_KERNEL, ic.KERNEL, ac.KERNEL, gather.KERNEL,
+    sp_paths = (rc.API_KERNEL, rc.SETUP_KERNEL, ic.KERNEL, ac.KERNEL, gather.KERNEL,
                 ic.BWD_KERNEL, ac.BWD_KERNEL, scatter.KERNEL, scatter.SUM_KERNEL)
     dp_paths = (rc.SETUP_KERNEL, rc.DB_KERNEL, ic.KERNEL, tc.KERNEL, ac.KERNEL,
                 txb.BWD_KERNEL, txb.GRAD_KERNEL, txb.GRAD_SUM_KERNEL, ptb.KERNEL,
@@ -1597,6 +1611,123 @@ def phase17(dev, card, entry, n=SP_RANKS, backend="gloo"):
     ]
 
 
+def phase18(dev, card, entry):
+    """The rasterize op's [B, H, W, 4] layout: the sweep writing rast and
+    rast_db itself (API_KERNEL) against the planar launch and its two
+    torch.stack copies, on envphong's mesh at RES^2 x LAYOUT_B; the planar
+    sweeps on the bench scene (section 6 row 1). Returns its JSON entry."""
+    import numpy as np
+    import torch
+    import nvdiffrast_tpu_torch as dr
+    from nvdiffrast_tpu_torch import _build
+    from nvdiffrast_tpu_torch.models import primitives
+    from nvdiffrast_tpu_torch.ops import rasterize_cuda as rc
+    from nvdiffrast_tpu_torch.utils.convert import inputs_from_numpy
+
+    res = (RES, RES)
+    pos_idx, vtxp, _, _ = primitives.uv_sphere(*ENV_SPHERE)
+    posw = np.concatenate([vtxp, np.ones_like(vtxp[:, :1])], axis=1)
+    pos = np.stack([(posw @ m.T).astype(np.float32) for m in cameras(LAYOUT_B, seed=18)])
+    p, t = inputs_from_numpy(pos, pos_idx.astype(np.int32), device=dev)
+    what = f"envphong mesh {RES}^2 x {LAYOUT_B}"
+    (rec, aabb, counts, boxes), _ = setup_equal_or_raise(rc, p, t, res, None, what)
+    bins = rc.bin_records(aabb, res, counts) if rc.binned_by_default(
+        LAYOUT_B, t.shape[0], res) else None
+
+    def planar():
+        return rc.launch_records(rec, aabb, res, True, bins=bins, boxes=boxes)
+
+    def stacked():  # the route before the API layout: planar columns, two copies
+        c = planar()
+        return torch.stack(c[:4], dim=-1), torch.stack(c[4:8], dim=-1)
+
+    def api():
+        return rc.launch_records(rec, aabb, res, True, bins=bins, boxes=boxes,
+                                 _api_layout=True)
+
+    def old_route():  # the whole call: setup, binning, sweep, copies
+        c = rc.rasterize_fused(p, t, res, emit_db=True)
+        return torch.stack(c[:4], dim=-1), torch.stack(c[4:8], dim=-1)
+
+    def new_route():
+        with torch.no_grad():
+            return dr.rasterize(None, p, t, res)
+
+    before = rc.API_KERNEL.launches
+    got = api()
+    torch.cuda.synchronize()
+    if rc.API_KERNEL.launches != before + 1:
+        raise AssertionError("API layout: one launch expected")
+    err = equal_or_raise(got, stacked(), f"{what}: API layout vs the stacked planar columns")
+    equal_or_raise(got, old_route(), f"{what}: API layout vs rasterize_fused's stacked columns")
+    before = _build.launch_counts()
+    op = new_route()
+    torch.cuda.synchronize()
+    op_launches = {k: v - before.get(k, 0) for k, v in _build.launch_counts().items()
+                   if k.startswith("nvdr_rasterize") and v != before.get(k, 0)}
+    if op_launches != {rc.API_KERNEL.name: 1}:
+        raise AssertionError(f"rasterize launched the sweep {op_launches}")
+    equal_or_raise(op, got, f"{what}: rasterize vs the API-layout launch")
+    # Against the plain twin's stacked columns (with the peel buffer and
+    # zbuf) at SMALL^2, two views.
+    small = (SMALL, SMALL)
+    sset = rc.setup_records(p[:2], t, small)
+    szb = rc.rasterize_records(sset, small, emit_zbuf=True)[4]
+    sgot = rc.rasterize_records(sset, small, True, peel=szb, emit_zbuf=True, _api_layout=True)
+    sref = rc.rasterize_records_plain(*sset[:2], small, True, peel=szb, emit_zbuf=True)
+    equal_or_raise(sgot, (torch.stack(sref[:4], -1), torch.stack(sref[4:8], -1), sref[8]),
+                   f"envphong mesh {SMALL}^2 x 2, peeled: API layout vs the twin")
+
+    def peak_mib(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    # In turns (a b c c b a), so that drift falls on both sides.
+    order = (("planar", planar), ("stacked", stacked), ("api", api), ("new_route", new_route),
+             ("old_route", old_route))
+    ms = {name: [] for name, _ in order}
+    for seq in (order, order[::-1]):
+        for name, fn in seq:
+            ms[name].append(cuda_ms(torch, fn, LAYOUT_ITERS))
+    mib = {name: peak_mib(fn) for name, fn in order}
+    N = LAYOUT_B * RES * RES
+    api_bound = bound(N * 32, 0)          # rast and rast_db: 32 B a pixel written
+    stack_bound = bound(N * 32 * 2, 0)    # the two copies: 32 B read, 32 B written
+    log(f"[18] {what} ({t.shape[0]} triangles, {'binned' if bins else 'unbinned'}): API "
+        f"layout = stacked planar columns = rasterize bit for bit; by CUDA events, ms a call "
+        f"(two turns): planar sweep {ms['planar']}, planar + two torch.stack "
+        f"{ms['stacked']}, API layout {ms['api']}; the whole call: rasterize_fused + stacks "
+        f"{ms['old_route']}, rasterize {ms['new_route']}; bound of the API sweep's writes "
+        f"{api_bound[0]:.4f} ms (32 B a pixel), of the copies {stack_bound[0]:.4f} ms; peak "
+        f"MiB above the inputs {mib} ({card})")
+
+    # The planar sweeps on the bench scene, B = 1 (section 6 row 1), and
+    # the API layout there.
+    bp, bt = inputs_from_numpy(*sphere_scene(cameras(1, seed=0))[:2], device=dev)
+    brec, baabb, _, bboxes = rc.setup_records(bp, bt, res)
+    bench = {
+        "fwd": lambda: rc.launch_records(brec, baabb, res, boxes=bboxes),
+        "fwd_db": lambda: rc.launch_records(brec, baabb, res, True, boxes=bboxes),
+        "api": lambda: rc.launch_records(brec, baabb, res, True, boxes=bboxes,
+                                         _api_layout=True)}
+    bms = {name: [] for name in bench}
+    for seq in (list(bench), list(bench)[::-1]):
+        for name in seq:
+            bms[name].append(cuda_ms(torch, bench[name], LAYOUT_ITERS))
+    log(f"[18] bench scene {RES}^2 B=1, ms a launch by CUDA events (two turns): planar "
+        f"{bms['fwd']}, planar db {bms['fwd_db']}, API layout {bms['api']} ({card})")
+    return [entry("rasterize_api", "cuda", "nvdiffrast_tpu_torch/csrc/rasterize.cu",
+                  "nvdiffrast_tpu/ops/rasterize_pallas.py:1039", op_launches[rc.API_KERNEL.name],
+                  err, min(ms["api"]), None, api_bound, None,
+                  planar_ms=min(ms["planar"]), stacked_ms=min(ms["stacked"]),
+                  old_route_ms=min(ms["old_route"]), new_route_ms=min(ms["new_route"]),
+                  peak_mib=mib, bench_ms=bms)]
+
+
 def main():
     import argparse
 
@@ -1607,6 +1738,8 @@ def main():
     ap.add_argument("--ranks", type=int, default=0,
                     help="run phase 17 alone with one rank a card over nccl, on a machine "
                          "with at least this many cards (default: every phase, one card)")
+    ap.add_argument("--layout", action="store_true",
+                    help="run phase 18 (the rasterize op's output layout) alone")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1654,6 +1787,13 @@ def main():
             raise RuntimeError(f"--ranks {args.ranks}: torch sees {torch.cuda.device_count()} "
                                "cards")
         kernels = phase17(dev, card, entry, args.ranks, "nccl")
+        log(card)
+        log(json.dumps({"kernels": kernels}))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                               "count": torch.cuda.device_count()}}))
+        return 0
+    if args.layout:
+        kernels = phase18(dev, card, entry)
         log(card)
         log(json.dumps({"kernels": kernels}))
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2488,7 +2628,7 @@ def main():
     # -- 12. the composed ops' training step: fwd + bwd at 2048^2 -------------
     b10_kernels = (scatter.KERNEL, scatter.COMPACT_KERNEL, scatter.SEGMENT_KERNEL,
                    scatter.SUM_KERNEL)
-    op_kernels = (rc.DB_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
+    op_kernels = (rc.API_KERNEL, ic.KERNEL, ac.KERNEL, ic.BWD_KERNEL, ac.BWD_KERNEL,
                   gather.KERNEL) + b10_kernels
 
     def ops_grads(view, colour, size):
@@ -2919,7 +3059,7 @@ def main():
         return m0, metric(model), losses, ms, launches
 
     env_metric = lambda m: m.metrics()[0]  # noqa: E731
-    model_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, tcc.GRAD_SUM_KERNEL, rc.DB_KERNEL,
+    model_kernels = (tcc.FWD_KERNEL, tcc.BWD_KERNEL, tcc.GRAD_SUM_KERNEL, rc.API_KERNEL,
                      ic.KERNEL)
     e0, e1, el, env_ms, el_launch = run_model(
         EnvPhongFitModel(res=128, env_res=32, subdiv=2, seed=0, device=dev), ENV_STEPS,
@@ -2937,7 +3077,7 @@ def main():
         f"steps (bar {ENV_BAR}), {envs_ms:.3f} ms/step ({card})")
     if not s1 < ENV_BAR:
         raise AssertionError(f"envphong test configuration: env RMSE {s1}")
-    earth_kernels = (tc.KERNEL, txb.GRAD_KERNEL, rc.DB_KERNEL, ic.KERNEL)
+    earth_kernels = (tc.KERNEL, txb.GRAD_KERNEL, rc.API_KERNEL, ic.KERNEL)
     psnr = lambda m: m.texture_psnr()  # noqa: E731
     p0, p1, pl_, earth_ms, pl_launch = run_model(
         EarthFitModel(res=128, ref_res=256, tex_res=(128, 256), max_mip_level=9, seed=0,
@@ -3098,6 +3238,9 @@ def main():
     # -- 17. parallel: row bands and data parallelism in two ranks -------------
     phase17_kernels = phase17(dev, card, entry)
 
+    # -- 18. the rasterize op's [B, H, W, 4] layout --------------------------
+    phase18_kernels = phase18(dev, card, entry)
+
     # texture_bwd's rows also by device time (torch.profiler, after every
     # other phase: the profiler leaves later launches slower on the host);
     # `ms` and `library_ms` stay phase 9's CUDA-event times, which include
@@ -3249,7 +3392,7 @@ def main():
               "nvdiffrast_tpu/ops/scatter.py:84",
               cube_launches[tcc.GRAD_SUM_KERNEL.name], cube_grad_err, st14["sums"],
               cgrad_plain_ms, csum_bound, None),
-    ] + phase16_kernels + phase17_kernels
+    ] + phase16_kernels + phase17_kernels + phase18_kernels
     for k in kernels:
         log(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel "
             f"{k['ms']:.4f} ms ({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

@@ -52,7 +52,13 @@
 //           output stores, so the previous winner is culled exactly;
 //   zbuf    [B, H, W] output, pz / pw of the winner, +inf where empty;
 //   y0      viewport: pixel row py of the band is row py + y0 of the
-//           full image (xs, xo, ys, yo come from the full height).
+//           full image (xs, xo, ys, yo come from the full height);
+//   api     the outputs' layout, a uniform branch in the final step only:
+//           0 writes each output as its own [B, H, W] column; 1 writes
+//           the rasterize op's rast [B, H, W, 4] (u, v, zw, idf) and
+//           rast_db [B, H, W, 4] (dudx, dudy, dvdx, dvdy), one 16-byte
+//           store each a pixel, so a warp's 8x4 block writes 4 full
+//           128-byte lines of each.
 //
 // Bound on the H100: instruction throughput of the per-pixel edge
 // evaluations (~34 operations a fragment, now only for the candidates
@@ -116,7 +122,7 @@ struct Args {
     const int* ranges;        // [B, 2] (start, count) or null
     const float* peel;        // [B, H, W] or null
     float* out[9];            // u, v, zw, idf, dudx, dudy, dvdx, dvdy, zbuf
-    int T, sets, H, W, y0;
+    int T, sets, H, W, y0, api;
     float xs, xo, ys, yo;
 };
 
@@ -419,10 +425,17 @@ __global__ void __launch_bounds__(NT, 5) raster_kernel(const Args a) {
     b1 = __fmul_rn(b1, bs);
     const float depth = __fdiv_rn(st.az, st.aw);
     const size_t o = (static_cast<size_t>(b) * a.H + py) * a.W + px;
-    a.out[0][o] = valid ? b0 : 0.0f;
-    a.out[1][o] = valid ? b1 : 0.0f;
-    a.out[2][o] = valid ? clip_nan(depth, -1.0f, 1.0f) : 0.0f;
-    a.out[3][o] = valid ? st.aid : 0.0f;
+    const float4 r = make_float4(valid ? b0 : 0.0f, valid ? b1 : 0.0f,
+                                 valid ? clip_nan(depth, -1.0f, 1.0f) : 0.0f,
+                                 valid ? st.aid : 0.0f);
+    if (a.api) {
+        reinterpret_cast<float4*>(a.out[0])[o] = r;
+    } else {
+        a.out[0][o] = r.x;
+        a.out[1][o] = r.y;
+        a.out[2][o] = r.z;
+        a.out[3][o] = r.w;
+    }
     if (a.out[8] != nullptr) a.out[8][o] = valid ? depth : INFINITY;
     if (DB) {
         // Bary pixel derivatives (rasterize_pallas.py final step, emit_db).
@@ -436,10 +449,16 @@ __global__ void __launch_bounds__(NT, 5) raster_kernel(const Args a) {
         const float dudy = __fmul_rn(dfydy, __fsub_rn(__fmul_rn(b0, datdy), da0dy));
         const float dvdx = __fmul_rn(dfxdx, __fsub_rn(__fmul_rn(b1, datdx), da1dx));
         const float dvdy = __fmul_rn(dfydy, __fsub_rn(__fmul_rn(b1, datdy), da1dy));
-        a.out[4][o] = valid ? dudx : 0.0f;
-        a.out[5][o] = valid ? dudy : 0.0f;
-        a.out[6][o] = valid ? dvdx : 0.0f;
-        a.out[7][o] = valid ? dvdy : 0.0f;
+        const float4 d = make_float4(valid ? dudx : 0.0f, valid ? dudy : 0.0f,
+                                     valid ? dvdx : 0.0f, valid ? dvdy : 0.0f);
+        if (a.api) {
+            reinterpret_cast<float4*>(a.out[4])[o] = d;
+        } else {
+            a.out[4][o] = d.x;
+            a.out[5][o] = d.y;
+            a.out[6][o] = d.z;
+            a.out[7][o] = d.w;
+        }
     }
 }
 
@@ -452,16 +471,22 @@ __global__ void __launch_bounds__(NT, 5) raster_kernel(const Args a) {
 //   tile_start [S * tiles + 1], tile_list [E] (both null: unbinned);
 //   tile_order [S * tiles] a permutation of the tiles (binned, S = B) or null;
 //   ranges [B, 2] int32 or null; peel [B, H, W] or null;
-//   u, v, zw, idf [B, H, W]; dudx, dudy, dvdx, dvdy [B, H, W] or all
-//   null (no db); zbuf [B, H, W] or null.
+//   api 0: u, v, zw, idf [B, H, W]; dudx, dudy, dvdx, dvdy [B, H, W] or
+//   all null (no db); api 1: u is rast [B, H, W, 4] and dudx rast_db
+//   [B, H, W, 4] or null (no db), both 16-byte aligned, and v, zw, idf,
+//   dudy, dvdx, dvdy are null; zbuf [B, H, W] or null.
 extern "C" int nvdr_rasterize(const float* rec, const float* aabb, const float* boxes,
                               const int* tile_start, const int* tile_list,
                               const int* tile_order, const int* ranges, const float* peel,
                               float* u, float* v, float* zw, float* idf, float* dudx,
                               float* dudy, float* dvdx, float* dvdy, float* zbuf, int B, int T,
-                              int sets, int H, int W, int y0, float xs, float xo, float ys,
-                              float yo, void* stream) {
+                              int sets, int H, int W, int y0, int api, float xs, float xo,
+                              float ys, float yo, void* stream) {
     if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
+    if (api && (reinterpret_cast<size_t>(u) % 16 || reinterpret_cast<size_t>(dudx) % 16 ||
+                v != nullptr || zw != nullptr || idf != nullptr || dudy != nullptr ||
+                dvdx != nullptr || dvdy != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
     if ((tile_start == nullptr) != (tile_list == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const bool binned = tile_list != nullptr;
@@ -470,7 +495,8 @@ extern "C" int nvdr_rasterize(const float* rec, const float* aabb, const float* 
         return static_cast<int>(cudaErrorInvalidValue);
     Args a{rec, reinterpret_cast<const float4*>(aabb), reinterpret_cast<const float4*>(boxes),
            tile_start, tile_list, tile_order, ranges, peel,
-           {u, v, zw, idf, dudx, dudy, dvdx, dvdy, zbuf}, T, sets, H, W, y0, xs, xo, ys, yo};
+           {u, v, zw, idf, dudx, dudy, dvdx, dvdy, zbuf}, T, sets, H, W, y0, api,
+           xs, xo, ys, yo};
     const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     // The 8 variants: db, binned and peel are compile-time flags.

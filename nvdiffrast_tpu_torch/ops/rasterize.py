@@ -4,13 +4,14 @@ Counterpart of ``nvdiffrast_tpu/ops/rasterize.py``: the
 correctly-rounded edge coefficient product, the near-plane epsilon, the
 context class, the argument checks, ``rasterize``, a
 ``torch.autograd.Function``, and ``DepthPeeler``. The forward is the
-rasterizer kernel with bary derivatives
-(``rasterize_cuda.rasterize_fused(emit_db=True)``) in instance or range
+record setup and the rasterizer kernel with bary derivatives
+(``rasterize_cuda.rasterize_records(emit_db=True)``) in instance or range
 mode, under a viewport, and with the peel depth of the previous layer;
-the backward gathers each pixel's clip-space vertex table column (kernel
-B9, ``gather.table_take``), runs the per-pixel math of
-``_raster_grad_pixel_cols`` as tensor glue (it is XLA in the JAX package
-too), reduces the rows to triangles (kernel B10,
+the kernel writes rast and rast_db as ``[B, H, W, 4]`` itself. The
+backward reads the id channel of rast, gathers each pixel's clip-space
+vertex table column (kernel B9, ``gather.table_take``), runs the
+per-pixel math of ``_raster_grad_pixel_cols`` as tensor glue (it is XLA
+in the JAX package too), reduces the rows to triangles (kernel B10,
 ``scatter.scatter_add_by_id``) and sums them into vertices (in range
 mode into the one shared ``[V, 4]``, over all images).
 """
@@ -278,34 +279,38 @@ class _RasterizeFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos, tri, resolution, grad_db, ranges, peel, viewport, emit_zbuf):
-        from .rasterize_cuda import rasterize_fused
+        from .rasterize_cuda import rasterize_records, setup_records
 
-        outs = rasterize_fused(pos, tri, resolution, ranges, peel, viewport, emit_db=True,
-                               emit_zbuf=emit_zbuf)
-        ctx.save_for_backward(pos, tri, outs[3])
+        # The arguments were checked by _prepare.
+        outs = rasterize_records(setup_records(pos, tri, resolution, viewport), resolution,
+                                 True, ranges=ranges, peel=peel, viewport=viewport,
+                                 emit_zbuf=emit_zbuf, _api_layout=True)
+        rast, rast_db = outs[:2]
+        ctx.save_for_backward(pos, tri, rast)
         ctx.meta = (resolution, grad_db, viewport)
         ctx.set_materialize_grads(False)
-        zbuf = outs[8] if emit_zbuf else None
+        zbuf = outs[2] if emit_zbuf else None
         if emit_zbuf:
             ctx.mark_non_differentiable(zbuf)
-        return torch.stack(outs[:4], dim=-1), torch.stack(outs[4:8], dim=-1), zbuf
+        return rast, rast_db, zbuf
 
     @staticmethod
     @once_differentiable
     @spanned("nvdr.rasterize.bwd")
     def backward(ctx, d_rast, d_db, _d_zbuf):
-        pos, tri, idf = ctx.saved_tensors
+        pos, tri, rast = ctx.saved_tensors
         resolution, grad_db, viewport = ctx.meta
         if not grad_db:
             d_db = None
         if d_rast is None and d_db is None:
             return (None,) * 8
-        N = idf.numel()
+        N = rast.numel() // 4
+        idf = rast.reshape(N, 4)[:, 3]
         zero = idf.new_zeros(N)
         dy = (zero, zero) if d_rast is None else tuple(d_rast.reshape(N, 4).T[:2])
         ddb = None if d_db is None else tuple(d_db.reshape(N, 4).T)
         g_pos = raster_pos_grad(vertex_table(pos, tri), tri, tuple(pos.shape),
-                                idf.reshape(N), *dy, ddb, resolution, viewport)
+                                idf, *dy, ddb, resolution, viewport)
         return (g_pos,) + (None,) * 7
 
 

@@ -27,7 +27,10 @@ Counterpart of ``nvdiffrast_tpu/ops/rasterize_pallas.py``.
   (u, v, z/w, id); with ``emit_db`` also the four bary pixel
   derivatives (dudx, dudy, dvdx, dvdy) from the winner's edge
   gradients; range windows, the peel cull on the rounded depth, the
-  zbuf output and viewport rows as arguments. ``rasterize_records_plain``
+  zbuf output and viewport rows as arguments; for the ``rasterize`` op
+  (a private argument) it writes rast and rast_db as ``[B, H, W, 4]``
+  itself, one 16-byte store each a pixel, where the pipelines read the
+  planar columns. ``rasterize_records_plain``
   is its plain PyTorch twin with the same arithmetic in the same merge
   order (ascending id per pixel; candidates per 8x4 pixel block of a
   warp whose AABB test they pass, from the tile's records or its list),
@@ -86,10 +89,11 @@ _SLOP_MARGIN = 1.25
 
 # One kernel family behind one entry point (csrc/rasterize.cu
 # nvdr_rasterize: rec, aabb, boxes, tile_start, tile_list, tile_order,
-# ranges, peel, 9 outputs; B, T, sets, H, W, y0; xs, xo, ys, yo), with one
-# launch count per mode. A launch counts under the first of: peel, range
-# mode, viewport band (each binned or not), binned, db, plain.
-_RASTER_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+# ranges, peel, 9 outputs; B, T, sets, H, W, y0, api; xs, xo, ys, yo), with
+# one launch count per mode. A launch counts under the first of: the
+# rasterize op's [B, H, W, 4] layout (any sweep mode), peel, range mode,
+# viewport band (each binned or not), binned, db, plain.
+_RASTER_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
 
 
 def _raster_mode(name):
@@ -102,6 +106,7 @@ BINNED_KERNEL = _raster_mode("nvdr_rasterize_binned")
 PEEL_KERNEL = _raster_mode("nvdr_rasterize_peel")    # with a peel buffer
 RANGE_KERNEL = _raster_mode("nvdr_rasterize_range")  # range mode
 BAND_KERNEL = _raster_mode("nvdr_rasterize_band")    # viewport band
+API_KERNEL = _raster_mode("nvdr_rasterize_api")      # rast, rast_db [B, H, W, 4]
 # Record setup (csrc/raster_setup.cu).
 SETUP_KERNEL = _build.Kernel(
     "nvdr_raster_setup", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
@@ -530,10 +535,13 @@ def _modes(rec, aabb, resolution, ranges, peel, viewport):
 
 
 def rasterize_records(setup, resolution, emit_db=False, *, ranges=None, peel=None,
-                      viewport=None, emit_zbuf=False):
+                      viewport=None, emit_zbuf=False, _api_layout=False):
     """Rasterize prepass records: (u, v, zw, idf), each [B, H, W] f32,
     followed by (dudx, dudy, dvdx, dvdy) when `emit_db` and by zbuf
-    (pz/pw, +inf where empty) when `emit_zbuf`.
+    (pz/pw, +inf where empty) when `emit_zbuf`. `_api_layout` (the
+    rasterize op's) returns (rast [B, H, W, 4], rast_db [B, H, W, 4] when
+    `emit_db`, zbuf when `emit_zbuf`): the same values, the columns
+    stacked on the last axis.
 
     setup: the tuple (rec [S, T, 16], aabb [S, T, 4], counts, boxes) of
     ``setup_records``; ranges [B, 2] int32 (range mode, S = 1); peel
@@ -541,8 +549,9 @@ def rasterize_records(setup, resolution, emit_db=False, *, ranges=None, peel=Non
     records' setup. The sweep walks the per-tile lists of ``bin_records``
     when ``binned_by_default``, else the chunk boxes.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (built at first use) or raise.
+    CPU tensors run the plain twin (with `_api_layout`, its columns
+    stacked: the twin of the kernel's [B, H, W, 4] stores); CUDA tensors
+    launch the kernel (built at first use) or raise.
     """
     rec, aabb, counts, boxes = setup
     B = _modes(rec, aabb, resolution, ranges, peel, viewport)[0]
@@ -550,19 +559,26 @@ def rasterize_records(setup, resolution, emit_db=False, *, ranges=None, peel=Non
     if binned_by_default(B, rec.shape[1], resolution):
         bins = bin_records(aabb, resolution, counts)
     with span("nvdr.raster.sweep"):
-        if rec.device.type == "cpu":
-            return rasterize_records_plain(rec, aabb, resolution, emit_db, ranges=ranges,
-                                           peel=peel, viewport=viewport, emit_zbuf=emit_zbuf,
-                                           bins=bins)
-        return launch_records(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel,
-                              viewport=viewport, emit_zbuf=emit_zbuf, bins=bins, boxes=boxes)
+        if rec.device.type != "cpu":
+            return launch_records(rec, aabb, resolution, emit_db, ranges=ranges, peel=peel,
+                                  viewport=viewport, emit_zbuf=emit_zbuf, bins=bins,
+                                  boxes=boxes, _api_layout=_api_layout)
+        outs = rasterize_records_plain(rec, aabb, resolution, emit_db, ranges=ranges,
+                                       peel=peel, viewport=viewport, emit_zbuf=emit_zbuf,
+                                       bins=bins)
+        if not _api_layout:
+            return outs
+        return ((torch.stack(outs[:4], dim=-1),)
+                + ((torch.stack(outs[4:8], dim=-1),) if emit_db else ())
+                + outs[4 + 4 * emit_db:])
 
 
 def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=None,
-                   viewport=None, emit_zbuf=False, bins=None, boxes=None):
+                   viewport=None, emit_zbuf=False, bins=None, boxes=None, _api_layout=False):
     """The kernel launch of ``rasterize_records`` on CUDA tensors: the
     binned sweep over the lists `bins` of ``bin_records``, or else the
-    unbinned one over the chunk boxes `boxes` of ``setup_records``."""
+    unbinned one over the chunk boxes `boxes` of ``setup_records``;
+    `_api_layout` as there."""
     B, S, y0, Hf, ranges = _modes(rec, aabb, resolution, ranges, peel, viewport)
     if rec.device.type != "cuda":
         raise ValueError(f"rasterize_records: unsupported device {rec.device}")
@@ -573,10 +589,20 @@ def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=No
     if rec.data_ptr() % 16 or aabb.data_ptr() % 16:
         raise ValueError("rasterize_records: inputs must be 16-byte aligned")
     dev = rec.device
-    outs = [torch.empty((B, H, W), dtype=torch.float32, device=dev)
-            for _ in range(4 + 4 * emit_db + emit_zbuf)]
-    ptrs = [_build.ptr(o) for o in outs[:4]]
-    ptrs += [_build.ptr(o) for o in outs[4:8]] if emit_db else [None] * 4
+    if _api_layout:
+        # rast and rast_db [B, H, W, 4], zbuf [B, H, W]; torch.empty's
+        # storage is 16-byte aligned, as the kernel's float4 stores need.
+        outs = [torch.empty((B, H, W, 4), dtype=torch.float32, device=dev)
+                for _ in range(1 + emit_db)]
+        if emit_zbuf:
+            outs.append(torch.empty((B, H, W), dtype=torch.float32, device=dev))
+        ptrs = [_build.ptr(outs[0]), None, None, None]
+        ptrs += [_build.ptr(outs[1]) if emit_db else None, None, None, None]
+    else:
+        outs = [torch.empty((B, H, W), dtype=torch.float32, device=dev)
+                for _ in range(4 + 4 * emit_db + emit_zbuf)]
+        ptrs = [_build.ptr(o) for o in outs[:4]]
+        ptrs += [_build.ptr(o) for o in outs[4:8]] if emit_db else [None] * 4
     ptrs.append(_build.ptr(outs[-1]) if emit_zbuf else None)
     start = lst = order = None
     if bins is not None:
@@ -592,7 +618,9 @@ def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=No
         if boxes.shape != (S, -(-T // CHUNK), 4) or boxes.data_ptr() % 16:
             raise ValueError("rasterize_records: boxes must be [S, ceil(T / 256), 4], "
                              "16-byte aligned")
-    if peel is not None:
+    if _api_layout:
+        kernel = API_KERNEL
+    elif peel is not None:
         kernel = PEEL_KERNEL
     elif ranges is not None:
         kernel = RANGE_KERNEL
@@ -610,7 +638,7 @@ def launch_records(rec, aabb, resolution, emit_db=False, *, ranges=None, peel=No
     opt = [None if t is None else _build.ptr(t)
            for t in (boxes, start, lst, order, ranges, peel)]
     kernel.launch(dev, _build.ptr(rec), _build.ptr(aabb), *opt, *ptrs,
-                  B, T, S, H, W, y0, xs, xo, ys, yo)
+                  B, T, S, H, W, y0, int(_api_layout), xs, xo, ys, yo)
     return tuple(outs)
 
 

@@ -838,7 +838,7 @@ def test_composed_ops_grads_gpu_repeatable_and_match_cpu(dev):
         img = dr.antialias(col, rast, pv, tt, pos_gradient_boost=2.0)
         return torch.autograd.grad(img.square().mean() + 0.1 * da.square().mean(), (pv, av))
 
-    kernels = (rc.DB_KERNEL, ic.KERNEL, ic.BWD_KERNEL, ac.KERNEL, ac.BWD_KERNEL, tg.KERNEL,
+    kernels = (rc.API_KERNEL, ic.KERNEL, ic.BWD_KERNEL, ac.KERNEL, ac.BWD_KERNEL, tg.KERNEL,
                ts.KERNEL)
     before = [k.launches for k in kernels]
     gpu = grads(dev)
@@ -1239,14 +1239,22 @@ def _modes_scene(dev):
     return (*inputs_from_numpy(pos, tri, device=dev), (67, 130))
 
 
-@pytest.mark.parametrize("mode", ["peel", "range", "band", "binned", "binned_range",
-                                  "binned_peel", "binned_band", "binned_ordered"])
-def test_rasterize_mode_kernels_match_twin(dev, mode, monkeypatch):
+@pytest.mark.parametrize("layout", ["planar", "api"])
+@pytest.mark.parametrize("mode", ["unbinned", "peel", "range", "band", "binned",
+                                  "binned_range", "binned_peel", "binned_band",
+                                  "binned_ordered"])
+def test_rasterize_mode_kernels_match_twin(dev, mode, layout, monkeypatch):
+    """Each sweep mode's planar launch bit for bit with the twin, under its
+    mode's launch count; with the rasterize op's layout, the one launch
+    (counted under API_KERNEL alone) writes rast and rast_db [B, H, W, 4]
+    bit for bit the planar columns stacked, and the same zbuf."""
+    from nvdiffrast_tpu_torch import _build
+
     p, t, res = _modes_scene(dev)
     T = t.shape[0]
-    kw, kernel = {}, {"peel": rc.PEEL_KERNEL, "range": rc.RANGE_KERNEL,
-                      "band": rc.BAND_KERNEL, "binned_range": rc.RANGE_KERNEL,
-                      "binned_peel": rc.PEEL_KERNEL,
+    kw, kernel = {}, {"unbinned": rc.DB_KERNEL, "peel": rc.PEEL_KERNEL,
+                      "range": rc.RANGE_KERNEL, "band": rc.BAND_KERNEL,
+                      "binned_range": rc.RANGE_KERNEL, "binned_peel": rc.PEEL_KERNEL,
                       "binned_band": rc.BAND_KERNEL}.get(mode, rc.BINNED_KERNEL)
     monkeypatch.setattr(rc, "BIN_MIN_WORK", 0 if mode.startswith("binned") else 1 << 62)
     pos = p
@@ -1270,6 +1278,18 @@ def test_rasterize_mode_kernels_match_twin(dev, mode, monkeypatch):
     assert len(got) == 9 and int((got[3] > 0).sum()) > 500
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
+    if layout == "api":
+        before = _build.launch_counts()
+        api = rc.rasterize_records(setup, res, True, viewport=viewport, emit_zbuf=True,
+                                   _api_layout=True, **kw)
+        torch.cuda.synchronize()
+        rose = {k: n - before.get(k, 0) for k, n in _build.launch_counts().items()
+                if k.startswith("nvdr_rasterize") and n != before.get(k, 0)}
+        assert rose == {rc.API_KERNEL.name: 1}
+        assert len(api) == 3 and all(x.is_contiguous() for x in api)
+        assert torch.equal(api[0], torch.stack(got[:4], dim=-1))
+        assert torch.equal(api[1], torch.stack(got[4:8], dim=-1))
+        assert torch.equal(api[2], got[8])
 
 
 @pytest.mark.parametrize("mode", ["instance", "sphere", "range", "viewport"])
@@ -1397,7 +1417,12 @@ def test_aa_mode_kernels_match_twins(dev, mode):
         assert torch.equal(x, y)
 
 
-def test_depth_peeler_and_range_mode_gpu_match_cpu(dev):
+@pytest.mark.parametrize("binned", [False, True], ids=["unbinned", "binned"])
+def test_depth_peeler_and_range_mode_gpu_match_cpu(dev, binned, monkeypatch):
+    """The rasterize op (instance with db, range mode, a viewport band)
+    and a 3-layer DepthPeeler on the card: every rast and rast_db bit for
+    bit the CPU path's, unbinned and binned; the gradients within 1e-5."""
+    monkeypatch.setattr(rc, "BIN_MIN_WORK", 0 if binned else 1 << 62)
     p, t, res = _modes_scene("cpu")
     T = t.shape[0]
     ranges = torch.tensor([[0, T], [40, 90]], dtype=torch.int32)
@@ -1405,20 +1430,27 @@ def test_depth_peeler_and_range_mode_gpu_match_cpu(dev):
     def run(device):
         pv = p.to(device).requires_grad_()
         tt = t.to(device)
-        loss = 0.0
+        outs, loss = [], 0.0
         with dr.DepthPeeler(dr.RasterizeCudaContext(), pv, tt, res) as peeler:
             for _ in range(3):
                 rast, db = peeler.rasterize_next_layer()
+                outs += [rast, db]
                 loss = loss + (rast[..., :2] ** 2).sum() + db.sum()
         p2 = pv[0]
-        rast, _ = dr.rasterize(None, p2, tt, res, ranges=ranges.to(device))
+        rast, db = dr.rasterize(None, p2, tt, res, ranges=ranges.to(device))
+        outs += [rast, db]
         loss = loss + (rast[..., :2] ** 2).sum()
-        return [x.cpu() for x in (rast, *torch.autograd.grad(loss, pv))]
+        for kw in ({}, {"viewport": (20, 97)}):
+            rast, db = dr.rasterize(None, pv, tt, res, **kw)
+            outs += [rast, db]
+            loss = loss + (rast[..., :2] ** 2).sum() + 0.1 * db.sum()
+        return [x.detach().cpu() for x in outs] + [torch.autograd.grad(loss, pv)[0].cpu()]
 
     gpu, cpu = run(dev), run("cpu")
-    assert torch.equal(gpu[0], cpu[0])
-    scale = float(cpu[1].abs().max())
-    assert scale > 0 and float((gpu[1] - cpu[1]).abs().max()) <= 1e-5 * scale
+    for x, y in zip(gpu[:-1], cpu[:-1]):
+        assert x.shape[-1] == 4 and torch.equal(x, y)
+    scale = float(cpu[-1].abs().max())
+    assert scale > 0 and float((gpu[-1] - cpu[-1]).abs().max()) <= 1e-5 * scale
 
 
 def test_textured_step_spans_count_syncs_and_launches(dev):
